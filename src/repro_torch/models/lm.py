@@ -1,0 +1,65 @@
+"""LM facade of the serve path, ``tokens`` frontend, dense family.
+
+* ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
+* ``init_cache`` / ``prefill`` / ``decode_step`` — serving
+
+Init draws from the same distributions as the JAX init (normal·0.02, and
+``0.02/sqrt(2·n_layers)`` for output projections) from a ``torch.Generator``;
+the values differ from ``jax.random``'s. Tests copy JAX params over instead
+(``repro_torch.convert.params_from_jax``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from . import transformer
+from .config import ModelConfig
+from .layers import Params, apply_norm, embed_tokens, init_embedding, init_norm, logits_for
+
+
+def _check_frontend(cfg: ModelConfig) -> None:
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet "
+                                  "(ROADMAP.md)")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+    _check_frontend(cfg)
+    return {
+        "embed": init_embedding(cfg, generator, device),
+        "backbone": transformer.init_params(cfg, generator, device),
+        "final_norm": init_norm(cfg, device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+    return transformer.init_cache(cfg, batch, max_len, device)
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            max_len: int) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt ``batch["tokens"]`` (B,S); returns (last-position logits
+    (B,V), populated cache)."""
+    _check_frontend(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    cache = init_cache(cfg, B, max_len, x.device)
+    hidden, cache = transformer.prefill_hidden(cfg, params["backbone"], x,
+                                               positions, cache)
+    last = apply_norm(cfg, params["final_norm"], hidden[:, -1])
+    return logits_for(cfg, params["embed"], last), cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                token: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step. token (B,) int, pos (B,) absolute position. Returns
+    (logits (B,V), cache); the cache is updated in place."""
+    x_t = embed_tokens(cfg, params["embed"], token[:, None])
+    x_t, cache = transformer.decode_hidden(cfg, params["backbone"], cache, x_t, pos)
+    h = apply_norm(cfg, params["final_norm"], x_t[:, 0])
+    return logits_for(cfg, params["embed"], h), cache

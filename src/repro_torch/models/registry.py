@@ -1,0 +1,28 @@
+"""Architecture registry: --arch <id> → ModelConfig, for the ported archs only."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from .config import ModelConfig
+
+# arch id → config module name under repro_torch.configs
+ARCHS: Dict[str, str] = {
+    "qwen3-1.7b": "qwen3_1p7b",
+}
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCHS:
+        raise KeyError(
+            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
+            f"{sorted(ARCHS)}); see ROADMAP.md for the order of the port")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).SMOKE_CONFIG
