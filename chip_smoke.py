@@ -6,21 +6,28 @@ Phases, each printed as one JSON object per line:
 
 1. device: name, capability, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build: both CUDA sources under src/repro_torch/kernels/csrc, one nvcc per
-   source, started together;
+2. build: the four CUDA sources under src/repro_torch/kernels/csrc, one nvcc
+   per source, started together;
 3. checks: each kernel against its plain PyTorch version on the card, on the
-   same inputs (f32 at 2e-5 with TF32 off, bf16 at 2e-2);
-4. serve: qwen3-1.7b at full width with random weights from a seed, 8
-   requests in batches of 4, prompt 512, 32 generated tokens, through
-   repro_torch.launch.serve; the launch counters must read exactly 56 flash
-   and 1792 decode launches and the plain-version counter 0;
-5. serve_vs_plain: prefill and teacher-forced decode logits with the kernels
-   against the same model on the plain versions, on the card, in f32 and bf16;
-6. trace: device busy and idle share of one prefill and of decode steps;
-7. times: each kernel at the serve shapes (CUDA events), its plain version,
-   scaled_dot_product_attention as the library yardstick on the same inputs
-   (checked against the kernel) and, labelled apart, on contiguous
-   (B, heads, S, Dh) copies made outside the timing, and the bound.
+   same inputs, in f32 (TF32 off) and bf16: flash and decode attention at
+   2e-5 / 2e-2, the RG-LRU scan at 1e-4 / 3e-2, the SSD scan against the
+   sequential oracle at 5e-4 (bf16: 2e-2 on y, the oracle rounding only its
+   output) and against the port's chunked plain version within a relative
+   RMS of 1e-2 in bf16 (5e-4 in f32); the cases include each serve shape,
+   ragged S and W, a non-zero h0, group 16 at head_dim 256 and a window
+   that cuts keys;
+4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
+   with random weights from seed 0 — serve: 8 requests in batches of 4, 32
+   generated tokens, greedy, through repro_torch.launch.serve, with every
+   launch counter set to 0 just before and read just after: the counts must
+   be exactly those of EXPECTED and the plain-version counter 0;
+   serve_vs_plain: prefill and teacher-forced decode logits with the kernels
+   against the same model on the plain versions, on the card, in bf16 and
+   f32 (recurrentgemma-9b's f32 copy keeps one pattern unit and the tail);
+   trace: device busy and idle share of one prefill and of decode steps;
+5. times: each kernel at its serve shapes (CUDA events), its plain version,
+   a PyTorch call computing the same function where there is one (checked
+   against the kernel), and the bound.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -40,14 +47,34 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 F32_TOL, BF16_TOL = 2e-5, 2e-2
-SERVE = dict(arch="qwen3-1.7b", requests=8, batch=4, prompt_len=512, gen_len=32, seed=0)
+RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSD_ORACLE_TOL = 5e-4
+# SSD kernel vs the port's chunked plain version in bf16: the plain version
+# rounds its dot inputs to bf16 as the JAX package does, the kernel does all
+# products in f32. These checks measure a relative RMS of up to 3.3e-3 on y
+# and 1.9e-3 on the final state on an H100 (S 37-2048, N 16-128); 1e-2 bounds
+# that rounding, a wrong decay or mask moves y by order 100%.
+SSD_PLAIN_BF16_REL_RMS = 1e-2
+SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
+SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
+PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072}
+EXPECTED = {  # exact launches of one serve run; every other counter must read 0
+    "qwen3-1.7b": {"flash_attention": 56, "decode_attention": 1792},
+    "mamba2-1.3b": {"ssd_scan": 96},
+    "recurrentgemma-9b": {"rglru_scan": 52, "flash_attention": 24, "decode_attention": 768},
+}
 # plain vs kernel serving in bf16: relative RMS of the logit difference. Both
-# attend in f32 and round to bf16, but in another order, so bf16 rounding
-# flips feed 28 layers of random weights; 5% bounds that noise while a wrong
-# mask, head or slot moves the logits by order 100% (f32 below is the tight check).
-SERVE_BF16_REL_RMS = 0.05
-SERVE_F32_ABS = 1e-3          # f32 end to end: summation order only
+# sides compute in f32 and round to bf16, but at other points, so bf16
+# rounding flips feed every layer of random weights; the bound is about twice
+# that noise as measured on the card (0.029 qwen3 over 28 layers; 0.040
+# mamba2 over 48, whose plain SSD also rounds its dot inputs to bf16 where
+# the kernel does not; 0.037 recurrentgemma over 38), while a wrong mask,
+# head, slot or decay moves the logits by order 100%. f32 is the tight check
+# (summation order only).
+SERVE_BF16_REL_RMS = {"qwen3-1.7b": 0.05, "mamba2-1.3b": 0.08, "recurrentgemma-9b": 0.08}
+SERVE_F32_ABS = 1e-3
 
 
 def emit(key, value):
@@ -89,6 +116,17 @@ def max_err(got, want, tol):
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def rel_rms(got, want):
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def kernel_modules():
+    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+
+
 # --------------------------------------------------------------------------
 # kernel against plain version
 # --------------------------------------------------------------------------
@@ -107,14 +145,34 @@ FLASH_CASES = [
     (1, 64, 64, 2, 1, 32, True, 0, -16),      # rows with no visible key
     (1, 128, 128, 2, 1, 256, True, 0, 0),     # Dh 256
     (4, 512, 512, 16, 8, 128, True, 0, 0),    # qwen3-1.7b prefill, full width
+    (4, 3072, 3072, 16, 1, 256, True, 2048, 0),  # recurrentgemma-9b prefill: window cuts keys
 ]
+FLASH_SERVE = {"qwen3-1.7b": FLASH_CASES[-2], "recurrentgemma-9b": FLASH_CASES[-1]}
 DECODE_CASES = [
     # B, C, H, Hkv, Dh, cache_len
     (4, 300, 4, 2, 64, (0, 1, 300, 157)),
     (3, 128, 6, 3, 16, (128, 0, 77)),
     (2, 200, 8, 1, 256, (200, 17)),
     (2, 200, 8, 2, 128, (1, 200)),
+    (2, 300, 12, 1, 64, (300, 5)),            # group 12: a full and a partial slice
     (4, 544, 16, 8, 128, (1, 200, 544, 377)),  # qwen3-1.7b decode, full width
+    (4, 2048, 16, 1, 256, (2048, 2048, 1000, 0)),  # recurrentgemma-9b: group 16, full ring
+]
+DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[-2], "recurrentgemma-9b": DECODE_CASES[-1]}
+SSD_CASES = [
+    # B, S, H, P, N, chunk, h0
+    (4, 2048, 64, 64, 128, 256, False),       # mamba2-1.3b prefill, full width
+    (2, 300, 8, 64, 128, 256, True),          # ragged S (one full and one partial chunk), h0
+    (2, 37, 3, 8, 16, 8, True),               # smoke-sized heads, ragged S, h0
+    (1, 100, 4, 16, 32, 32, False),
+    (2, 48, 2, 64, 128, 64, False),           # S shorter than a 256 chunk would be
+]
+RGLRU_CASES = [
+    # B, S, W, h0
+    (4, 3072, 4096, False),                   # recurrentgemma-9b prefill, full width
+    (3, 1001, 1000, True),                    # ragged S and W, h0
+    (2, 7, 33, True),
+    (1, 256, 512, False),
 ]
 
 
@@ -133,25 +191,55 @@ def decode_inputs(case, dtype, dev, seed=0):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
+def ssd_inputs(case, dtype, dev, seed=0):
+    """Inputs in the ranges mamba2 gives the scan: dt = softplus(N(0,1) - 3),
+    A = -(1..16), unit-normal x, B, C and h0."""
+    B, S, H, P, N, _, with_h0 = case
+    gen = torch.Generator().manual_seed(seed)
+    x = randn(gen, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(randn(gen, (B, S, H), torch.float32, dev) - 3.0)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, Cm = randn(gen, (B, S, N), dtype, dev), randn(gen, (B, S, N), dtype, dev)
+    h0 = randn(gen, (B, H, P, N), torch.float32, dev) if with_h0 else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def rglru_inputs(case, dtype, dev, seed=0):
+    B, S, W, with_h0 = case
+    gen = torch.Generator().manual_seed(seed)
+    x = randn(gen, (B, S, W), dtype, dev)
+    a_log = -randn(gen, (B, S, W), torch.float32, dev).abs() * 0.5
+    h0 = randn(gen, (B, W), torch.float32, dev) if with_h0 else None
+    return x, a_log, h0
+
+
+def _check(kernel, case, dtype, out, ok, msg):
+    emit("check", {"kernel": kernel, "case": case, "dtype": str(dtype), **out, "ok": ok})
+    if not ok:
+        fail(f"{kernel} {case} {dtype}: {msg or out}")
+
+
 def run_checks(dev):
+    """Every kernel against its plain version; returns the bf16 max abs error
+    at each serve shape, keyed by (kernel, arch)."""
     from repro_torch.kernels import ops, ref
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {}
+    dtypes = (torch.float32, torch.bfloat16)
     for case in FLASH_CASES:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in zip(dtypes, (F32_TOL, BF16_TOL)):
             causal, window, q_offset = case[6:]
             q, k, v = flash_inputs(case, dtype, dev)
             got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
             want = ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
             torch.cuda.synchronize()
             err, ok = max_err(got, want, tol)
-            emit("check", {"kernel": "flash_attention", "case": case, "dtype": str(dtype),
-                           "max_abs_err": err, "tol": tol, "ok": ok})
-            if not ok:
-                fail(f"flash_attention {case} {dtype}: max abs err {err}")
-            if case == FLASH_CASES[-1] and dtype == torch.bfloat16:
-                worst["flash_attention"] = err
+            _check("flash_attention", case, dtype, {"max_abs_err": err, "tol": tol}, ok, "")
+            for arch, c in FLASH_SERVE.items():
+                if case == c and dtype == torch.bfloat16:
+                    worst[("flash_attention", arch)] = err
+            del q, k, v, got, want
     for case in DECODE_CASES:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in zip(dtypes, (F32_TOL, BF16_TOL)):
             q, kc, vc, cl = decode_inputs(case, dtype, dev)
             got = ops.decode_attention(q, kc, vc, cl)
             want = ref.decode_attention(q, kc, vc, cl)
@@ -159,12 +247,49 @@ def run_checks(dev):
             err, ok = max_err(got, want, tol)
             empty = [i for i, n in enumerate(case[5]) if n == 0]
             ok = ok and int(torch.count_nonzero(got[empty])) == 0
-            emit("check", {"kernel": "decode_attention", "case": case, "dtype": str(dtype),
-                           "max_abs_err": err, "tol": tol, "ok": ok})
-            if not ok:
-                fail(f"decode_attention {case} {dtype}: max abs err {err}")
-            if case == DECODE_CASES[-1] and dtype == torch.bfloat16:
-                worst["decode_attention"] = err
+            _check("decode_attention", case, dtype, {"max_abs_err": err, "tol": tol}, ok, "")
+            for arch, c in DECODE_SERVE.items():
+                if case == c and dtype == torch.bfloat16:
+                    worst[("decode_attention", arch)] = err
+    for case in SSD_CASES:
+        for dtype in dtypes:
+            x, dt, A, Bm, Cm, h0 = ssd_inputs(case, dtype, dev)
+            y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
+            yo, ho = ref.ssd_sequential(x, dt, A, Bm, Cm, h0=h0)
+            yp, hp = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
+            torch.cuda.synchronize()
+            y_tol = SSD_ORACLE_TOL if dtype == torch.float32 else BF16_TOL
+            ey, oky = max_err(y, yo, y_tol)
+            eh, okh = max_err(hf, ho, SSD_ORACLE_TOL)
+            ep, okp = max_err(y, yp, SSD_ORACLE_TOL)
+            rp = {"y": rel_rms(y, yp), "h_final": rel_rms(hf, hp)}
+            if dtype == torch.bfloat16:
+                okp = max(rp.values()) <= SSD_PLAIN_BF16_REL_RMS
+            out = {"vs_oracle": {"y_max_abs": ey, "y_tol": y_tol, "h_max_abs": eh,
+                                 "h_tol": SSD_ORACLE_TOL},
+                   "vs_plain": {"y_max_abs": ep, "rel_rms": rp,
+                                "bound": ({"max_abs_rel": SSD_ORACLE_TOL}
+                                          if dtype == torch.float32
+                                          else {"rel_rms": SSD_PLAIN_BF16_REL_RMS})},
+                   "finite": bool(torch.isfinite(y).all() and torch.isfinite(hf).all())}
+            _check("ssd_scan", case, dtype, out, oky and okh and okp and out["finite"], "")
+            if case == SSD_CASES[0] and dtype == torch.bfloat16:
+                worst[("ssd_scan", "mamba2-1.3b")] = ep
+            del x, Bm, Cm, y, yo, yp
+    for case in RGLRU_CASES:
+        for dtype in dtypes:
+            tol = RGLRU_TOL[dtype]
+            x, a_log, h0 = rglru_inputs(case, dtype, dev)
+            y, hl = ops.rglru_scan(x, a_log, h0=h0)
+            yp, hp = ref.rglru_scan(x, a_log, h0=h0)
+            torch.cuda.synchronize()
+            ey, oky = max_err(y, yp, tol)
+            eh, okh = max_err(hl, hp, tol)
+            ok = oky and okh and y.dtype == dtype and hl.dtype == dtype
+            _check("rglru_scan", case, dtype,
+                   {"y_max_abs": ey, "h_last_max_abs": eh, "tol": tol}, ok, "")
+            if case == RGLRU_CASES[0] and dtype == torch.bfloat16:
+                worst[("rglru_scan", "recurrentgemma-9b")] = max(ey, eh)
     return worst
 
 
@@ -173,48 +298,51 @@ def run_checks(dev):
 # --------------------------------------------------------------------------
 
 def run_serve(cfg, params, dev, card):
-    from repro_torch.kernels import decode_attention as kdec
-    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
-    kw = {k: SERVE[k] for k in ("batch", "prompt_len", "gen_len", "seed")}
+    mods = kernel_modules()
+    kw = dict(batch=SERVE["batch"], prompt_len=PROMPT[cfg.arch_id], gen_len=SERVE["gen_len"],
+              seed=SERVE["seed"])
     # warm-up: cuBLAS handles, allocator pools and the kernels' first launches
-    serve.serve(cfg, params, device=dev, requests=SERVE["batch"],
-                **{**kw, "gen_len": 2})
-    kflash.launches = kdec.launches = ref.calls = 0
+    serve.serve(cfg, params, device=dev, requests=SERVE["batch"], **{**kw, "gen_len": 2})
+    for m in mods.values():
+        m.launches = 0
+    ref.calls = 0
     res = serve.serve(cfg, params, device=dev, requests=SERVE["requests"], **kw)
-    launches = {"flash_attention": kflash.launches, "decode_attention": kdec.launches}
+    launches = {name: m.launches for name, m in mods.items()}
     plain_calls = ref.calls
+    expected = {name: EXPECTED[cfg.arch_id].get(name, 0) for name in mods}
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
-    expected = {"flash_attention": cfg.n_layers * n_batches,
-                "decode_attention": cfg.n_layers * n_batches * SERVE["gen_len"]}
     ms = 1e-6
     out = {
-        "card": card, "arch": cfg.arch_id, "params": cfg.param_count(), **SERVE,
+        "card": card, "arch": cfg.arch_id, "params": cfg.param_count(),
+        "requests": SERVE["requests"], **kw,
         "ttft_ms_median": res["ttft"].median_ns * ms, "ttft_ms_p99": res["ttft"].p99_ns * ms,
         "tpot_ms_median": res["tpot"].median_ns * ms, "tpot_ms_p99": res["tpot"].p99_ns * ms,
         "tok_per_s": res["tok_per_s"], "wall_s": res["wall_s"],
         "total_tokens": res["total_tokens"], "launches": launches,
         "expected_launches": expected, "plain_calls": plain_calls, "finite": res["finite"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
     emit("serve", out)
     if launches != expected:
-        fail(f"launch counts {launches} != expected {expected}")
+        fail(f"{cfg.arch_id}: launch counts {launches} != expected {expected}")
     if plain_calls != 0:
-        fail(f"serving called the plain attention {plain_calls} times")
+        fail(f"{cfg.arch_id}: serving called the plain versions {plain_calls} times")
     if not res["finite"]:
-        fail("serving produced non-finite logits")
+        fail(f"{cfg.arch_id}: serving produced non-finite logits")
     if res["tokens"].shape != (n_batches * SERVE["batch"], SERVE["gen_len"] + 1):
-        fail(f"generated tokens have shape {tuple(res['tokens'].shape)}")
+        fail(f"{cfg.arch_id}: generated tokens have shape {tuple(res['tokens'].shape)}")
     return out
 
 
-class plain_attention:
-    """Within the block, the model's attention calls go to the plain versions."""
+class plain_kernels:
+    """Within the block, the model's kernel calls go to the plain versions."""
+    NAMES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
-        self.ops, self.saved = ops, (ops.flash_attention, ops.decode_attention)
+        self.ops, self.saved = ops, {n: getattr(ops, n) for n in self.NAMES}
 
         def flash(q, k, v, *, causal=True, window=0, q_offset=0, softmax_scale=None):
             return ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -223,10 +351,18 @@ class plain_attention:
         def decode(q, kc, vc, cl, *, softmax_scale=None):
             return ref.decode_attention(q, kc, vc, cl, softmax_scale=softmax_scale)
 
-        ops.flash_attention, ops.decode_attention = flash, decode
+        def ssd(x, dt, A, Bm, Cm, *, chunk=128, h0=None):
+            return ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+
+        def rglru(x, a_log, *, h0=None):
+            return ref.rglru_scan(x, a_log, h0=h0)
+
+        for name, fn in zip(self.NAMES, (flash, decode, ssd, rglru)):
+            setattr(ops, name, fn)
 
     def __exit__(self, *exc):
-        self.ops.flash_attention, self.ops.decode_attention = self.saved
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
 
 
 def logits_run(cfg, params, prompt, steps, forced=None):
@@ -245,45 +381,63 @@ def logits_run(cfg, params, prompt, steps, forced=None):
     return torch.stack(outs), toks
 
 
-def run_serve_vs_plain(cfg, params, dev, steps=4):
-    gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
-                           generator=gen).to(dev)
-    out = {}
-    for name in ("bfloat16", "float32"):
-        c, p = cfg, params
-        if name == "float32":  # f32 copy of the same weights: order of sums only
-            c = cfg.replace(param_dtype="float32", compute_dtype="float32")
-            p = _cast_tree(params, torch.float32)
-        kern, toks = logits_run(c, p, prompt, steps)
-        with plain_attention():
-            plain, _ = logits_run(c, p, prompt, steps, forced=toks)
-        del p
-        diff = kern - plain
-        rel_rms = float(diff.norm() / plain.norm())
-        max_abs = float(diff.abs().max())
-        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-        ok = bool(torch.isfinite(kern).all()) and (
-            rel_rms <= SERVE_BF16_REL_RMS if name == "bfloat16" else max_abs <= SERVE_F32_ABS)
-        out[name] = {"prefill_max_abs": float(diff[0].abs().max()),
-                     "decode_max_abs": float(diff[1:].abs().max()),
-                     "max_abs": max_abs, "rel_rms": rel_rms, "argmax_agree": agree,
-                     "max_abs_logit": float(plain.abs().max()), "decode_steps": steps,
-                     "bound": ({"rel_rms": SERVE_BF16_REL_RMS} if name == "bfloat16"
-                               else {"max_abs": SERVE_F32_ABS}), "ok": ok}
-        if not ok:
-            emit("serve_vs_plain", out)
-            fail(f"serving with kernels disagrees with plain attention in {name}: {out[name]}")
-        torch.cuda.empty_cache()
-    emit("serve_vs_plain", out)
-
-
 def _cast_tree(node, dtype):
+    """Every leaf in ``dtype`` (the f32 decay leaves are f32 already)."""
     if isinstance(node, dict):
         return {k: _cast_tree(v, dtype) for k, v in node.items()}
     if isinstance(node, list):
         return [_cast_tree(v, dtype) for v in node]
     return node.to(dtype)
+
+
+def f32_copy(cfg, params):
+    """An f32 copy of the served model. recurrentgemma-9b (35 GB in f32) keeps
+    its first pattern unit and the tail: full width, 5 of 38 layers."""
+    c = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p = params
+    if cfg.family == "hybrid":
+        c = c.replace(n_layers=len(cfg.block_pattern) + len(params["backbone"]["tail"]))
+        unit0 = [{k: _slice0(v) for k, v in u.items()} for u in params["backbone"]["units"]]
+        p = {**params, "backbone": {"units": unit0, "tail": params["backbone"]["tail"]}}
+    return c, _cast_tree(p, torch.float32)
+
+
+def _slice0(node):
+    return {k: _slice0(v) for k, v in node.items()} if isinstance(node, dict) else node[:1]
+
+
+def run_serve_vs_plain(cfg, params, dev, steps=4):
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[cfg.arch_id]),
+                           generator=gen).to(dev)
+    out = {"arch": cfg.arch_id}
+    for name in ("bfloat16", "float32"):
+        c, p = (cfg, params) if name == "bfloat16" else f32_copy(cfg, params)
+        kern, toks = logits_run(c, p, prompt, steps)
+        with plain_kernels():
+            plain, _ = logits_run(c, p, prompt, steps, forced=toks)
+        del p
+        diff = kern - plain
+        rr = float(diff.norm() / plain.norm())
+        max_abs = float(diff.abs().max())
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        bf16_bound = SERVE_BF16_REL_RMS[cfg.arch_id]
+        ok = bool(torch.isfinite(kern).all()) and (
+            rr <= bf16_bound if name == "bfloat16" else max_abs <= SERVE_F32_ABS)
+        out[name] = {"n_layers": c.n_layers,
+                     "prefill_max_abs": float(diff[0].abs().max()),
+                     "decode_max_abs": float(diff[1:].abs().max()),
+                     "max_abs": max_abs, "rel_rms": rr, "argmax_agree": agree,
+                     "max_abs_logit": float(plain.abs().max()), "decode_steps": steps,
+                     "bound": ({"rel_rms": bf16_bound} if name == "bfloat16"
+                               else {"max_abs": SERVE_F32_ABS}), "ok": ok}
+        del kern, plain, diff
+        torch.cuda.empty_cache()
+        if not ok:
+            emit("serve_vs_plain", out)
+            fail(f"{cfg.arch_id}: serving with kernels disagrees with the plain versions "
+                 f"in {name}: {out[name]}")
+    emit("serve_vs_plain", out)
 
 
 # --------------------------------------------------------------------------
@@ -307,9 +461,9 @@ def run_trace(cfg, params, dev, steps=8):
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     from repro_torch.models import lm
-    B, S = SERVE["batch"], SERVE["prompt_len"]
+    B, S = SERVE["batch"], PROMPT[cfg.arch_id]
     prompt = torch.randint(0, cfg.vocab_size, (B, S), device=dev)
-    out = {}
+    out = {"arch": cfg.arch_id}
     for phase in ("prefill", "decode"):
         torch.cuda.synchronize()
         if phase == "decode":
@@ -347,56 +501,72 @@ def run_trace(cfg, params, dev, steps=8):
 # kernel times and bounds
 # --------------------------------------------------------------------------
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def run_times(cfg, dev, launches, errs, card):
+def _row(name, arch, launches, errs, card, **kw):
+    src = {"flash_attention": ("flash_attention.cu", "flash_attention.py:92"),
+           "decode_attention": ("decode_attention.cu", "decode_attention.py:62"),
+           "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:66"),
+           "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:46")}[name]
+    return {"name": f"{name} ({arch})", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src[0]}",
+            "replaces": f"src/repro/kernels/{src[1]}",
+            "launches": launches[arch][name], "max_abs_err": errs[(name, arch)],
+            **kw, "card": card}
+
+
+def time_flash(arch, launches, errs, card, dev):
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
-    B, S, gen_len = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
-    H, Hkv, Dh, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    case = FLASH_SERVE[arch]
+    B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
-    el = 2
-    rows = []
-
-    # flash: the prefill call, causal over the 512-token prompt
-    q, k, v = flash_inputs((B, S, S, H, Hkv, Dh), dt, dev, seed=3)
-    pairs = S * (S + 1) // 2  # visible (q, k) pairs per (b, h) under the causal mask
-    b_ms, b_by = bound(el * (2 * q.numel() + k.numel() + v.numel()), 4 * Dh * pairs * B * H)
+    q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
+    # visible (q, k) pairs per (b, h) under the causal and window masks
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * Dh * pairs * B * H)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    heads_major = [t.contiguous() for t in (qt, kt, vt)]
+    mask = None
+    if window:  # SDPA takes the window only as a mask, built outside the timing
+        mask = ref.attention_mask(S, S, causal=causal, window=window, device=dev)
     kern = lambda: kflash.flash_attention_cuda(  # noqa: E731
-        q, k, v, causal=True, window=0, q_offset=0, softmax_scale=scale)
+        q, k, v, causal=causal, window=window, q_offset=0, softmax_scale=scale)
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True).transpose(1, 2)
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": launches["flash_attention"], "max_abs_err": errs["flash_attention"],
-        "ms": time_ms(kern),
-        "plain_ms": time_ms(lambda: ref.mha(q, k, v, causal=True, softmax_scale=scale), iters=10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lib),
-        "library_vs_kernel_max_abs": max_err(lib(), kern(), BF16_TOL),
-        "library_head_major_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *heads_major, is_causal=True, scale=scale, enable_gqa=True)),
-        "shape": {"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh, "causal": True,
-                  "dtype": "bfloat16"},
-        "card": card,
-    })
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+        enable_gqa=True).transpose(1, 2)
+    heads_major = [t.contiguous() for t in (qt, kt, vt)]
+    return _row("flash_attention", arch, launches, errs, card,
+                ms=time_ms(kern, iters=20 if window else 50),
+                plain_ms=time_ms(lambda: ref.mha(q, k, v, causal=causal, window=window,
+                                                 softmax_scale=scale), iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=20),
+                library="scaled_dot_product_attention" + (" with a window mask" if window else ""),
+                library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
+                library_head_major_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    *heads_major, attn_mask=mask, is_causal=mask is None, scale=scale,
+                    enable_gqa=True), iters=20),
+                shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
+                       "causal": causal, "window": window, "dtype": "bfloat16"})
 
-    # decode: the middle decode step of a batch, cache of prompt + gen slots
-    C = S + gen_len
-    n = S + gen_len // 2 + 1
+
+def time_decode(arch, launches, errs, card, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import ref
+    B, C, H, Hkv, Dh, _ = DECODE_SERVE[arch]
+    gen_len = SERVE["gen_len"]
+    # qwen3: the middle decode step over a cache of prompt + gen slots;
+    # recurrentgemma: the ring is full at every decode step
+    n = PROMPT[arch] + gen_len // 2 + 1 if C > PROMPT[arch] else C
     lens = (n,) * B
-    q1, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, lens), dt, dev, seed=4)
+    scale = Dh ** -0.5
+    q1, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, lens), torch.bfloat16, dev, seed=4)
     valid = sum(lens)
-    b_ms, b_by = bound(el * (2 * q1.numel() + 2 * valid * Hkv * Dh) + 4 * B, 4 * Dh * H * valid)
+    b_ms, b_by = bound(2 * (2 * q1.numel() + 2 * valid * Hkv * Dh) + 4 * B, 4 * Dh * H * valid)
     # every row has the same length n, so SDPA on the first n slots, unmasked,
     # computes the same function
     q1t, kct, vct = q1[:, :, None], kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
@@ -404,28 +574,90 @@ def run_times(cfg, dev, launches, errs, card):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q1t, kct, vct, scale=scale, enable_gqa=True)[:, :, 0]
     heads_major = [t.contiguous() for t in (q1t, kct, vct)]
-    rows.append({
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:62",
-        "launches": launches["decode_attention"], "max_abs_err": errs["decode_attention"],
-        "ms": time_ms(kern, iters=200),
-        "plain_ms": time_ms(lambda: ref.decode_attention(q1, kc, vc, cl, softmax_scale=scale)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lib, iters=200),
-        "library_vs_kernel_max_abs": max_err(lib(), kern(), BF16_TOL),
-        "library_head_major_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *heads_major, scale=scale, enable_gqa=True), iters=200),
-        "shape": {"B": B, "C": C, "H": H, "Hkv": Hkv, "Dh": Dh, "cache_len": list(lens),
-                  "dtype": "bfloat16"},
-        "card": card,
-    })
+    return _row("decode_attention", arch, launches, errs, card,
+                ms=time_ms(kern, iters=200),
+                plain_ms=time_ms(lambda: ref.decode_attention(q1, kc, vc, cl,
+                                                              softmax_scale=scale)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=200),
+                library="scaled_dot_product_attention",
+                library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
+                library_head_major_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    *heads_major, scale=scale, enable_gqa=True), iters=200),
+                shape={"B": B, "C": C, "H": H, "Hkv": Hkv, "Dh": Dh, "cache_len": list(lens),
+                       "dtype": "bfloat16"})
+
+
+def time_ssd(launches, errs, card, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    case = SSD_CASES[0]
+    B, S, H, P, N, Q, _ = case
+    x, dt, A, Bm, Cm, _ = ssd_inputs(case, torch.bfloat16, dev, seed=5)
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
+              + B * H * P * N * 4)
+    # the chunked form's products, lower triangles only: C.B^T per (b, chunk),
+    # the intra-chunk, carried and state products per (b, chunk, head)
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    flops = B * nc * (2 * tri * N + H * (2 * tri * P + 2 * 2 * Q * P * N))
+    b_ms, b_by = bound(nbytes, flops)
+    return _row("ssd_scan", "mamba2-1.3b", launches, errs, card,
+                ms=time_ms(lambda: kssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q), iters=10),
+                plain_ms=time_ms(lambda: ref.ssd_scan(x, dt, A, Bm, Cm, chunk=Q),
+                                 iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none: no single PyTorch call computes an SSD scan",
+                shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
+                       "dtype": "bfloat16", "flops": flops, "bytes": nbytes})
+
+
+def time_rglru(launches, errs, card, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krglru
+    case = RGLRU_CASES[0]
+    B, S, W, _ = case
+    x, a_log, _ = rglru_inputs(case, torch.bfloat16, dev, seed=6)
+    nbytes = x.numel() * (2 + 4 + 2) + B * W * 2
+    # per element: exp, a*a, 1 - a^2, max, sqrt, the product with x, one FMA
+    flops = 7 * x.numel()
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    return _row("rglru_scan", "recurrentgemma-9b", launches, errs, card,
+                ms=time_ms(lambda: krglru.rglru_scan_cuda(x, a_log), iters=20),
+                plain_ms=time_ms(lambda: ref.rglru_scan(x, a_log), iters=2, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none: no single PyTorch call computes an RG-LRU scan",
+                shape={"B": B, "S": S, "W": W, "x": "bfloat16", "a_log": "float32",
+                       "bytes": nbytes})
+
+
+def run_times(launches, errs, card, dev):
+    rows = [time_flash("qwen3-1.7b", launches, errs, card, dev),
+            time_decode("qwen3-1.7b", launches, errs, card, dev),
+            time_ssd(launches, errs, card, dev),
+            time_rglru(launches, errs, card, dev),
+            time_flash("recurrentgemma-9b", launches, errs, card, dev),
+            time_decode("recurrentgemma-9b", launches, errs, card, dev)]
     for r in rows:
         emit("time", r)
-        # the yardstick must compute the kernel's function on the same inputs
-        if not r["library_vs_kernel_max_abs"][1]:
+        # a yardstick must compute the kernel's function on the same inputs
+        if r["library_ms"] is not None and not r["library_vs_kernel_max_abs"][1]:
             fail(f"{r['name']}: the library call disagrees with the kernel")
     return rows
+
+
+def run_arch(arch, dev, card):
+    """Serve, serve_vs_plain and trace for one arch at full width; returns
+    the serve run's launch counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = serve.init_params(cfg, SERVE["seed"], dev)
+    served = run_serve(cfg, params, dev, card)
+    run_serve_vs_plain(cfg, params, dev)
+    run_trace(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return served["launches"]
 
 
 def main():
@@ -439,8 +671,6 @@ def main():
     t_start = time.perf_counter()
 
     from repro_torch.kernels import _build
-    from repro_torch.launch import serve
-    from repro_torch.models.registry import get_config
 
     card = card_line()
     emit("device", {"name": torch.cuda.get_device_name(0),
@@ -449,17 +679,12 @@ def main():
                     "nvidia_smi": card, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    per_source = _build.build_all(["flash_attention", "decode_attention"])
+    per_source = _build.build_all(SOURCES)
     emit("build", {"seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
     errs = run_checks(dev)
-
-    cfg = get_config(SERVE["arch"])
-    params = serve.init_params(cfg, SERVE["seed"], dev)
-    served = run_serve(cfg, params, dev, card)
-    run_serve_vs_plain(cfg, params, dev)
-    run_trace(cfg, params, dev)
-    rows = run_times(cfg, dev, served["launches"], errs, card)
+    launches = {arch: run_arch(arch, dev, card) for arch in PROMPT}
+    rows = run_times(launches, errs, card, dev)
 
     emit("total_s", time.perf_counter() - t_start)
     print(card)

@@ -4,10 +4,14 @@
 ``jax.tree_util.tree_map(np.asarray, ...)`` — nested dicts and lists of numpy
 arrays, with the same keys and layouts the port uses — and returns the same
 tree as torch tensors. It needs numpy arrays only; this module imports no JAX.
+
+Every leaf keeps its source dtype: a bf16 model keeps some leaves in f32
+(mamba2's ``a_log``, ``dt_bias`` and ``d_skip``, the RG-LRU's ``lam``), and
+casting those to bf16 would change the decay rates.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any
 
 import numpy as np
 import torch
@@ -15,21 +19,25 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 
-def _convert(node: Any, device, dtype: torch.dtype) -> Any:
+def _convert(node: Any, device, allowed) -> Any:
     if isinstance(node, dict):
-        return {k: _convert(v, device, dtype) for k, v in node.items()}
+        return {k: _convert(v, device, allowed) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device, dtype) for v in node]
-    # via f32: numpy has no native bfloat16, and every bf16 value is exact in f32
-    arr = np.asarray(node, dtype=np.float32)
-    return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+        return [_convert(v, device, allowed) for v in node]
+    arr = np.asarray(node)
+    # numpy's bfloat16 is ml_dtypes', which torch.from_numpy does not take
+    dtype = getattr(torch, arr.dtype.name, None)
+    if dtype not in allowed:
+        raise TypeError(f"a param leaf of dtype {arr.dtype} in a model of "
+                        f"{sorted(map(str, allowed))}")
+    # via f32: every bf16 value is exact in f32
+    return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=dtype)
 
 
-def params_from_jax(tree: Any, cfg: ModelConfig, device="cpu",
-                    dtype: Optional[torch.dtype] = None) -> Any:
-    """The port's params from a numpy copy of a JAX param tree. ``dtype``
-    defaults to the config's ``param_dtype``."""
-    dtype = dtype if dtype is not None else getattr(torch, cfg.param_dtype)
+def params_from_jax(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
+    """The port's params from a numpy copy of a JAX param tree. Leaves must be
+    f32 or the config's ``param_dtype``, and keep their dtype."""
     if set(tree) != {"embed", "backbone", "final_norm"}:
         raise ValueError(f"not an lm param tree: top-level keys {sorted(tree)}")
-    return _convert(tree, torch.device(device), dtype)
+    allowed = {torch.float32, getattr(torch, cfg.param_dtype)}
+    return _convert(tree, torch.device(device), allowed)

@@ -50,9 +50,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (B,) or H % Hkv):
         raise ValueError(f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and "
                          f"cache_len {tuple(cache_len.shape)} do not match")
-    if not 1 <= Dh <= 256 or H // Hkv > 8:
+    if not 1 <= Dh <= 256 or H // Hkv > 16:
         raise ValueError(f"decode_attention_cuda takes head_dim <= 256 and a GQA "
-                         f"group <= 8, got head_dim {Dh}, group {H // Hkv}")
+                         f"group <= 16, got head_dim {Dh}, group {H // Hkv}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, cache_len)):
         raise ValueError("decode_attention_cuda needs contiguous inputs")
     out = torch.empty_like(q)

@@ -4,9 +4,11 @@ latency, on one CUDA device (or, when asked, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 8 --batch 4 --prompt-len 512 --gen-len 32
 
+``--arch`` takes the ported ids: qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b.
+
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the
-plain attention versions on the CPU, which is meant for small configs.
+plain kernel versions on the CPU, which is meant for small configs.
 """
 from __future__ import annotations
 

@@ -74,6 +74,14 @@ class ModelConfig:
             object.__setattr__(self, "lru_width", self.d_model)
 
     @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
 
@@ -89,13 +97,28 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameters of a dense-family config (the families this port serves)."""
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"param_count covers the dense family only, not {self.family!r}")
+        """Parameters of a dense, hybrid or ssm config (the families this port
+        serves), counted as the JAX package counts them."""
         D, F, V = self.d_model, self.d_ff, self.vocab_size
         total = V * D + (0 if self.tie_embeddings else V * D) + D
         attn = (D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
                 + (2 * self.head_dim if self.qk_norm else 0) + 2 * D)
         mlp = 3 * D * F if self.act == "silu" else 2 * D * F
-        return total + self.n_layers * (attn + mlp)
+        if self.family == "dense":
+            return total + self.n_layers * (attn + mlp)
+        if self.family == "ssm":
+            # in_proj (D -> 2*d_inner + 2*N + H), conv, A/dt_bias/D, norm, out_proj
+            d_in, H, N = self.d_inner, self.n_ssm_heads, self.ssm_state
+            in_proj = D * (2 * d_in + 2 * N + H)
+            conv = self.conv_width * (d_in + 2 * N)
+            return total + self.n_layers * (in_proj + conv + 2 * H + d_in + d_in * D + D)
+        if self.family == "hybrid":
+            W = self.lru_width
+            rglru = (D * W * 2 + self.conv_width * W + 2 * W * W // 8 + W * D
+                     + 2 * W + 2 * D)
+            pat = self.block_pattern
+            n_rec = sum(1 for i in range(self.n_layers) if pat[i % len(pat)] == "rglru")
+            n_att = self.n_layers - n_rec
+            return total + n_rec * (rglru + mlp + D) + n_att * (attn + mlp + D)
+        raise NotImplementedError(
+            f"param_count covers the dense, hybrid and ssm families, not {self.family!r}")

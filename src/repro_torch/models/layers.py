@@ -1,5 +1,6 @@
-"""Layers of the dense serve path: norms, RoPE, GQA attention with qk-norm,
-the ring KV cache insert, the SwiGLU MLP and the tied embedding.
+"""Layers of the serve path shared by the families: norms, RoPE, GQA
+attention with qk-norm, the ring KV cache insert, the SwiGLU MLP and the tied
+embedding.
 
 Functional style as in the JAX package: ``init_*`` returns a dict of tensors
 with the reference's key names and layouts (``wq (D,H,Dh)``, ``wk``/``wv
@@ -10,7 +11,7 @@ plain matrix products; attention goes through ``kernels.ops``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +34,18 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
             device) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
             * scale).to(dtype)
+
+
+def stack_layers(layers: List[Params]) -> Params:
+    """Stack per-layer param (or cache) dicts: every leaf gets a leading axis."""
+    return {k: stack_layers([l[k] for l in layers]) if isinstance(layers[0][k], dict)
+            else torch.stack([l[k] for l in layers]) for k in layers[0]}
+
+
+def layer_of(stacked: Params, i: int) -> Params:
+    """Layer i of a stacked dict: index the leading axis of every leaf (views,
+    so an in-place write reaches the stacked tensor)."""
+    return {k: layer_of(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
 # =============================================================================
@@ -121,16 +134,20 @@ def _out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], H * Dh) @ p["wo"].to(cdt(cfg)).reshape(H * Dh, D)
 
 
-def _attend(cfg: ModelConfig, p: Params, q, k, v) -> torch.Tensor:
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+def _attend(cfg: ModelConfig, p: Params, q, k, v,
+            window_override: Optional[int]) -> torch.Tensor:
+    window = cfg.window if window_override is None else window_override
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
     return _out_proj(cfg, p, out)
 
 
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention (train / prefill body). x (B,S,D) → (B,S,D)."""
+                    positions: torch.Tensor, *,
+                    window_override: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill body). x (B,S,D) → (B,S,D).
+    ``window_override`` replaces ``cfg.window`` (the hybrid's local layers)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    return _attend(cfg, p, q, k, v)
+    return _attend(cfg, p, q, k, v, window_override)
 
 
 def attention_prefill_kv(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
@@ -157,12 +174,13 @@ def attention_prefill_kv(k: torch.Tensor, v: torch.Tensor, positions: torch.Tens
 
 
 def apply_attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                            positions: torch.Tensor, cache_size: int
+                            positions: torch.Tensor, cache_size: int, *,
+                            window_override: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """JAX's ``apply_attention`` plus ``attention_prefill_kv`` from one
     projection: returns (y (B,S,D), k, v (B,cache_size,Hkv,Dh))."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    y = _attend(cfg, p, q, k, v)
+    y = _attend(cfg, p, q, k, v, window_override)
     k, v = attention_prefill_kv(k, v, positions, cache_size)
     return y, k, v
 

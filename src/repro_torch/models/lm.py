@@ -1,4 +1,5 @@
-"""LM facade of the serve path, ``tokens`` frontend, dense family.
+"""LM facade of the serve path, ``tokens`` frontend, over the dense, hybrid
+and ssm families.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving
@@ -14,9 +15,23 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from . import transformer
+from . import mamba2, rglru, transformer
 from .config import ModelConfig
 from .layers import Params, apply_norm, embed_tokens, init_embedding, init_norm, logits_for
+
+_FAMILY = {
+    "dense": transformer,
+    "hybrid": rglru,
+    "ssm": mamba2,
+}
+
+
+def backbone(cfg: ModelConfig):
+    """The family's module; the families not ported yet raise."""
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
+                                  f"repro_torch serves {sorted(_FAMILY)} (ROADMAP.md)")
+    return _FAMILY[cfg.family]
 
 
 def _check_frontend(cfg: ModelConfig) -> None:
@@ -29,13 +44,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     _check_frontend(cfg)
     return {
         "embed": init_embedding(cfg, generator, device),
-        "backbone": transformer.init_params(cfg, generator, device),
+        "backbone": backbone(cfg).init_params(cfg, generator, device),
         "final_norm": init_norm(cfg, device),
     }
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
-    return transformer.init_cache(cfg, batch, max_len, device)
+    return backbone(cfg).init_cache(cfg, batch, max_len, device)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
@@ -48,8 +63,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_len, x.device)
-    hidden, cache = transformer.prefill_hidden(cfg, params["backbone"], x,
-                                               positions, cache)
+    hidden, cache = backbone(cfg).prefill_hidden(cfg, params["backbone"], x,
+                                                 positions, cache)
     last = apply_norm(cfg, params["final_norm"], hidden[:, -1])
     return logits_for(cfg, params["embed"], last), cache
 
@@ -60,6 +75,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     """One decode step. token (B,) int, pos (B,) absolute position. Returns
     (logits (B,V), cache); the cache is updated in place."""
     x_t = embed_tokens(cfg, params["embed"], token[:, None])
-    x_t, cache = transformer.decode_hidden(cfg, params["backbone"], cache, x_t, pos)
+    x_t, cache = backbone(cfg).decode_hidden(cfg, params["backbone"], cache, x_t, pos)
     h = apply_norm(cfg, params["final_norm"], x_t[:, 0])
     return logits_for(cfg, params["embed"], h), cache

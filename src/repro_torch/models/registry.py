@@ -9,6 +9,8 @@ from .config import ModelConfig
 # arch id → config module name under repro_torch.configs
 ARCHS: Dict[str, str] = {
     "qwen3-1.7b": "qwen3_1p7b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

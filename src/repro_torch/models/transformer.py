@@ -8,7 +8,7 @@ raise: the MoE FFN is a later slice of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Tuple
 
 import torch
 
@@ -24,6 +24,8 @@ from .layers import (
     init_attention,
     init_mlp,
     init_norm,
+    layer_of,
+    stack_layers,
 )
 
 
@@ -32,11 +34,6 @@ def _check_dense(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} with {cfg.n_experts} experts is "
             "not ported yet; repro_torch serves the dense family (ROADMAP.md)")
-
-
-def _layer(unit_p: Params, i: int) -> Params:
-    """Layer i's params: index the leading (n_units,) axis of every leaf."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in unit_p.items()}
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
@@ -48,16 +45,11 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     }
 
 
-def _stack(layers: List[Params]) -> Params:
-    return {k: _stack([l[k] for l in layers]) if isinstance(layers[0][k], dict)
-            else torch.stack([l[k] for l in layers]) for k in layers[0]}
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Stacked params: every leaf gets a leading (n_layers,) axis."""
     _check_dense(cfg)
-    return {"units": [_stack([init_layer(cfg, gen, device)
-                              for _ in range(cfg.n_layers)])]}
+    return {"units": [stack_layers([init_layer(cfg, gen, device)
+                                    for _ in range(cfg.n_layers)])]}
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +62,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
     _check_dense(cfg)
     unit = params["units"][0]
     for i in range(cfg.n_layers):
-        p = _layer(unit, i)
+        p = layer_of(unit, i)
         x = x + apply_attention(cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x),
                                 positions)
         x = _ffn(cfg, p, x)
@@ -104,7 +96,7 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
     unit = params["units"][0]
     C = cache["k"].shape[3]
     for i in range(cfg.n_layers):
-        p = _layer(unit, i)
+        p = layer_of(unit, i)
         h, k, v = apply_attention_prefill(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), positions, C)
         cache["k"][i, 0].copy_(k)
@@ -122,7 +114,7 @@ def decode_hidden(cfg: ModelConfig, params: Params, cache: Params,
     unit = params["units"][0]
     x = x_t
     for i in range(cfg.n_layers):
-        p = _layer(unit, i)
+        p = layer_of(unit, i)
         h, _, _ = apply_attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), pos,
             cache["k"][i, 0], cache["v"][i, 0])

@@ -5,7 +5,9 @@ runs inside the fixture, never at import). On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances as on the CPU: 2e-5 for f32 (TF32 off), 2e-2 for bf16.
+Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16;
+the RG-LRU scan 1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle
+(2e-2 on bf16 y, which the oracle rounds only at its output).
 """
 import pytest
 import torch
@@ -67,6 +69,61 @@ def test_decode_kernel_vs_plain(dev, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("B,C,H,Dh,lens", [(4, 2048, 16, 256, (2048, 2048, 1000, 0)),
+                                             (2, 300, 12, 64, (300, 5))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_decode_kernel_large_group_vs_plain(dev, B, C, H, Dh, lens, dtype, tol):
+    """Group 16 at head_dim 256 (recurrentgemma-9b's MQA) and group 12 (a full
+    and a partial slice of 8 query heads)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(2)
+    q = _randn(gen, (B, H, Dh), dtype, dev)
+    kc, vc = (_randn(gen, (B, C, 1, Dh), dtype, dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, kc, vc, cl)
+    torch.testing.assert_close(got.float(), ref.decode_attention(q, kc, vc, cl).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [(2, 300, 8, 64, 128, 256, True),
+                                                     (2, 37, 3, 8, 16, 8, True),
+                                                     (1, 512, 4, 64, 128, 256, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_vs_oracle(dev, B, S, H, P, N, chunk, with_h0, dtype):
+    from repro_torch.kernels import ops, ref, ssd_scan
+    gen = torch.Generator().manual_seed(3)
+    x = _randn(gen, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), torch.float32, dev) - 3.0)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, Cm = (_randn(gen, (B, S, N), dtype, dev) for _ in range(2))
+    h0 = _randn(gen, (B, H, P, N), torch.float32, dev) if with_h0 else None
+    before = ssd_scan.launches
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yo, ho = ref.ssd_sequential(x, dt, A, Bm, Cm, h0=h0)
+    tol = 5e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), yo.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(hf, ho, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("B,S,W,with_h0", [(3, 1001, 1000, True), (2, 7, 33, False)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_rglru_kernel_vs_plain(dev, B, S, W, with_h0, dtype, tol):
+    from repro_torch.kernels import ops, ref, rglru_scan
+    gen = torch.Generator().manual_seed(4)
+    x = _randn(gen, (B, S, W), dtype, dev)
+    a_log = -_randn(gen, (B, S, W), torch.float32, dev).abs() * 0.5
+    h0 = _randn(gen, (B, W), torch.float32, dev) if with_h0 else None
+    before = rglru_scan.launches
+    y, hl = ops.rglru_scan(x, a_log, h0=h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    yp, hp = ref.rglru_scan(x, a_log, h0=h0)
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(hl.float(), hp.float(), atol=tol, rtol=tol)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from repro_torch.kernels import decode_attention, flash_attention
     q = torch.zeros(1, 8, 2, 24, device=dev)  # Dh 24 is not a multiple of 16
@@ -80,13 +137,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             q, kc, kc, torch.ones(1, dtype=torch.int32, device=dev), softmax_scale=1.0)
 
 
-def test_smoke_serve_goes_through_the_kernels(dev):
-    from repro_torch.kernels import decode_attention, flash_attention, ref
+@pytest.mark.parametrize("arch,expected", [
+    ("qwen3-1.7b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
+    ("mamba2-1.3b", {"ssd_scan": 4 * 2}),
+    ("recurrentgemma-9b", {"rglru_scan": 4 * 2, "flash_attention": 2,
+                           "decode_attention": 2 * 3}),
+])
+def test_smoke_serve_goes_through_the_kernels(dev, arch, expected):
+    """Smoke configs: qwen3 4 attention layers; mamba2 4 SSD blocks; the
+    hybrid 4 RG-LRU layers and 1 local-attention layer, its 32-token prompt
+    over a window of 16."""
+    from repro_torch.kernels import decode_attention, flash_attention, ref, rglru_scan, ssd_scan
     from repro_torch.launch import serve
-    flash_attention.launches = decode_attention.launches = ref.calls = 0
-    result = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--requests", "4",
+    mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+    for m in mods.values():
+        m.launches = 0
+    ref.calls = 0
+    result = serve.main(["--arch", arch, "--smoke", "--requests", "4",
                          "--batch", "2", "--prompt-len", "32", "--gen-len", "3"])
     assert result["finite"]
-    assert flash_attention.launches == 4 * 2
-    assert decode_attention.launches == 4 * 2 * 3
+    assert {n: m.launches for n, m in mods.items()} == {n: expected.get(n, 0) for n in mods}
     assert ref.calls == 0
