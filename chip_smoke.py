@@ -6,7 +6,7 @@ Phases, each printed as one JSON object per line:
 
 1. device: name, capability, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build: the four CUDA sources under src/repro_torch/kernels/csrc, one nvcc
+2. build: the six CUDA sources under src/repro_torch/kernels/csrc, one nvcc
    per source, started together;
 3. checks: each kernel against its plain PyTorch version on the card, on the
    same inputs, in f32 (TF32 off) and bf16: flash and decode attention at
@@ -16,6 +16,17 @@ Phases, each printed as one JSON object per line:
    RMS of 1e-2 in bf16 (5e-4 in f32); the cases include each serve shape,
    ragged S and W, a non-zero h0, group 16 at head_dim 256 and a window
    that cuts keys;
+   gather: the burst gather exactly equal to its plain version on the
+   shapes of tests/test_kernels.py, the edge cases (slots past the arena and
+   negative, lengths negative and past the width, a width past the slot
+   size, no packets) and the benchmark shape (arena 4096 x 1518, 256
+   packets); then 16 bursts at the benchmark shape through ops.burst_gather
+   with the counters set to 0 just before (16 launches, 0 plain calls);
+   flash_bwd: dq, dk, dv of the flash kernels' autograd.Function against
+   autograd through the plain ref.mha (f32: max abs <= 1e-4 (1 + max |ref|);
+   bf16: relative RMS <= 2e-2) on causal, window, GQA group 2 and 16,
+   q_offset > 0, rows with no visible key, and qwen3-1.7b's train shape;
+   the forward's logsumexp against torch.logsumexp;
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
    with random weights from seed 0 — serve: 8 requests in batches of 4, 32
    generated tokens, greedy, through repro_torch.launch.serve, with every
@@ -25,9 +36,21 @@ Phases, each printed as one JSON object per line:
    against the same model on the plain versions, on the card, in bf16 and
    f32 (recurrentgemma-9b's f32 copy keeps one pattern unit and the tail);
    trace: device busy and idle share of one prefill and of decode steps;
-5. times: each kernel at its serve shapes (CUDA events), its plain version,
-   a PyTorch call computing the same function where there is one (checked
-   against the kernel), and the bound.
+5. train: TrainerRuntime on qwen3-1.7b at full width, bf16, random weights
+   from seed 0, 8 steps of 4 x 2048 tokens, once fed by the bypass
+   dataplane and once by the kernel-stack feed, on the same batches, each
+   with the counters set to 0 just before (exactly 448 flash forwards and
+   224 flash backwards, nothing else, 0 plain calls); the two runs' losses
+   must be bitwise equal; checkpointing is off at this size; a profile of
+   one more step (trace_train);
+   train_vs_plain: one step's loss and every gradient with the kernels
+   against the plain versions, f32, full width, 4 layers;
+   restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
+   (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
+6. times: each kernel at the shapes of its main path (serve, train, the
+   gather's benchmark; CUDA events; the gather also its device time from
+   the profiler), its plain version, a PyTorch call computing the same
+   function where there is one (checked against the kernel), and the bound.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -35,6 +58,7 @@ and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -57,7 +81,9 @@ SSD_ORACLE_TOL = 5e-4
 # and 1.9e-3 on the final state on an H100 (S 37-2048, N 16-128); 1e-2 bounds
 # that rounding, a wrong decay or mask moves y by order 100%.
 SSD_PLAIN_BF16_REL_RMS = 1e-2
-SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
+FLASH_BWD_F32_TOL, FLASH_BWD_BF16_REL_RMS = 1e-4, 2e-2
+SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "flash_attention_bwd", "burst_gather"]
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
 PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072}
 EXPECTED = {  # exact launches of one serve run; every other counter must read 0
@@ -106,6 +132,22 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, name_part, iters=50):
+    """Device time per call of the kernels whose names contain ``name_part``,
+    from torch.profiler: what time_ms reads when the host cannot keep the
+    card busy (a short kernel behind a Python wrapper)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name_part in e.name) / iters / 1e3
+
+
 def randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, dtype=torch.float32).to(dev, dtype)
 
@@ -122,9 +164,23 @@ def rel_rms(got, want):
 
 
 def kernel_modules():
-    from repro_torch.kernels import decode_attention, flash_attention, rglru_scan, ssd_scan
+    from repro_torch.kernels import (burst_gather, decode_attention, flash_attention,
+                                     flash_attention_bwd, rglru_scan, ssd_scan)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
+            "flash_attention_bwd": flash_attention_bwd, "burst_gather": burst_gather}
+
+
+def zero_counters():
+    from repro_torch.kernels import ref
+    for m in kernel_modules().values():
+        m.launches = 0
+    ref.calls = 0
+
+
+def read_counters():
+    from repro_torch.kernels import ref
+    return {name: m.launches for name, m in kernel_modules().items()}, ref.calls
 
 
 # --------------------------------------------------------------------------
@@ -294,24 +350,186 @@ def run_checks(dev):
 
 
 # --------------------------------------------------------------------------
+# burst gather
+# --------------------------------------------------------------------------
+
+GATHER_CASES = {
+    # name: (n_slots, slot_size, slots or a count of random distinct slots,
+    #        lengths or None for random ones, out_width)
+    "16x256_w256": (64, 256, 16, None, 256),          # tests/test_kernels.py:132
+    "8x128_w300": (64, 128, 8, None, 300),
+    "32x64_w32": (64, 64, 32, None, 32),
+    "slots_past_the_arena": (4, 16, [5, -1, 3, 1 << 30], [16, 16, 16, 16], 16),
+    "negative_slots": (4, 16, [-1, -4, -5, -10, -(1 << 31)], [16, 8, 16, 16, 16], 16),
+    "negative_and_zero_lengths": (4, 16, [0, 1, 2], [-3, 0, -(1 << 31)], 16),
+    "lengths_past_the_width": (4, 16, [0, 1, 2], [17, 100, (1 << 31) - 1], 12),
+    "width_past_the_slot_size": (8, 16, [7, 0, 3], [16, 20, 9], 40),
+    "no_packets": (4, 16, [], [], 16),
+    "bench": (4096, 1518, 256, None, 1518),           # benchmarks/kernels_bench.py:77
+}
+GATHER_BURSTS = 16  # bursts at the benchmark shape on the counted main-path run
+
+
+def gather_inputs(case, dev, seed=0):
+    """arena, slots, lengths (int32), out_width; random lengths are 64-1517 at
+    the Ethernet frame size (as kernels_bench.py draws them), else 1 up to the
+    slot size."""
+    n_slots, slot_size, slots, lengths, width = case
+    gen = torch.Generator().manual_seed(seed)
+    arena = torch.randint(0, 256, (n_slots, slot_size), generator=gen, dtype=torch.uint8)
+    if isinstance(slots, int):
+        slots = torch.randperm(n_slots, generator=gen)[:slots]
+        lengths = torch.randint(64 if slot_size == 1518 else 1, slot_size, (len(slots),),
+                                generator=gen)
+    as_i32 = dict(dtype=torch.int32, device=dev)
+    return (arena.to(dev), torch.as_tensor(slots, **as_i32),
+            torch.as_tensor(lengths, **as_i32), width)
+
+
+def byte_err(got, want):
+    """Largest absolute difference of two uint8 tensors of one shape."""
+    return int((got.int() - want.int()).abs().max()) if got.numel() else 0
+
+
+def run_gather(dev):
+    """The gather kernel equal to its plain version on every case, then the
+    counted main-path run. Returns that run's launch count and the largest
+    absolute byte difference at the bench case and on the counted bursts."""
+    from repro_torch.kernels import ops, ref
+    worst = 0
+    for name, case in GATHER_CASES.items():
+        args = gather_inputs(case, dev)
+        got, want = ops.burst_gather(*args), ref.burst_gather(*args)
+        torch.cuda.synchronize()
+        same_shape = got.shape == want.shape and got.dtype == torch.uint8
+        err = byte_err(got, want) if same_shape else None
+        _check("burst_gather", name, torch.uint8,
+               {"shape": list(got.shape), "max_abs_err": err}, err == 0, "")
+        if name == "bench":
+            worst = err
+    bursts = [gather_inputs(GATHER_CASES["bench"], dev, seed=10 + i)
+              for i in range(GATHER_BURSTS)]
+    torch.cuda.synchronize()
+    zero_counters()
+    outs = [ops.burst_gather(*b) for b in bursts]
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counters()
+    expected = {name: GATHER_BURSTS if name == "burst_gather" else 0 for name in launches}
+    err = max(byte_err(o, ref.burst_gather(*b)) for o, b in zip(outs, bursts))
+    worst = max(worst, err)
+    emit("gather", {"bursts": GATHER_BURSTS, "shape": GATHER_CASES["bench"][:2],
+                    "packets": GATHER_CASES["bench"][2], "launches": launches,
+                    "expected_launches": expected, "plain_calls": plain_calls,
+                    "max_abs_err": err})
+    if launches != expected or plain_calls or err:
+        fail(f"burst_gather main path: launches {launches}, plain calls {plain_calls}, "
+             f"max abs byte error {err}")
+    return launches, worst
+
+
+# --------------------------------------------------------------------------
+# flash backward against autograd through the plain version
+# --------------------------------------------------------------------------
+
+FLASH_BWD_CASES = [
+    # B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset
+    (1, 128, 128, 2, 2, 64, True, 0, 0),      # causal, MHA
+    (1, 200, 200, 4, 2, 64, True, 64, 0),     # window, GQA group 2, ragged tiles
+    (1, 384, 384, 2, 1, 16, True, 128, 0),    # a window over several tiles
+    (2, 96, 160, 16, 1, 32, True, 0, 64),     # GQA group 16, q_offset > 0
+    (1, 64, 64, 2, 1, 32, True, 0, -16),      # rows with no visible key
+    (1, 100, 100, 4, 2, 128, False, 0, 0),    # not causal, Dh 128
+    (4, 2048, 2048, 16, 8, 128, True, 0, 0),  # qwen3-1.7b train, full width
+]
+FLASH_TRAIN = FLASH_BWD_CASES[-1]
+
+
+def flash_grads(fn, q, k, v, dout):
+    """(output, (dq, dk, dv)) of ``fn`` by autograd, on fresh leaves."""
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(qs, ks, vs)
+    return out.detach(), torch.autograd.grad(out, (qs, ks, vs), dout)
+
+
+def plain_lse(q, k, *, causal, window, q_offset, scale):
+    """(B,H,Sq) logsumexp of the scaled, masked scores, -inf on empty rows."""
+    from repro_torch.kernels import ref
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, Sq, Hkv, H // Hkv, Dh).float(),
+                     k.float()) * scale
+    mask = ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
+                              q_offset=q_offset, device=q.device)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1).reshape(B, H, Sq)
+
+
+def run_flash_bwd_checks(dev):
+    """Returns the bf16 max abs errors at the train shape: of the forward
+    output and of the gradients (largest of dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+    worst = {}
+    for case in FLASH_BWD_CASES:
+        causal, window, q_offset = case[6:]
+        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        scale = case[5] ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, dev, seed=7)
+            dout = randn(torch.Generator().manual_seed(8), q.shape, dtype, dev)
+            out, g = flash_grads(lambda a, b, c: ops.flash_attention(a, b, c, **mask),
+                                 q, k, v, dout)
+            out_p, gp = flash_grads(lambda a, b, c: ref.mha(a, b, c, **mask), q, k, v, dout)
+            _, lse = kflash._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
+            lse_p = plain_lse(q, k, scale=scale, **mask)
+            torch.cuda.synchronize()
+            res, ok = {}, True
+            for name, a, b in zip(("dq", "dk", "dv"), g, gp):
+                err = float((a.float() - b.float()).abs().max())
+                if dtype == torch.float32:
+                    bound = FLASH_BWD_F32_TOL * (1 + float(b.float().abs().max()))
+                    ok_i = err <= bound
+                    res[name] = {"max_abs": err, "bound_max_abs": bound}
+                else:
+                    rr = rel_rms(a, b)
+                    ok_i = rr <= FLASH_BWD_BF16_REL_RMS
+                    res[name] = {"rel_rms": rr, "bound_rel_rms": FLASH_BWD_BF16_REL_RMS,
+                                 "max_abs": err}
+                ok = ok and ok_i and bool(torch.isfinite(a).all())
+            e_out, ok_out = max_err(out, out_p, F32_TOL if dtype == torch.float32 else BF16_TOL)
+            empty = torch.isinf(lse_p)  # (B, H, Sq): rows with no visible key
+            vis = ~empty
+            e_lse = float((lse[vis] - lse_p[vis]).abs().max()) if vis.any() else 0.0
+            ok_lse = (e_lse <= 1e-4 * (1 + float(lse_p[vis].abs().max()))
+                      and bool((lse[empty] == float("inf")).all()))
+            dq_rows = g[0].transpose(1, 2)[empty]  # dq of the empty rows must be 0
+            ok_empty = int(torch.count_nonzero(dq_rows)) == 0
+            res.update({"out_max_abs": e_out, "lse_max_abs": e_lse,
+                        "empty_rows": int(empty.sum()), "empty_rows_dq_zero": ok_empty})
+            _check("flash_attention_bwd", case, dtype, res,
+                   ok and ok_out and ok_lse and ok_empty, "")
+            if case == FLASH_TRAIN and dtype == torch.bfloat16:
+                worst["flash_attention"] = e_out
+                worst["flash_attention_bwd"] = max(r["max_abs"] for r in
+                                                   (res["dq"], res["dk"], res["dv"]))
+            del q, k, v, dout, out, g, out_p, gp, lse, lse_p
+            torch.cuda.empty_cache()
+    return worst
+
+
+# --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
 
 def run_serve(cfg, params, dev, card):
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve
-    mods = kernel_modules()
     kw = dict(batch=SERVE["batch"], prompt_len=PROMPT[cfg.arch_id], gen_len=SERVE["gen_len"],
               seed=SERVE["seed"])
     # warm-up: cuBLAS handles, allocator pools and the kernels' first launches
     serve.serve(cfg, params, device=dev, requests=SERVE["batch"], **{**kw, "gen_len": 2})
-    for m in mods.values():
-        m.launches = 0
-    ref.calls = 0
+    zero_counters()
     res = serve.serve(cfg, params, device=dev, requests=SERVE["requests"], **kw)
-    launches = {name: m.launches for name, m in mods.items()}
-    plain_calls = ref.calls
-    expected = {name: EXPECTED[cfg.arch_id].get(name, 0) for name in mods}
+    launches, plain_calls = read_counters()
+    expected = {name: EXPECTED[cfg.arch_id].get(name, 0) for name in launches}
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
     ms = 1e-6
     out = {
@@ -498,6 +716,215 @@ def run_trace(cfg, params, dev, steps=8):
 
 
 # --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+TRAIN = dict(arch="qwen3-1.7b", seq_len=2048, global_batch=4, steps=8, seed=0)
+TRAIN_LABEL = "qwen3-1.7b train"
+TRAIN_LOSS_REL, TRAIN_GRAD_OF_MAX, RESTART_TOL = 1e-5, 1e-4, 1e-4
+
+
+def train_expected(n_layers, steps):
+    """Launches of ``steps`` train steps: per layer, the forward and its
+    recompute under torch.utils.checkpoint, then one backward."""
+    return {"flash_attention": 2 * n_layers * steps, "flash_attention_bwd": n_layers * steps}
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(xs, q))
+
+
+def _kernel_profile(prof, wall_us):
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = _busy_us(kernels) if kernels else None
+    return by_name, busy, {
+        "host_ms": wall_us / 1e3,
+        "device_busy_ms": None if busy is None else busy / 1e3,
+        "device_idle_share": None if busy is None else 1.0 - busy / wall_us,
+        "top_kernels_ms": sorted(([k[:90], v / 1e3] for k, v in by_name.items()),
+                                 key=lambda kv: -kv[1])[:10]}
+
+
+def trace_train(cfg, rt, state, dev):
+    """Profile one more train step (a fresh batch of the same stream)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import synth_tokens
+    from repro_torch.runtime.steps import make_train_step
+    step_fn = make_train_step(cfg, rt.opt_cfg)
+    host = synth_tokens(cfg, rt.dcfg, 0, 1, TRAIN["steps"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state.params, state.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, busy, out = _kernel_profile(prof, wall_us)
+    fwd = sum(v for k, v in by_name.items() if "flash_fwd_kernel" in k) / 1e3
+    bwd = sum(v for k, v in by_name.items() if "flash_bwd_" in k) / 1e3
+    out.update({"arch": cfg.arch_id, "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+                "flash_share_of_busy": None if not busy else (fwd + bwd) * 1e3 / busy})
+    emit("trace_train", out)
+
+
+def run_train(dev, card):
+    """qwen3-1.7b at full width, bf16, 8 steps with each feed on the same
+    batches. Returns the bypass run's launch counts."""
+    import contextlib
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import get_config
+    from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
+    cfg = get_config(TRAIN["arch"])
+    dcfg = DataConfig(seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"],
+                      seed=TRAIN["seed"])
+    emit("train_checkpointing", "off at full width: params, f32 master copy and AdamW "
+         "moments are 27.6 GB to hash and write; the restart phase drives checkpoints "
+         "at the smoke config")
+    expected = train_expected(cfg.n_layers, TRAIN["steps"])
+    runs = {}
+    for feed in ("bypass", "kernel"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rt = TrainerRuntime(cfg, dcfg, TrainerConfig(steps=TRAIN["steps"], feed=feed,
+                                                     log_every=1, seed=TRAIN["seed"]),
+                            device=dev)
+        zero_counters()
+        with contextlib.redirect_stdout(sys.stderr):  # the trainer's log lines
+            state = rt.run()
+        launches, plain_calls = read_counters()
+        want = {name: expected.get(name, 0) for name in launches}
+        losses = [m["loss"] for m in rt.metrics_log]
+        st = rt.feed.stats
+        tokens = TRAIN["steps"] * TRAIN["global_batch"] * TRAIN["seq_len"]
+        out = {
+            "card": card, "arch": cfg.arch_id, "feed": feed, "params": cfg.param_count(),
+            "dtype": cfg.param_dtype, **{k: TRAIN[k] for k in ("seq_len", "global_batch", "steps")},
+            "losses": losses, "grad_norms": [m["grad_norm"] for m in rt.metrics_log],
+            "step_ms": [t * 1e3 for t in rt.step_times_s],
+            "step_ms_median": _pct(rt.step_times_s, 50) * 1e3,
+            "step_ms_p99": _pct(rt.step_times_s, 99) * 1e3,
+            "tok_per_s": tokens / sum(rt.step_times_s),
+            "feed_wait_ms_per_batch": 1e3 * sum(rt.feed_times_s) / len(rt.feed_times_s),
+            "feed_wait_ms_max": 1e3 * max(rt.feed_times_s),
+            "feed_stats": {"batches": st.batches, "bytes": st.bytes,
+                           "put_ms_per_batch": st.put_ns / 1e6 / max(st.batches, 1),
+                           "poll_wait_ms_per_batch": st.wait_ns / 1e6 / max(st.batches, 1),
+                           "host_alloc_ms_per_batch": st.host_alloc_ns / 1e6 / max(st.batches, 1),
+                           "empty_polls": st.empty_polls, "avg_occupancy": st.avg_occupancy},
+            "launches": launches, "expected_launches": want, "plain_calls": plain_calls,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        }
+        emit("train", out)
+        if launches != want:
+            fail(f"train ({feed} feed): launch counts {launches} != expected {want}")
+        if plain_calls:
+            fail(f"train ({feed} feed): called the plain versions {plain_calls} times")
+        if len(losses) != TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
+            fail(f"train ({feed} feed): losses {losses}")
+        runs[feed] = out
+        if feed == "bypass":
+            trace_train(cfg, rt, state, dev)
+        del state, rt
+    same = runs["bypass"]["losses"] == runs["kernel"]["losses"]
+    emit("train_feeds", {"losses_bitwise_equal": same,
+                         "feed_wait_ms_per_batch": {f: runs[f]["feed_wait_ms_per_batch"]
+                                                    for f in runs},
+                         "step_ms_median": {f: runs[f]["step_ms_median"] for f in runs}})
+    if not same:
+        fail(f"the two feeds gave different losses: {runs['bypass']['losses']} vs "
+             f"{runs['kernel']['losses']}")
+    torch.cuda.empty_cache()
+    return runs["bypass"]["launches"]
+
+
+def run_train_vs_plain(dev):
+    """One step's loss and every gradient, kernels against plain versions:
+    f32, full width, 4 layers."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synth_tokens
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_config
+    from repro_torch.runtime.steps import loss_and_grads
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=4, param_dtype="float32",
+                                            compute_dtype="float32")
+    params = serve.init_params(cfg, 0, dev)
+    host = synth_tokens(cfg, DataConfig(seq_len=TRAIN["seq_len"],
+                                        global_batch=TRAIN["global_batch"], seed=1), 0, 1, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    zero_counters()
+    loss_k, _, gk = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counters()
+    want = {name: train_expected(cfg.n_layers, 1).get(name, 0) for name in launches}
+    with plain_kernels():
+        loss_p, _, gp = loss_and_grads(cfg, params, batch)
+    gk, gp = tree.leaf_paths(gk), tree.leaf_paths(gp)
+    worst, ok = {}, True
+    for key in gp:
+        ref_max = float(gp[key].abs().max())
+        err = float((gk[key] - gp[key]).abs().max())
+        worst[key] = err / max(ref_max, 1e-30)
+        ok = ok and err <= TRAIN_GRAD_OF_MAX * ref_max and bool(torch.isfinite(gk[key]).all())
+    lk, lp = float(loss_k), float(loss_p)
+    loss_ok = abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    out = {"n_layers": cfg.n_layers, "dtype": "float32", "loss_kernels": lk, "loss_plain": lp,
+           "loss_rel_diff": abs(lk - lp) / abs(lp), "bound_loss_rel": TRAIN_LOSS_REL,
+           "grad_leaves": len(gp), "worst_grad_err_of_max": top,
+           "bound_grad_err_of_max": TRAIN_GRAD_OF_MAX,
+           "attention_grads_nonzero": all(bool(gk[k].abs().max() > 0) for k in gk
+                                          if k.split("/")[-1] in ("wq", "wk", "wv")),
+           "launches": launches, "expected_launches": want, "plain_calls": plain_calls}
+    emit("train_vs_plain", out)
+    if not (ok and loss_ok and out["attention_grads_nonzero"]) or launches != want \
+            or plain_calls:
+        fail(f"train_vs_plain: {out}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+
+
+def run_restart(dev):
+    """test_trainer_checkpoint_restart_determinism on the card (smoke config, f32)."""
+    import contextlib
+    import shutil
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import get_smoke_config
+    from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
+    cfg = get_smoke_config(TRAIN["arch"]).replace(param_dtype="float32",
+                                                  compute_dtype="float32")
+    dcfg = DataConfig(seq_len=32, global_batch=2, seed=5)
+    base = ROOT / "build" / "chip_smoke_restart"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def losses_of(run_steps, ckpt_dir):
+        rt = TrainerRuntime(cfg, dcfg, TrainerConfig(steps=run_steps, ckpt_every=2,
+                                                     ckpt_dir=str(ckpt_dir), feed="bypass",
+                                                     log_every=1), device=dev)
+        with contextlib.redirect_stdout(sys.stderr):
+            rt.run()
+        return {m["step"]: m["loss"] for m in rt.metrics_log}
+
+    try:
+        full = losses_of(6, base / "a")
+        first = losses_of(4, base / "b")
+        resumed = losses_of(6, base / "b")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    diffs = {s: abs(full[s] - resumed.get(s, float("nan"))) for s in (5, 6)}
+    ok = sorted(resumed) == [5, 6] and sorted(first) == [1, 2, 3, 4] and all(
+        d < RESTART_TOL for d in diffs.values())
+    emit("restart", {"full": full, "first": first, "resumed": resumed, "abs_diff": diffs,
+                     "tol": RESTART_TOL, "ok": ok})
+    if not ok:
+        fail(f"restart not deterministic: {diffs}")
+
+
+# --------------------------------------------------------------------------
 # kernel times and bounds
 # --------------------------------------------------------------------------
 
@@ -510,7 +937,10 @@ def _row(name, arch, launches, errs, card, **kw):
     src = {"flash_attention": ("flash_attention.cu", "flash_attention.py:92"),
            "decode_attention": ("decode_attention.cu", "decode_attention.py:62"),
            "ssd_scan": ("ssd_scan.cu", "ssd_scan.py:66"),
-           "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:46")}[name]
+           "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:46"),
+           # the gradient of the Pallas forward, which JAX takes through its chunked path
+           "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention.py:92"),
+           "burst_gather": ("burst_gather.cu", "burst_gather.py:34")}[name]
     return {"name": f"{name} ({arch})", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src[0]}",
             "replaces": f"src/repro/kernels/{src[1]}",
@@ -522,19 +952,22 @@ def time_flash(arch, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
-    case = FLASH_SERVE[arch]
+    with_lse = arch == TRAIN_LABEL  # the train path's forward also writes the logsumexp
+    case = FLASH_TRAIN if with_lse else FLASH_SERVE[arch]
     B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
     # visible (q, k) pairs per (b, h) under the causal and window masks
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * Dh * pairs * B * H)
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel())
+                       + (4 * B * H * S if with_lse else 0), 4 * Dh * pairs * B * H)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window:  # SDPA takes the window only as a mask, built outside the timing
         mask = ref.attention_mask(S, S, causal=causal, window=window, device=dev)
-    kern = lambda: kflash.flash_attention_cuda(  # noqa: E731
-        q, k, v, causal=causal, window=window, q_offset=0, softmax_scale=scale)
+    kern = lambda: kflash._forward(  # noqa: E731
+        q, k, v, causal=causal, window=window, q_offset=0, softmax_scale=scale,
+        with_lse=with_lse)[0]
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
         enable_gqa=True).transpose(1, 2)
@@ -550,7 +983,73 @@ def time_flash(arch, launches, errs, card, dev):
                     *heads_major, attn_mask=mask, is_causal=mask is None, scale=scale,
                     enable_gqa=True), iters=20),
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
-                       "causal": causal, "window": window, "dtype": "bfloat16"})
+                       "causal": causal, "window": window, "dtype": "bfloat16",
+                       "lse": with_lse})
+
+
+def time_flash_bwd(launches, errs, card, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import ref
+    B, S, _, H, Hkv, Dh = FLASH_TRAIN[:6]
+    scale = Dh ** -0.5
+    mask = dict(causal=True, window=0, q_offset=0)
+    q, k, v = flash_inputs(FLASH_TRAIN, torch.bfloat16, dev, seed=3)
+    dout = randn(torch.Generator().manual_seed(9), q.shape, torch.bfloat16, dev)
+    out, lse = kflash._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
+    pairs = S * (S + 1) // 2
+    # read q, o, dO and k, v once, write dq, dk, dv; 5 products of 2*Dh FLOP per
+    # visible pair and head: the scores again, dP, dV, dK and dQ
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, 10 * Dh * pairs * B * H)
+    kern = lambda: kbwd.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, lse, dout, softmax_scale=scale, **mask)
+    # plain: autograd's backward through ref.mha, its graph built outside the timing
+    qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out_p = ref.mha(qp, kp, vp, softmax_scale=scale, **mask)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out_p, (qp, kp, vp), dout,
+                                                   retain_graph=True), iters=3, warmup=1)
+    del out_p, qp, kp, vp
+    torch.cuda.empty_cache()
+    # library: SDPA's forward + backward minus its forward (the port never calls it)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dout_t = dout.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    sdpa_fb = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dout_t)  # noqa: E731
+    lib_ms = time_ms(sdpa_fb, iters=20) - time_ms(sdpa, iters=20)
+    got = kern()
+    rr = max(rel_rms(a, b.transpose(1, 2)) for a, b in zip(got, sdpa_fb()))
+    return _row("flash_attention_bwd", TRAIN_LABEL, launches, errs, card,
+                ms=time_ms(kern, iters=10), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                library="scaled_dot_product_attention forward+backward minus its forward",
+                library_vs_kernel_rel_rms=(rr, rr <= FLASH_BWD_BF16_REL_RMS),
+                shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
+                       "causal": True, "dtype": "bfloat16", "bytes": nbytes,
+                       "flops": 10 * Dh * pairs * B * H})
+
+
+def time_gather(launches, errs, card, dev):
+    from repro_torch.kernels import burst_gather as kgather
+    from repro_torch.kernels import ref
+    arena, slots, lens, width = gather_inputs(GATHER_CASES["bench"], dev, seed=11)
+    n = slots.numel()
+    # the bytes these descriptors need: each packet's valid bytes read, each
+    # output row written, the slot and length read
+    valid = int(lens.clamp(0, min(arena.shape[1], width)).sum())
+    nbytes = valid + n * width + 8 * n
+    b_ms, b_by = bound(nbytes, 0)
+    kern = lambda: kgather.burst_gather_cuda(arena, slots, lens, width)  # noqa: E731
+    return _row("burst_gather", "bench", launches, errs, card,
+                ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "burst_gather_kernel"),
+                plain_ms=time_ms(lambda: ref.burst_gather(arena, slots, lens, width),
+                                 iters=50),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none (no single call)",
+                shape={"n_slots": arena.shape[0], "slot_size": arena.shape[1], "packets": n,
+                       "out_width": width, "bytes": nbytes})
 
 
 def time_decode(arch, launches, errs, card, dev):
@@ -635,11 +1134,15 @@ def run_times(launches, errs, card, dev):
             time_ssd(launches, errs, card, dev),
             time_rglru(launches, errs, card, dev),
             time_flash("recurrentgemma-9b", launches, errs, card, dev),
-            time_decode("recurrentgemma-9b", launches, errs, card, dev)]
+            time_decode("recurrentgemma-9b", launches, errs, card, dev),
+            time_flash(TRAIN_LABEL, launches, errs, card, dev),
+            time_flash_bwd(launches, errs, card, dev),
+            time_gather(launches, errs, card, dev)]
     for r in rows:
         emit("time", r)
         # a yardstick must compute the kernel's function on the same inputs
-        if r["library_ms"] is not None and not r["library_vs_kernel_max_abs"][1]:
+        agree = r.get("library_vs_kernel_max_abs", r.get("library_vs_kernel_rel_rms"))
+        if r["library_ms"] is not None and not agree[1]:
             fail(f"{r['name']}: the library call disagrees with the kernel")
     return rows
 
@@ -683,7 +1186,13 @@ def main():
     emit("build", {"seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
     errs = run_checks(dev)
-    launches = {arch: run_arch(arch, dev, card) for arch in PROMPT}
+    launches = {}
+    launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
+    errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})
+    launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
+    launches[TRAIN_LABEL] = run_train(dev, card)
+    run_train_vs_plain(dev)
+    run_restart(dev)
     rows = run_times(launches, errs, card, dev)
 
     emit("total_s", time.perf_counter() - t_start)

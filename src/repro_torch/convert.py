@@ -1,9 +1,12 @@
-"""Copy a parameter tree of the JAX package into the port.
+"""Copy a parameter tree, or an optimizer state, of the JAX package into the
+port.
 
 ``params_from_jax`` takes the output of ``repro.models.lm.init_params`` after
 ``jax.tree_util.tree_map(np.asarray, ...)`` — nested dicts and lists of numpy
 arrays, with the same keys and layouts the port uses — and returns the same
-tree as torch tensors. It needs numpy arrays only; this module imports no JAX.
+tree as torch tensors; ``opt_state_from_jax`` does the same for the
+``repro.optim.adamw.OptState`` of those params. It needs numpy arrays only;
+this module imports no JAX.
 
 Every leaf keeps its source dtype: a bf16 model keeps some leaves in f32
 (mamba2's ``a_log``, ``dt_bias`` and ``d_skip``, the RG-LRU's ``lam``), and
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import OptState
 
 
 def _convert(node: Any, device, allowed) -> Any:
@@ -41,3 +45,16 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
         raise ValueError(f"not an lm param tree: top-level keys {sorted(tree)}")
     allowed = {torch.float32, getattr(torch, cfg.param_dtype)}
     return _convert(tree, torch.device(device), allowed)
+
+
+def opt_state_from_jax(state: Any, device="cpu") -> OptState:
+    """The port's ``OptState`` from a numpy copy of a JAX ``OptState`` (any
+    object with ``step``, ``master``, ``m`` and ``v``): an int32 step and f32
+    trees (``master`` is ``()`` when the f32 master copy is off)."""
+    device = torch.device(device)
+    f32 = {torch.float32}
+    master = state.master
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+        master=() if isinstance(master, tuple) and not master else _convert(master, device, f32),
+        m=_convert(state.m, device, f32), v=_convert(state.v, device, f32))

@@ -1,2 +1,3 @@
-"""Kernels of the port (attention, SSD and RG-LRU scans): plain versions
-(``ref``), CUDA wrappers and the device-dispatching entry points (``ops``)."""
+"""Kernels of the port (attention and its gradient, SSD and RG-LRU scans,
+burst gather): plain versions (``ref``), CUDA wrappers and the
+device-dispatching entry points (``ops``)."""

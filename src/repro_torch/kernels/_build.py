@@ -95,6 +95,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``.
+
+    The wrappers fill their outputs through ctypes, so the outputs carry no
+    ``grad_fn``: under grad mode, an input that requires grad would silently
+    get no gradient through the kernel. Wrappers of kernels without a
+    backward call this before launching; ``None`` entries are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel yet (see ROADMAP.md), and its output "
+            "would carry no gradient: call it under torch.no_grad() or with "
+            "inputs that do not require grad")
+
+
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     """Raise if a launcher returned a CUDA error (cudaGetLastError after launch)."""
     if err != 0:

@@ -7,6 +7,11 @@
 // . v[b,:,h/group] under the causal, sliding-window (window > 0) and q_offset
 // masks, with kv positions >= Skv masked. Rows with no visible key give 0,
 // as the reference's jnp.where(isnan) and the Pallas l == 0 guard do.
+// Optionally (lse != nullptr) it also writes lse[b,h,s], the natural-log
+// logsumexp of the row's scaled, masked scores, which the backward kernel
+// (flash_attention_bwd.cu) uses to recompute the softmax; a row with no
+// visible key gets +inf there, so that exp(score - lse) is 0 and the row
+// gets no gradient.
 //
 // Design. One block of 256 threads per (q-tile of 64 rows, head, batch row).
 // The Pallas kernel's sequential kv grid axis becomes a loop over kv tiles of
@@ -50,8 +55,8 @@ __host__ __device__ constexpr size_t smem_floats(int dh) {
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-    int window, int q_offset, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int Hkv, int Dh,
+    int causal, int window, int q_offset, float scale) {
   extern __shared__ float smem[];
   const int qp = Dh + 1;  // padded pitch of the Q and K rows
   const int pp = BK + 1;  // padded pitch of the P rows
@@ -184,12 +189,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         if (c < nc) ob[r * q_row + tx + 16 * c] = repro::from_f32<T>(acc[i][c] * inv);
+      if (lse != nullptr && tx == 0)
+        lse[((long)b * H + h) * Sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     }
   }
 }
 
 template <typename T, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Skv, int H, int Hkv, int Dh, int causal, int window,
                    int q_offset, float scale, cudaStream_t stream) {
   // one opt-in per instantiation and device, for the instantiation's largest Dh
@@ -200,21 +207,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, NC><<<grid, NT, smem_floats(Dh) * sizeof(float), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale);
+      static_cast<T*>(o), lse, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
-                     int Sq, int Skv, int H, int Hkv, int Dh, int causal, int window,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal, int window,
                      int q_offset, float scale, cudaStream_t st) {
   if (Dh <= 32)
-    return launch<T, 2>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale, st);
+    return launch<T, 2>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
+                        scale, st);
   if (Dh <= 64)
-    return launch<T, 4>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale, st);
+    return launch<T, 4>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
+                        scale, st);
   if (Dh <= 128)
-    return launch<T, 8>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale, st);
-  return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale, st);
+    return launch<T, 8>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
+                        scale, st);
+  return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
+                       scale, st);
 }
 
 }  // namespace
@@ -222,18 +233,21 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 REPRO_ERROR_STRING_FN(flash_attention)
 
 // q (B,Sq,H,Dh), k and v (B,Skv,Hkv,Dh), o (B,Sq,H,Dh), all contiguous and of
-// one dtype (repro::kF32 or repro::kBF16). Returns cudaGetLastError().
+// one dtype (repro::kF32 or repro::kBF16); lse (B,H,Sq) f32, or null when the
+// caller needs no logsumexp. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Skv, int H, int Hkv,
-                                   int Dh, int causal, int window, int q_offset,
+                                   void* o, void* lse, int B, int Sq, int Skv, int H,
+                                   int Hkv, int Dh, int causal, int window, int q_offset,
                                    float scale, int dtype, void* stream) {
   if (Dh <= 0 || Dh % 16 != 0 || Dh > 256 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kF32)
-    return dispatch<float>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale, st);
+    return dispatch<float>(q, k, v, o, l, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
+                           scale, st);
   if (dtype == repro::kBF16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset,
-                                   scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Skv, H, Hkv, Dh, causal, window,
+                                   q_offset, scale, st);
   return cudaErrorInvalidValue;
 }

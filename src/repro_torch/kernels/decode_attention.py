@@ -55,6 +55,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"group <= 16, got head_dim {Dh}, group {H // Hkv}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, cache_len)):
         raise ValueError("decode_attention_cuda needs contiguous inputs")
+    _build.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

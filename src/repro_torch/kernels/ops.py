@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
+from .burst_gather import burst_gather_cuda
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
 from .rglru_scan import rglru_scan_cuda
@@ -97,3 +98,14 @@ def rglru_decode_step(x_t: torch.Tensor, a_log_t: torch.Tensor,
     a = torch.exp(a_log_t.float())
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * x_t.float()
     return (a * h.float() + b).to(h.dtype)
+
+
+def burst_gather(arena: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor,
+                 out_width: int) -> torch.Tensor:
+    """Descriptor-driven packet gather. arena (n_slots, slot_size) uint8,
+    slots and lengths (n,) integer (cast to int32, as the JAX op does) →
+    (n, out_width) uint8."""
+    slots, lengths = slots.to(torch.int32), lengths.to(torch.int32)
+    if _device_type(arena, slots, lengths) == "cpu":
+        return ref.burst_gather(arena, slots, lengths, out_width)
+    return burst_gather_cuda(arena, slots.contiguous(), lengths.contiguous(), out_width)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the kernels: attention, the Mamba-2 SSD scan
-and the RG-LRU scan.
+"""Plain PyTorch versions of the kernels: attention, the Mamba-2 SSD scan,
+the RG-LRU scan and the packet burst gather.
 
 The attention functions compute what ``repro.kernels.ref`` computes, in f32,
 materialising the whole score matrix. ``ssd_scan`` is the JAX package's
 chunked form (``repro.kernels.ops.ssd_scan``), ``ssd_sequential`` its
-sequential oracle, and ``rglru_scan`` a sequential f32 loop. The CPU takes
+sequential oracle, ``rglru_scan`` a sequential f32 loop, and
+``burst_gather`` copies ``repro.kernels.ref.burst_gather`` with the index
+semantics of JAX's ``arena[slots]``. The CPU takes
 them in ``ops``; on the card they are what ``chip_smoke.py`` holds each CUDA
 kernel against. ``calls`` counts every call so a run can show that serving
 did not use them.
@@ -171,3 +173,25 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, *,
         h = a[:, t] * h + g[:, t]
         ys.append(h)
     return torch.stack(ys, 1).to(x.dtype), h.to(x.dtype)
+
+
+def burst_gather(arena: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor,
+                 out_width: int) -> torch.Tensor:
+    """Gather packets ``arena[slots]`` (n_slots, slot_size) uint8 into an
+    (n, out_width) uint8 batch: bytes at or past each length are 0, and rows
+    narrower than ``out_width`` are zero-padded. Slots index as JAX does: a
+    negative slot has n_slots added once, then every slot is clamped to
+    [0, n_slots - 1]."""
+    global calls
+    calls += 1
+    n_slots, slot_size = arena.shape
+    if slots.numel() and n_slots == 0:
+        raise ValueError(f"burst_gather: {slots.numel()} descriptors into an arena "
+                         "with no slots")
+    s = slots.long()
+    s = torch.where(s < 0, s + n_slots, s).clamp(0, max(n_slots - 1, 0))
+    rows = arena[s]
+    rows = rows[:, :out_width] if slot_size >= out_width else F.pad(
+        rows, (0, out_width - slot_size))
+    col = torch.arange(out_width, device=arena.device)[None, :]
+    return torch.where(col < lengths.long()[:, None], rows, 0).to(torch.uint8)

@@ -49,6 +49,7 @@ def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
     if S == 0 or B > 65535:
         raise ValueError(f"rglru_scan_cuda takes 1 or more steps and at most 65535 "
                          f"batch rows, got S {S}, B {B}")
+    _build.refuse_grad("rglru_scan_cuda", *ts)
     y = torch.empty_like(x)
     h_last = torch.empty((B, W), dtype=x.dtype, device=x.device)
     if x.numel() == 0:

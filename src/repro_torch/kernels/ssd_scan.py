@@ -60,6 +60,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
                          f"rows, got S {S}, chunk {chunk}, P {P}, N {N}, B {B}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssd_scan_cuda needs contiguous inputs")
+    _build.refuse_grad("ssd_scan_cuda", *ts)
     y = torch.empty_like(x)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:  # B, H or P is 0: h_final is empty too

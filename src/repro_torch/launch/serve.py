@@ -29,8 +29,8 @@ from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch.launch.serve: no CUDA device is available; "
-                           "it does not fall back to the CPU (pass --device cpu "
+        raise RuntimeError("repro_torch: no CUDA device is available; the "
+                           "launchers do not fall back to the CPU (pass --device cpu "
                            "to run the plain versions there on purpose)")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {name!r}")

@@ -1,6 +1,6 @@
-"""Layers of the serve path shared by the families: norms, RoPE, GQA
-attention with qk-norm, the ring KV cache insert, the SwiGLU MLP and the tied
-embedding.
+"""Layers shared by the families: norms, RoPE, GQA attention with qk-norm,
+the ring KV cache insert, the SwiGLU MLP, the tied embedding and the chunked
+cross-entropy of the train path.
 
 Functional style as in the JAX package: ``init_*`` returns a dict of tensors
 with the reference's key names and layouts (``wq (D,H,Dh)``, ``wk``/``wv
@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
@@ -247,7 +248,9 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"].to(cdt(cfg))[tokens]
+    # F.embedding, not indexing: its CUDA backward sums each row's gradient in
+    # a fixed order, where indexing's accumulating scatter need not
+    return F.embedding(tokens, p["tok"].to(cdt(cfg)))
 
 
 def unembed_matrix(cfg: ModelConfig, p: Params) -> torch.Tensor:
@@ -258,3 +261,39 @@ def unembed_matrix(cfg: ModelConfig, p: Params) -> torch.Tensor:
 def logits_for(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Full logits (..., V) — use only for single-position outputs."""
     return x @ unembed_matrix(cfg, p).t()
+
+
+def _xent_chunk(x_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = (x_c @ w.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = l_c != -100
+    safe = torch.where(valid, l_c, 0).long()
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    tok_loss = torch.where(valid, lse - picked, 0.0)
+    return tok_loss.sum(), valid.sum()
+
+
+def chunked_softmax_xent(cfg: ModelConfig, p_embed: Params, x: torch.Tensor,
+                         labels: torch.Tensor, s_chunk: int = 2048
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materialising (B, S, V) logits for all of S.
+    x (B,S,D) final hidden states, labels (B,S) with -100 ignored. Logits are
+    made one sequence chunk at a time, in the compute dtype and then f32, as
+    the JAX package does, and each chunk runs under ``torch.utils.checkpoint``
+    so its logits are recomputed in the backward instead of kept (at
+    qwen3-1.7b's width one chunk of 4 x 2048 tokens holds 5 GB of f32 logits).
+
+    Returns (sum of the token losses, number of valid tokens) as f32 scalars."""
+    S = x.shape[1]
+    w = unembed_matrix(cfg, p_embed)
+    sc = min(s_chunk, S)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, S, sc):
+        ls, nv = torch.utils.checkpoint.checkpoint(
+            _xent_chunk, x[:, c0:c0 + sc], w, labels[:, c0:c0 + sc],
+            use_reentrant=False, preserve_rng_state=False)
+        loss_sum = loss_sum + ls
+        n_valid = n_valid + nv
+    return loss_sum, n_valid.float()

@@ -1,7 +1,8 @@
-"""LM facade of the serve path, ``tokens`` frontend, over the dense, hybrid
-and ssm families.
+"""LM facade, ``tokens`` frontend: serving over the dense, hybrid and ssm
+families, training over the dense family.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
+* ``train_loss(cfg, params, batch)`` — scalar loss + metrics (dense only)
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving
 
 Init draws from the same distributions as the JAX init (normal·0.02, and
@@ -17,7 +18,15 @@ import torch
 
 from . import mamba2, rglru, transformer
 from .config import ModelConfig
-from .layers import Params, apply_norm, embed_tokens, init_embedding, init_norm, logits_for
+from .layers import (
+    Params,
+    apply_norm,
+    chunked_softmax_xent,
+    embed_tokens,
+    init_embedding,
+    init_norm,
+    logits_for,
+)
 
 _FAMILY = {
     "dense": transformer,
@@ -47,6 +56,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
         "backbone": backbone(cfg).init_params(cfg, generator, device),
         "final_norm": init_norm(cfg, device),
     }
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy of ``batch`` {"tokens", "labels"} (B,S)
+    (labels -100 ignored), with per-layer recompute. Returns (loss, {loss,
+    xent, aux, tokens}), f32 scalars. Only the dense family trains: the ssm
+    and hybrid families need backward kernels for their scans, and moe,
+    encoder and vlm are not ported (ROADMAP.md)."""
+    _check_frontend(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training the {cfg.family!r} family is not ported yet; "
+            "repro_torch trains the dense family (ROADMAP.md)")
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    hidden, aux = backbone(cfg).forward_hidden(cfg, params["backbone"], x, positions)
+    hidden = apply_norm(cfg, params["final_norm"], hidden)
+    loss_sum, n_valid = chunked_softmax_xent(cfg, params["embed"], hidden, labels)
+    n_valid = torch.clamp_min(n_valid, 1.0)
+    xent = loss_sum / n_valid
+    loss = xent + aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": n_valid}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:

@@ -1,16 +1,20 @@
-"""Dense decoder stack: stacked per-layer params and the serve path.
+"""Dense decoder stack: stacked per-layer params, the train forward and the
+serve path.
 
 Params keep the JAX layout: ``{"units": [unit_params]}`` where every leaf has
 a leading ``(n_units,)`` axis (for the dense family a unit is one layer), and
 the KV cache is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``.
-``jax.lax.scan`` over units becomes a Python loop over layers. MoE configs
-raise: the MoE FFN is a later slice of the port (ROADMAP.md).
+``jax.lax.scan`` over units becomes a Python loop over layers, and the
+reference's per-unit ``jax.checkpoint`` becomes ``torch.utils.checkpoint``
+per layer. MoE configs raise: the MoE FFN is a later slice of the port
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .config import ModelConfig
 from .layers import (
@@ -56,16 +60,26 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["mlp_norm"], x))
 
 
+def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    x = x + apply_attention(cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), positions)
+    return _ffn(cfg, p, x)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all layers. Returns (hidden (B,S,D), aux loss 0 for the dense family)."""
+    """Run all layers. Returns (hidden (B,S,D), aux loss 0 for the dense family).
+
+    Each layer runs under ``torch.utils.checkpoint``: only its input is kept,
+    and the backward runs the layer again (flash attention's forward kernel
+    included) to rebuild what it needs."""
     _check_dense(cfg)
     unit = params["units"][0]
     for i in range(cfg.n_layers):
-        p = layer_of(unit, i)
-        x = x + apply_attention(cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x),
-                                positions)
-        x = _ffn(cfg, p, x)
+        # the layers draw no random numbers: no RNG state to replay
+        x = torch.utils.checkpoint.checkpoint(_layer, cfg, layer_of(unit, i), x,
+                                              positions, use_reentrant=False,
+                                              preserve_rng_state=False)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

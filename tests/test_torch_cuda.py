@@ -5,9 +5,10 @@ runs inside the fixture, never at import). On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16;
-the RG-LRU scan 1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle
-(2e-2 on bf16 y, which the oracle rounds only at its output).
+Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16
+(its gradient 1e-4 and a relative RMS of 2e-2, see below); the RG-LRU scan
+1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
+which the oracle rounds only at its output); the burst gather exactly.
 """
 import pytest
 import torch
@@ -159,3 +160,176 @@ def test_smoke_serve_goes_through_the_kernels(dev, arch, expected):
     assert result["finite"]
     assert {n: m.launches for n, m in mods.items()} == {n: expected.get(n, 0) for n in mods}
     assert ref.calls == 0
+
+
+BWD_CASES = [
+    # B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset
+    (1, 128, 128, 2, 2, 64, True, 0, 0),
+    (1, 200, 200, 4, 2, 64, True, 64, 0),
+    (2, 96, 160, 16, 1, 32, True, 0, 64),
+    (1, 64, 64, 2, 1, 32, True, 0, -16),
+    (1, 100, 100, 4, 2, 128, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_vs_autograd_through_plain(dev, case, dtype):
+    """dq, dk, dv of the kernels' autograd.Function against autograd through
+    ref.mha: f32 within 1e-4 (1 + max |ref|), bf16 within a relative RMS of
+    2e-2 (the kernels compute in f32 and round dq, dk, dv and the saved
+    output to bf16; autograd through the plain version rounds only at its ends)."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops, ref
+    B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset = case
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    gen = torch.Generator().manual_seed(5)
+    q = _randn(gen, (B, Sq, H, Dh), dtype, dev)
+    k, v = (_randn(gen, (B, Skv, Hkv, Dh), dtype, dev) for _ in range(2))
+    dout = _randn(gen, (B, Sq, H, Dh), dtype, dev)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ts, **mask), ts, dout)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    got = grads(ops.flash_attention)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    want = grads(ref.mha)
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+        else:
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 2e-2
+    if q_offset < 0:  # rows that see no key get no gradient
+        assert torch.count_nonzero(got[0][:, :-q_offset]) == 0
+
+
+def test_flash_backward_refuses_head_dims_past_128(dev):
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 16, 2, 256, device=dev, requires_grad=True)
+    k = torch.zeros(1, 16, 1, 256, device=dev, requires_grad=True)
+    out = ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        out.sum().backward()
+
+
+def test_wrappers_without_a_backward_raise_under_autograd(dev):
+    """decode, SSD and RG-LRU have no backward kernel: under grad mode an
+    input that requires grad must raise, not yield an output without grad."""
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 2, 16, device=dev, requires_grad=True)
+    kc = torch.zeros(1, 8, 1, 16, device=dev)
+    cl = torch.ones(1, dtype=torch.int32, device=dev)
+    x = torch.zeros(1, 8, 2, 8, device=dev, requires_grad=True)
+    dt, A = torch.ones(1, 8, 2, device=dev), -torch.ones(2, device=dev)
+    Bm = torch.zeros(1, 8, 4, device=dev)
+    xr = torch.zeros(1, 8, 16, device=dev, requires_grad=True)
+    calls = [lambda: ops.decode_attention(q, kc, kc, cl),
+             lambda: ops.ssd_scan(x, dt, A, Bm, Bm, chunk=8),
+             lambda: ops.rglru_scan(xr, torch.zeros(1, 8, 16, device=dev))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="ROADMAP.md"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+GATHER_CASES = [
+    # n_slots, slot_size, slots, lengths, out_width
+    (64, 256, list(range(0, 64, 4)), [1, 255, 17, 256] * 4, 256),
+    (64, 128, [63, 0, 5, 9, 11, 2, 3, 40], [127, 1, 64, 0, 128, 5, 90, 100], 300),
+    (64, 64, list(range(32)), [i * 2 for i in range(32)], 32),
+    (4, 16, [5, -1, -5, -10, 3], [16, 100, -3, 16, 8], 16),
+    (4, 16, [], [], 16),
+    (4096, 1518, list(range(0, 4096, 16)), [64 + 5 * i for i in range(256)], 1518),
+]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: f"{c[0]}x{c[1]}-n{len(c[2])}")
+def test_burst_gather_kernel_vs_plain(dev, case):
+    from repro_torch.kernels import burst_gather, ops, ref
+    n_slots, slot_size, slots, lengths, width = case
+    gen = torch.Generator().manual_seed(6)
+    arena = torch.randint(0, 256, (n_slots, slot_size), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    s = torch.tensor(slots, dtype=torch.int32, device=dev)
+    n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = burst_gather.launches
+    got = ops.burst_gather(arena, s, n, width)
+    torch.cuda.synchronize()
+    assert burst_gather.launches == before + (1 if slots else 0)
+    assert got.shape == (len(slots), width) and got.device == arena.device
+    assert torch.equal(got, ref.burst_gather(arena, s, n, width))
+
+
+def test_loss_backward_through_the_kernels_reaches_attention_weights(dev, monkeypatch):
+    """The smoke model in f32: every gradient with the kernels equals the
+    plain path's within 1e-4 of its largest magnitude, and wq, wk, wv get
+    non-zero gradients through attention."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synth_tokens
+    from repro_torch.kernels import flash_attention_bwd, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_smoke_config
+    from repro_torch.runtime.steps import loss_and_grads
+    cfg = get_smoke_config("qwen3-1.7b").replace(param_dtype="float32",
+                                                 compute_dtype="float32")
+    params = serve.init_params(cfg, 0, dev)
+    host = synth_tokens(cfg, DataConfig(seq_len=64, global_batch=2, seed=2), 0, 1, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    before = flash_attention_bwd.launches
+    loss, _, got = loss_and_grads(cfg, params, batch)
+    assert flash_attention_bwd.launches == before + cfg.n_layers
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, **kw: ref.mha(q, k, v, **kw))
+    loss_p, _, want = loss_and_grads(cfg, params, batch)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    got, want = tree.leaf_paths(got), tree.leaf_paths(want)
+    for key in want:
+        bound = 1e-4 * float(want[key].abs().max())
+        assert float((got[key] - want[key]).abs().max()) <= bound, key
+        if key.split("/")[-1] in ("wq", "wk", "wv"):
+            assert float(got[key].abs().max()) > 0, key
+
+
+def test_bypass_dataplane_on_cuda(dev):
+    """Pinned buffers, side-stream copies and event polling deliver the
+    kernel feed's batches on the card, and the ring drains cleanly."""
+    from repro_torch.core.dataplane import BypassDataplane, KernelStackFeed
+    from repro_torch.data.pipeline import DataConfig, stream_factory
+    from repro_torch.models.registry import get_smoke_config
+    cfg = get_smoke_config("qwen3-1.7b")
+    factory = stream_factory(cfg, DataConfig(seq_len=64, global_batch=8, seed=3), n_steps=12)
+    kf = KernelStackFeed(factory(0, 1), dev)
+    bp = BypassDataplane(factory, device=dev, depth=3, ports=1)
+    try:
+        for _ in range(12):
+            a, b = kf.next_batch(), bp.next_batch(timeout_s=30.0)
+            for key in a:
+                assert b[key].device == dev and b[key].dtype == torch.int32
+                # use on the current stream right away: the hand-over orders it
+                assert torch.equal(a[key], b[key].clone())
+        assert bp.next_batch(timeout_s=30.0) is None
+        assert bp.stats.batches == 12 and bp.stats.avg_occupancy >= 1
+    finally:
+        bp.stop()
+    bp = BypassDataplane(factory, device=dev, depth=3, ports=2)
+    try:
+        assert bp.next_batch(timeout_s=30.0) is not None
+        bp.drop_inflight()
+        assert sorted(bp._free_slots) == [0, 1, 2]
+    finally:
+        bp.stop()
+
+
+def test_smoke_train_goes_through_the_kernels(dev):
+    """Two smoke train steps (4 layers): per step each layer's forward and
+    its recompute, and one backward; no plain call."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    from repro_torch.launch import train
+    flash_attention.launches = flash_attention_bwd.launches = ref.calls = 0
+    rt = train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "2", "--seq-len", "32",
+                     "--global-batch", "2", "--log-every", "1"])
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (16, 8)
+    assert ref.calls == 0
+    assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN
