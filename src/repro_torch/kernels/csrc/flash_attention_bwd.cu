@@ -27,11 +27,16 @@
 // that range up front), so the GQA sum over the group happens inside the
 // block. Kernel 3 gives a block one (query tile of 64 rows, head, batch row)
 // and loops over the kv tiles its rows can see, as the forward does, with dQ
-// in registers. Both recompute the 64 x 64 score tile from Q and K with the
-// same f32 FMA order as the forward, so P matches the forward's softmax. Tiles
-// sit in shared memory as f32 with a padded pitch (Dh + 1) so that the column
-// reads of Q, K, V and dO hit distinct banks. All products are f32 FMAs on the
-// CUDA cores, never TF32.
+// in registers. Both recompute the 64 x 64 score tile from Q and K with f32
+// FMAs. For f32 inputs that is the forward's own order, so P matches the
+// forward's softmax. For bf16 inputs the forward sums the same products on
+// the tensor cores (bf16 products are exact in f32) in another order, so the
+// recomputed scores differ from the forward's only by rounding in the sums:
+// at qwen3-1.7b's train shape the rows of exp(s - lse) sum to 1 within
+// 1.07e-6 (chip_smoke.py's flash_bwd check, NVIDIA H100 80GB HBM3 at 700 W).
+// Tiles sit in shared memory as f32 with a padded pitch (Dh + 1) so that the
+// column reads of Q, K, V and dO hit distinct banks. All products are f32
+// FMAs on the CUDA cores, never TF32.
 //
 // Head dims: a multiple of 16 up to 128 (qwen3's 128 included). dK and dV of
 // 4 keys x Dh/16 columns a thread take 64 registers at Dh 128; at Dh 256 they

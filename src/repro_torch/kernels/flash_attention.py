@@ -72,6 +72,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        # the bf16 body moves rows with 16-byte cp.async; the f32 body has no such need
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda needs {name} to start on a "
+                             f"16-byte boundary, got address {t.data_ptr():#x}")
     lib, fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -22,6 +22,9 @@ CASES = [
     (1, 96, 160, 8, 2, 128, True, 64, 64),
     (1, 64, 64, 2, 1, 32, True, 0, -16),
     (1, 128, 128, 2, 1, 256, True, 0, 0),
+    (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80 on the Dh 128 body, zero columns
+    (1, 200, 200, 4, 1, 96, False, 0, 0),     # Dh 96, not causal
+    (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 
 
@@ -51,6 +54,8 @@ def test_flash_kernel_vs_plain(dev, case, dtype, tol):
     assert flash_attention.launches == before + 1
     want = ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:  # the whole output, as chip_smoke.py holds it
+        assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
@@ -125,12 +130,89 @@ def test_rglru_kernel_vs_plain(dev, B, S, W, with_h0, dtype, tol):
     torch.testing.assert_close(hl.float(), hp.float(), atol=tol, rtol=tol)
 
 
+def _flash_inputs(case, dtype, dev, seed):
+    B, Sq, Skv, H, Hkv, Dh = case[:6]
+    gen = torch.Generator().manual_seed(seed)
+    return (_randn(gen, (B, Sq, H, Dh), dtype, dev),
+            *(_randn(gen, (B, Skv, Hkv, Dh), dtype, dev) for _ in range(2)))
+
+
+def _plain_lse(q, k, *, causal, window, q_offset, scale):
+    """(B,H,Sq) logsumexp of the scaled, masked scores in f32, -inf on rows
+    with no visible key."""
+    from repro_torch.kernels import ref
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, Sq, Hkv, H // Hkv, Dh).float(),
+                     k.float()) * scale
+    mask = ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
+                              q_offset=q_offset, device=q.device)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1).reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[-1], (1, 256, 256, 2, 1, 256, True, 64, 0)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_calls_are_bitwise_repeatable(dev, case):
+    """No atomics and a fixed summation order: two bf16 calls on the same
+    inputs give the same bits, output and logsumexp."""
+    from repro_torch.kernels import flash_attention
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=7)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              softmax_scale=case[5] ** -0.5, with_lse=True)
+    out_a, lse_a = flash_attention._forward(q, k, v, **kw)
+    out_b, lse_b = flash_attention._forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b)
+    assert torch.equal(lse_a, lse_b)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 64, 64, 2, 1, 32, True, 0, -16),     # causal: rows 0-15 see no key
+    (1, 200, 200, 4, 2, 64, True, 48, -8),   # window: rows 0-7 see no key
+], ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_lse_vs_logsumexp(dev, case):
+    """The bf16 body's logsumexp against torch.logsumexp of the masked,
+    scaled f32 scores (bf16 products are exact in f32, so only the summation
+    order differs): within 1e-4 (1 + max |lse|) on rows that see a key; +inf
+    and an output of 0 on rows that see none."""
+    from repro_torch.kernels import flash_attention
+    causal, window, q_offset = case[6:]
+    scale = case[5] ** -0.5
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v = _flash_inputs(case, torch.bfloat16, dev, seed=8)
+    out, lse = flash_attention._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
+    want = _plain_lse(q, k, scale=scale, **mask)
+    empty = torch.isinf(want)
+    assert int(empty.sum()) > 0 and bool((~empty).any())
+    bound = 1e-4 * (1 + float(want[~empty].abs().max()))
+    assert float((lse[~empty] - want[~empty]).abs().max()) <= bound
+    assert bool((lse[empty] == float("inf")).all())
+    assert torch.count_nonzero(out.transpose(1, 2)[empty]) == 0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from repro_torch.kernels import decode_attention, flash_attention
     q = torch.zeros(1, 8, 2, 24, device=dev)  # Dh 24 is not a multiple of 16
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_attention_cuda(q, q[:, :, :1], q[:, :, :1], causal=True,
                                              window=0, q_offset=0, softmax_scale=1.0)
+    # contiguous, but 2 bytes past a 16-byte boundary: cp.async cannot move it
+    buf = torch.zeros(1 + 8 * 2 * 32, device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 2, 32)
+    k = torch.zeros(1, 8, 1, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention_cuda(q, k, k, causal=True, window=0, q_offset=0,
+                                             softmax_scale=1.0)
+    # the f32 body reads elements, not 16-byte rows: 4 bytes past a boundary runs
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(9)
+    buf = _randn(gen, (1 + 8 * 2 * 32,), torch.float32, dev)
+    q, k = buf[1:].view(1, 8, 2, 32), _randn(gen, (1, 8, 1, 32), torch.float32, dev)
+    torch.testing.assert_close(
+        flash_attention.flash_attention_cuda(q, k, k, causal=True, window=0, q_offset=0,
+                                             softmax_scale=1.0),
+        ref.mha(q, k, k, causal=True, softmax_scale=1.0), atol=2e-5, rtol=2e-5)
     q = torch.zeros(1, 2, 16, device=dev, dtype=torch.float16)
     kc = torch.zeros(1, 8, 1, 16, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
