@@ -23,13 +23,20 @@ Phases, each printed as one JSON object per line:
    size, no packets) and the benchmark shape (arena 4096 x 1518, 256
    packets); then 16 bursts at the benchmark shape through ops.burst_gather
    with the counters set to 0 just before (16 launches, 0 plain calls);
+   flash_forward_digest: a sha256 over the forward's outputs and
+   logsumexp at those cases and the train shape, f32 and bf16 (two trees
+   with equal digests on one card compute bitwise-equal forwards);
    flash_bwd: dq, dk, dv of the flash kernels' autograd.Function against
    autograd through the plain ref.mha (f32: max abs <= 1e-4 (1 + max |ref|);
-   bf16: relative RMS <= 2e-2) on causal, window, GQA group 2 and 16,
-   q_offset > 0, rows with no visible key, and qwen3-1.7b's train shape;
-   the forward's logsumexp against torch.logsumexp, and the rows of
-   exp(s - lse) over the f32 scores the backward recomputes summing to 1
-   (the train shape's worst bf16 error on a line of its own);
+   bf16: relative RMS <= 2e-2), and of the backward kernel alone against
+   ref.mha_bwd on the same out and lse (f32 the same bound; bf16 each
+   gradient within a relative RMS of 1e-2), two calls bitwise equal, on
+   causal, window, GQA group 2 and 16, q_offset > 0, rows with no visible
+   key, Dh 80 and 96 (on the Dh 128 body), ragged Sq and Skv, and
+   qwen3-1.7b's train shape; the forward's logsumexp against
+   torch.logsumexp, and the rows of exp(s - lse) over the f32 scores the
+   backward recomputes summing to 1 (the train shape's worst bf16 error on
+   a line of its own);
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
    with random weights from seed 0 — serve: 8 requests in batches of 4, 32
    generated tokens, greedy, through repro_torch.launch.serve, with every
@@ -46,7 +53,7 @@ Phases, each printed as one JSON object per line:
    224 flash backwards, nothing else, 0 plain calls); the two runs' losses
    must be bitwise equal; checkpointing is off at this size; a profile of
    one more step (trace_train: the flash forward and backward kernels'
-   device time, which must not read 0);
+   device time, which must not read 0, the backward's also per kernel);
    train_vs_plain: one step's loss and every gradient with the kernels
    against the plain versions, f32, full width, 4 layers;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
@@ -56,7 +63,8 @@ Phases, each printed as one JSON object per line:
    the profiler), its plain version, a PyTorch call computing the same
    function where there is one (checked against the kernel), and the bound;
    before them, one line with the flash forward's achieved TFLOP/s at its
-   three shapes beside the bound's.
+   three shapes beside the bound's, and one with the backward's at the
+   train shape.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -88,6 +96,11 @@ SSD_ORACLE_TOL = 5e-4
 # that rounding, a wrong decay or mask moves y by order 100%.
 SSD_PLAIN_BF16_REL_RMS = 1e-2
 FLASH_BWD_F32_TOL, FLASH_BWD_BF16_REL_RMS = 1e-4, 2e-2
+# bf16 backward kernel vs ref.mha_bwd on the same out and lse: the kernel
+# rounds P and dS to bf16 as operands of its products, the plain version
+# rounds only its outputs; a wrong product, mask or scale moves a gradient
+# by order 100%.
+FLASH_BWD_VS_PLAIN_BF16_REL_RMS = 1e-2
 # bf16 flash forward vs ref.mha (f32 softmax of the bf16 inputs, the output
 # rounded once): besides the elementwise 2e-2, which is large beside outputs
 # of order sqrt(e / n_keys), the whole output within a relative RMS of 1e-2.
@@ -369,6 +382,25 @@ def run_checks(dev):
     return worst
 
 
+def forward_digest(dev):
+    """sha256 over the bytes of the flash forward's output and logsumexp, f32
+    and bf16, at every FLASH_CASES entry and the train shape: two trees whose
+    digests agree on one card compute bitwise-equal forwards."""
+    import hashlib
+    from repro_torch.kernels import flash_attention as kflash
+    h = hashlib.sha256()
+    cases = FLASH_CASES + [FLASH_TRAIN]
+    for case in cases:
+        causal, window, q_offset = case[6:]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, dev)
+            for t in kflash._forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                     softmax_scale=case[5] ** -0.5, with_lse=True):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            del q, k, v
+    return {"cases": len(cases), "dtypes": ["float32", "bfloat16"], "sha256": h.hexdigest()}
+
+
 # --------------------------------------------------------------------------
 # burst gather
 # --------------------------------------------------------------------------
@@ -459,6 +491,8 @@ FLASH_BWD_CASES = [
     (2, 96, 160, 16, 1, 32, True, 0, 64),     # GQA group 16, q_offset > 0
     (1, 64, 64, 2, 1, 32, True, 0, -16),      # rows with no visible key
     (1, 100, 100, 4, 2, 128, False, 0, 0),    # not causal, Dh 128
+    (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80: the Dh 128 body, zero columns
+    (1, 100, 161, 4, 2, 96, True, 0, 61),     # Dh 96, ragged Sq and Skv under q_offset
     (4, 2048, 2048, 16, 8, 128, True, 0, 0),  # qwen3-1.7b train, full width
 ]
 FLASH_TRAIN = FLASH_BWD_CASES[-1]
@@ -487,6 +521,7 @@ def run_flash_bwd_checks(dev):
     """Returns the bf16 max abs errors at the train shape: of the forward
     output and of the gradients (largest of dq, dk, dv)."""
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import ops, ref
     worst = {}
     for case in FLASH_BWD_CASES:
@@ -520,6 +555,27 @@ def run_flash_bwd_checks(dev):
                     res[name] = {"rel_rms": rr, "bound_rel_rms": FLASH_BWD_BF16_REL_RMS,
                                  "max_abs": err}
                 ok = ok and ok_i and bool(torch.isfinite(a).all())
+            # the kernel alone, twice, against ref.mha_bwd on the same out and lse
+            gk = kbwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale=scale,
+                                               **mask)
+            gk2 = kbwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale=scale,
+                                                **mask)
+            gm = ref.mha_bwd(q, k, v, out, lse, dout, softmax_scale=scale, **mask)
+            torch.cuda.synchronize()
+            res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+            ok = ok and res["bitwise_repeatable"]
+            vs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), gk, gm):
+                if dtype == torch.float32:
+                    bound = FLASH_BWD_F32_TOL * (1 + float(b.float().abs().max()))
+                    vs[name] = {"max_abs": float((a - b).abs().max()), "bound_max_abs": bound}
+                    ok = ok and vs[name]["max_abs"] <= bound
+                else:
+                    vs[name] = {"rel_rms": rel_rms(a, b),
+                                "bound_rel_rms": FLASH_BWD_VS_PLAIN_BF16_REL_RMS}
+                    ok = ok and vs[name]["rel_rms"] <= FLASH_BWD_VS_PLAIN_BF16_REL_RMS
+            res["vs_mha_bwd"] = vs
+            del gk, gk2, gm
             e_out, ok_out = max_err(out, out_p, F32_TOL if dtype == torch.float32 else BF16_TOL)
             empty = torch.isinf(lse_p)  # (B, H, Sq): rows with no visible key
             vis = ~empty
@@ -799,8 +855,11 @@ def trace_train(cfg, rt, state, dev):
     by_name, busy, out = _kernel_profile(prof, wall_us)
     # flash_fwd_mma_kernel (bf16) and flash_fwd_kernel (f32); flash_bwd_*
     fwd = sum(v for k, v in by_name.items() if "flash_fwd_" in k) / 1e3
-    bwd = sum(v for k, v in by_name.items() if "flash_bwd_" in k) / 1e3
+    # flash_bwd_dot_kernel, then flash_bwd_dkdv_* and flash_bwd_dq_* of either body
+    bwd_by = {k[:60]: v / 1e3 for k, v in by_name.items() if "flash_bwd_" in k}
+    bwd = sum(bwd_by.values())
     out.update({"arch": cfg.arch_id, "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+                "flash_bwd_ms_by_kernel": bwd_by,
                 "flash_share_of_busy": None if not busy else (fwd + bwd) * 1e3 / busy})
     emit("trace_train", out)
     if fwd <= 0 or bwd <= 0:
@@ -1058,14 +1117,16 @@ def time_flash_bwd(launches, errs, card, dev):
     lib_ms = time_ms(sdpa_fb, iters=20) - time_ms(sdpa, iters=20)
     got = kern()
     rr = max(rel_rms(a, b.transpose(1, 2)) for a, b in zip(got, sdpa_fb()))
+    flops = 10 * Dh * pairs * B * H
+    ms = time_ms(kern, iters=10)
     return _row("flash_attention_bwd", TRAIN_LABEL, launches, errs, card,
-                ms=time_ms(kern, iters=10), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                ms=ms, flops=flops, tflop_per_s=flops / ms / 1e9, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms,
                 library="scaled_dot_product_attention forward+backward minus its forward",
                 library_vs_kernel_rel_rms=(rr, rr <= FLASH_BWD_BF16_REL_RMS),
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
-                       "causal": True, "dtype": "bfloat16", "bytes": nbytes,
-                       "flops": 10 * Dh * pairs * B * H})
+                       "causal": True, "dtype": "bfloat16", "bytes": nbytes})
 
 
 def time_gather(launches, errs, card, dev):
@@ -1180,6 +1241,13 @@ def run_times(launches, errs, card, dev):
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "bound_tflop_per_s": r["flops"] / r["bound_ms"] / 1e9, "card": r["card"]}
         for r in rows if r["name"].startswith("flash_attention (")])
+    emit("flash_backward_rate", [
+        {"name": r["name"], "ms": r["ms"], "tflop_per_s": r["tflop_per_s"],
+         "flops": r["flops"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "bound_tflop_per_s": r["flops"] / r["bound_ms"] / 1e9,
+         "what": "10 Dh FLOP per visible (query, key) pair and head: the 5 products "
+                 "a fused backward needs; the kernels do 7", "card": r["card"]}
+        for r in rows if r["name"].startswith("flash_attention_bwd")])
     for r in rows:
         emit("time", r)
         # a yardstick must compute the kernel's function on the same inputs
@@ -1228,6 +1296,7 @@ def main():
     emit("build", {"seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
     errs = run_checks(dev)
+    emit("flash_forward_digest", forward_digest(dev))
     launches = {}
     launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
     errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})

@@ -76,6 +76,7 @@
 // times beside the bound.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <math.h>
 
@@ -273,10 +274,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 namespace mma {
 
-using bf16 = __nv_bfloat16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace repro::mma;
 
 // The tiles of an instantiation: WARPS warps, each owning 16 query rows,
 // and kv tiles of BK keys. Rows in shared memory hold Dh plus 16 bytes of
@@ -296,57 +294,7 @@ struct Tile {
   static constexpr size_t SMEM = (size_t)(BM + 4 * BK) * P * sizeof(bf16);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in (src-size 0,
-// nothing is read from src)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a . b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as one register of bf16: lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, c = lane % 4): an
-// f32 accumulator holds rows g (elements 0, 1) and g + 8 (elements 2, 3) at
-// columns 2c, 2c + 1 of its 8-column tile. A quad of lanes holds a row.
+// Fragment layouts and the helpers: mma.cuh.
 //
 // DH: the instantiation's head dim, at least the runtime Dh (a multiple of
 // 16); columns Dh..DH-1 are zero in shared memory and skipped.
@@ -407,14 +355,11 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_fwd_mma_kernel(
   cp_async_commit();  // the first kv tile (an empty group when there is none)
 
   const int g = lane >> 2, cq = lane & 3;
-  // ldmatrix row addresses of this lane: Q's A fragment (rows lane % 16,
-  // columns 8 (lane / 16)); K's B fragments of two key n-tiles (keys
-  // lane % 8 + 8 (lane / 16), columns 8 ((lane / 8) % 2)); V's transposed B
-  // fragments of two column n-tiles (keys lane % 8 + 8 ((lane / 8) % 2),
-  // columns 8 (lane / 16))
-  const uint32_t q_addr = smem_u32(Qs + (wrow + (lane & 15)) * P + (lane >> 4) * 8);
-  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * P + (lane >> 4) * 8;
+  // ldmatrix row addresses of this lane: Q's A fragment, K's B fragments of
+  // two key n-tiles, V's transposed B fragments of two column n-tiles
+  const uint32_t q_addr = smem_u32(Qs + wrow * P + a_off<P>(lane));
+  const int k_off = b_off<P>(lane);
+  const int v_off = bt_off<P>(lane);
 
   // At Dh <= 128 the warp's Q fragments stay in registers for the whole kv
   // loop (32 registers at Dh 128), which saves one ldmatrix of five in
@@ -535,10 +480,8 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_fwd_mma_kernel(
     // O += P . V, P rounded to bf16 in registers as the A operand
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dp = 0; dp < DH / 16; ++dp) {
         if (dp * 16 < Dh) {

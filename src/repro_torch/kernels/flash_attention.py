@@ -61,6 +61,15 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name} needs contiguous q, k, v")
 
 
+def check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each bf16 tensor starts on a 16-byte boundary: the bf16
+    bodies move rows with 16-byte cp.async; the f32 bodies have no such need."""
+    for tname, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs {tname} to start on a 16-byte boundary, "
+                             f"got address {t.data_ptr():#x}")
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
              window: int, q_offset: int, softmax_scale: float, with_lse: bool
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -72,11 +81,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        # the bf16 body moves rows with 16-byte cp.async; the f32 body has no such need
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda needs {name} to start on a "
-                             f"16-byte boundary, got address {t.data_ptr():#x}")
+    check_aligned("flash_attention_cuda", q=q, k=k, v=v)
     lib, fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -107,8 +112,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset, scale = ctx.mask
+        dout = dout.contiguous()
+        if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
+            dout = dout.clone()  # a view into another buffer: bf16 rows move 16 bytes at a time
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, lse, dout.contiguous(), causal=causal, window=window,
+            q, k, v, out, lse, dout, causal=causal, window=window,
             q_offset=q_offset, softmax_scale=scale)
         return dq, dk, dv, None, None, None, None
 

@@ -19,7 +19,7 @@ from . import _build
 
 launches = 0
 
-MAX_HEAD_DIM = 128  # dK and dV of a thread live in registers (see the CUDA source)
+MAX_HEAD_DIM = 128  # a warp's dK and dV live in registers (see the CUDA source)
 
 
 def _fn():
@@ -41,7 +41,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's inputs, its output ``out`` and logsumexp ``lse`` (B,H,Sq) f32,
     and the output's gradient ``dout``."""
     global launches
-    from .flash_attention import check_inputs
+    from .flash_attention import check_aligned, check_inputs
     check_inputs("flash_attention_bwd_cuda", q, k, v, MAX_HEAD_DIM)
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -61,6 +61,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if Skv == 0 or q.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    check_aligned("flash_attention_bwd_cuda", q=q, k=k, v=v, out=out, dout=dout)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib, fn = _fn()
     with torch.cuda.device(q.device):

@@ -2,14 +2,15 @@
 the RG-LRU scan and the packet burst gather.
 
 The attention functions compute what ``repro.kernels.ref`` computes, in f32,
-materialising the whole score matrix. ``ssd_scan`` is the JAX package's
-chunked form (``repro.kernels.ops.ssd_scan``), ``ssd_sequential`` its
-sequential oracle, ``rglru_scan`` a sequential f32 loop, and
-``burst_gather`` copies ``repro.kernels.ref.burst_gather`` with the index
-semantics of JAX's ``arena[slots]``. The CPU takes
-them in ``ops``; on the card they are what ``chip_smoke.py`` holds each CUDA
-kernel against. ``calls`` counts every call so a run can show that serving
-did not use them.
+materialising the whole score matrix; ``mha_bwd`` is ``mha``'s gradient from
+the forward's saved output and logsumexp, as the backward kernel takes them
+(the JAX package differentiates its chunked path instead). ``ssd_scan`` is
+the JAX package's chunked form (``repro.kernels.ops.ssd_scan``),
+``ssd_sequential`` its sequential oracle, ``rglru_scan`` a sequential f32
+loop, and ``burst_gather`` copies ``repro.kernels.ref.burst_gather`` with the
+index semantics of JAX's ``arena[slots]``. The CPU takes them in ``ops``; on
+the card they are what ``chip_smoke.py`` holds each CUDA kernel against.
+``calls`` counts every call so a run can show that serving did not use them.
 """
 from __future__ import annotations
 
@@ -57,6 +58,39 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = _masked_softmax(scores, mask[None, None, None])
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True, window: int = 0,
+            q_offset: int = 0, softmax_scale: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``mha`` from what its forward saved, with the backward
+    kernel's signature: q, out, dout (B,Sq,H,Dh), k/v (B,Skv,Hkv,Dh), lse
+    (B,H,Sq) the natural-log logsumexp of the scaled, masked scores (+inf on
+    a row with no visible key) → (dq, dk, dv) in q's dtype, computed in f32:
+    P = exp(s·QKᵀ − lse) on the mask, D = rowsum(dO·O), dS = P·(dO Vᵀ − D),
+    dV = Pᵀ dO, dK = s·dSᵀ Q, dQ = s·dS K."""
+    global calls
+    calls += 1
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    qg = q.reshape(B, Sq, Hkv, group, Dh).float()
+    dog = dout.reshape(B, Sq, Hkv, group, Dh).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    lse_g = lse.float().reshape(B, Hkv, group, Sq, 1)
+    p = torch.exp(s - lse_g).masked_fill(~mask, 0.0)
+    d = (dout.float() * out.float()).sum(-1)                     # (B, Sq, H)
+    d = d.reshape(B, Sq, Hkv, group).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vf) - d)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, H, Dh) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

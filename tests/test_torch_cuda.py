@@ -6,7 +6,8 @@ runs inside the fixture, never at import). On a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16
-(its gradient 1e-4 and a relative RMS of 2e-2, see below); the RG-LRU scan
+(its gradient 1e-4 and a relative RMS of 2e-2 against autograd through the
+plain forward, 1e-2 against the plain backward, see below); the RG-LRU scan
 1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
 which the oracle rounds only at its output); the burst gather exactly.
 """
@@ -213,6 +214,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash_attention.flash_attention_cuda(q, k, k, causal=True, window=0, q_offset=0,
                                              softmax_scale=1.0),
         ref.mha(q, k, k, causal=True, softmax_scale=1.0), atol=2e-5, rtol=2e-5)
+    # the backward's bf16 body too; FlashAttention's backward copies a dout off a
+    # 16-byte boundary to a fresh tensor first, which gives the same gradients
+    from repro_torch.kernels import flash_attention_bwd
+    case = (1, 64, 64, 2, 1, 32, True, 0, 0)
+    q, k, v, dout, out, lse = _bwd_inputs(case, torch.bfloat16, dev, seed=13)
+    buf = torch.empty(1 + dout.numel(), device=dev, dtype=torch.bfloat16)
+    dout_off = buf[1:].view(dout.shape)
+    dout_off.copy_(dout)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout_off,
+                                                     causal=True, window=0, q_offset=0,
+                                                     softmax_scale=32 ** -0.5)
+
+    def grads(d):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention.flash_attention_cuda(*ts, causal=True, window=0, q_offset=0,
+                                                 softmax_scale=32 ** -0.5)
+        return torch.autograd.grad(o, ts, d)
+    for a, b in zip(grads(dout_off), grads(dout)):
+        assert torch.equal(a, b)
     q = torch.zeros(1, 2, 16, device=dev, dtype=torch.float16)
     kc = torch.zeros(1, 8, 1, 16, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -251,6 +272,10 @@ BWD_CASES = [
     (2, 96, 160, 16, 1, 32, True, 0, 64),
     (1, 64, 64, 2, 1, 32, True, 0, -16),
     (1, 100, 100, 4, 2, 128, False, 0, 0),
+    (1, 384, 384, 2, 1, 16, True, 128, 0),    # Dh 16 (the Dh 32 body), a window over tiles
+    (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80 on the Dh 128 body, zero columns
+    (1, 200, 200, 4, 1, 96, False, 0, 0),     # Dh 96, not causal
+    (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 
 
@@ -285,6 +310,60 @@ def test_flash_backward_kernel_vs_autograd_through_plain(dev, case, dtype):
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 2e-2
     if q_offset < 0:  # rows that see no key get no gradient
         assert torch.count_nonzero(got[0][:, :-q_offset]) == 0
+
+
+def _bwd_inputs(case, dtype, dev, seed):
+    """q, k, v, dout, and the forward kernel's output and logsumexp."""
+    from repro_torch.kernels import flash_attention
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_inputs(case, dtype, dev, seed)
+    dout = _randn(torch.Generator().manual_seed(seed + 1), q.shape, dtype, dev)
+    out, lse = flash_attention._forward(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, softmax_scale=case[5] ** -0.5,
+                                        with_lse=True)
+    return q, k, v, dout, out, lse
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_vs_plain_bwd(dev, case, dtype):
+    """The backward kernel against ref.mha_bwd given the same out and lse (the
+    forward kernel's): f32 within 1e-4 (1 + max |ref|); bf16 each of dq, dk,
+    dv within a relative RMS of 1e-2 (the kernel rounds P and dS to bf16 as
+    operands of its products, and its outputs; ref.mha_bwd rounds only its
+    outputs)."""
+    from repro_torch.kernels import flash_attention_bwd, ref
+    causal, window, q_offset = case[6:]
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                softmax_scale=case[5] ** -0.5)
+    q, k, v, dout, out, lse = _bwd_inputs(case, dtype, dev, seed=11)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.mha_bwd(q, k, v, out, lse, dout, **mask)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and bool(torch.isfinite(a).all())
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+        else:
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[2], BWD_CASES[-1]],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_bf16_calls_are_bitwise_repeatable(dev, case):
+    """No atomics and a fixed summation order: two bf16 backward calls on the
+    same inputs give the same bits."""
+    from repro_torch.kernels import flash_attention_bwd
+    causal, window, q_offset = case[6:]
+    q, k, v, dout, out, lse = _bwd_inputs(case, torch.bfloat16, dev, seed=12)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softmax_scale=case[5] ** -0.5)
+    a = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    b = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_flash_backward_refuses_head_dims_past_128(dev):
