@@ -1,38 +1,115 @@
-"""Wrapper of the CUDA decode-attention kernel (``csrc/decode_attention.cu``).
+"""Wrapper of the CUDA decode-attention kernels (``csrc/decode_attention.cu``).
 
 Replaces ``src/repro/kernels/decode_attention.py:62`` (``decode_attention_pallas``).
-What bounds the kernel on the H100 and what its design does about it is in
-the note at the top of the CUDA source. ``launches`` counts kernel launches.
+What bounds the kernels on the H100 and what their design does about it is in
+the note at the top of the CUDA source. Each call runs two kernels on the
+current stream: the partial pass over the cache's splits, which ``plan_splits``
+plans here on the host, and the combine of the splits in a fixed order.
+``launches`` counts calls of the wrapper (one partial pass and one combine
+each).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from . import _build
+from .flash_attention import check_aligned
 
 launches = 0
+# f32 workspace of the partial states, one per (device, stream), grown to the
+# largest call: calls on one stream run in order, so a call's partial pass
+# writes it only after the previous call's combine has read it
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+TILE = 64  # keys per tile of both partial bodies; split boundaries are multiples of it
+
+
+class Plan(NamedTuple):
+    """Splits of ``split_keys`` cache slots, ``n_splits`` of them (split i
+    holds slots i split_keys up to C), and the body that the C entry point
+    picks for the call by the same rule as ``plan_splits``: "mma" (bf16 on
+    the tensor cores) or "fma" (f32 FMAs)."""
+    split_keys: int
+    n_splits: int
+    body: str
+
+
+@functools.lru_cache(maxsize=256)
+def plan_splits(B: int, C: int, Hkv: int, group: int, Dh: int, dtype: torch.dtype,
+                n_sm: int) -> Plan:
+    """The partial pass's plan from the shapes and the SM count alone (it
+    never reads ``cache_len``, which lives on the device). Splits of whole
+    64-key tiles, as many as make the grid (n_splits, Hkv, B) at least one
+    block per SM where the cache has that many tiles, and no smaller: each
+    split's state costs a workspace row per query head and a term of the
+    combine. bf16 with Dh a multiple of 8 runs on mma.sync (16-byte rows),
+    everything else on f32 FMAs."""
+    tiles = max(1, -(-C // TILE))
+    per_wave = -(-n_sm // max(1, B * Hkv))  # splits that give one block per SM
+    tiles_per_split = max(1, tiles // per_wave)
+    n_splits = -(-tiles // tiles_per_split) if C > 0 else 1
+    body = "mma" if dtype == torch.bfloat16 and Dh % 8 == 0 else "fma"
+    return Plan(tiles_per_split * TILE, n_splits, body)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _fn():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            cache_len: torch.Tensor, scale: float, plan: Plan) -> torch.Tensor:
+    """Both kernels under ``plan``, on inputs ``decode_attention_cuda`` checked.
+
+    Decode is host-bound, so this path keeps to the cheap calls: the raw
+    current stream (``torch.cuda.current_stream()`` builds a Stream object),
+    the device switch only when the caller's device is another, and the
+    stream's cached workspace."""
+    global launches
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return _launch(q, k_cache, v_cache, cache_len, scale, plan)
+    B, H, Dh = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    numel = B * H * plan.n_splits * (Dh + 2)
+    ws = _workspaces.get((q.device.index, stream))
+    if ws is None or ws.numel() < numel:
+        ws = _workspaces[(q.device.index, stream)] = torch.empty(
+            numel, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib, fn = _fn()
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+             out.data_ptr(), ws.data_ptr(), B, C, H, Hkv, Dh, plan.split_keys,
+             plan.n_splits, float(scale), _build.DTYPE_CODES[q.dtype], stream)
+    launches += 1
+    _build.check(lib, "decode_attention", err)
+    return out
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                           softmax_scale: float) -> torch.Tensor:
     """q (B,H,Dh), caches (B,C,Hkv,Dh), cache_len (B,) int32, one CUDA device
-    → (B,H,Dh)."""
-    global launches
+    → (B,H,Dh). bf16 inputs with Dh a multiple of 8 must start on 16-byte
+    boundaries (the mma body moves 16-byte rows)."""
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, cache_len)):
+    if (dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev
+            or cache_len.device != dev):
         raise ValueError("decode_attention_cuda needs q, caches and cache_len on "
                          f"one CUDA device, got {q.device}, {k_cache.device}, "
                          f"{v_cache.device}, {cache_len.device}")
@@ -56,15 +133,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, cache_len)):
         raise ValueError("decode_attention_cuda needs contiguous inputs")
     _build.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib, fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 cache_len.data_ptr(), out.data_ptr(), B, C, H, Hkv, Dh,
-                 float(softmax_scale), _build.DTYPE_CODES[q.dtype], stream)
-    launches += 1
-    _build.check(lib, "decode_attention", err)
-    return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    plan = plan_splits(B, C, Hkv, H // Hkv, Dh, q.dtype, _sm_count(dev.index))
+    if plan.body == "mma":
+        check_aligned("decode_attention_cuda", q=q, k_cache=k_cache, v_cache=v_cache)
+    return _launch(q, k_cache, v_cache, cache_len, softmax_scale, plan)

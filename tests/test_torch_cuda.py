@@ -59,12 +59,26 @@ def test_flash_kernel_vs_plain(dev, case, dtype, tol):
         assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
 
 
+def _decode_close(got, want, dtype, tol):
+    """f32 within 2e-5; bf16 within 2e-2 elementwise and, as chip_smoke.py
+    holds it, the whole output within a relative RMS of 1e-2."""
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 12, 16])
+@pytest.mark.parametrize("Dh", [20, 24, 64, 128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_decode_kernel_vs_plain(dev, dtype, tol):
+def test_decode_kernel_vs_plain(dev, group, Dh, dtype, tol):
+    """Every GQA group the wrapper takes, at head dims that run the bf16
+    mma body (64, 128, 256; 24 with its last k-step half zero) and the FMA
+    body (20: rows not a multiple of 16 bytes; every f32 shape), over a
+    ragged cache with an empty row, a one-key row and a full one."""
     from repro_torch.kernels import decode_attention, ops, ref
-    B, C, H, Hkv, Dh = 4, 300, 8, 2, 128
+    B, C, Hkv = 4, 300, 2
     gen = torch.Generator().manual_seed(1)
-    q = _randn(gen, (B, H, Dh), dtype, dev)
+    q = _randn(gen, (B, group * Hkv, Dh), dtype, dev)
     kc, vc = (_randn(gen, (B, C, Hkv, Dh), dtype, dev) for _ in range(2))
     cl = torch.tensor([0, 1, 300, 157], dtype=torch.int32, device=dev)
     before = decode_attention.launches
@@ -72,24 +86,72 @@ def test_decode_kernel_vs_plain(dev, dtype, tol):
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
     assert torch.count_nonzero(got[0]) == 0
-    torch.testing.assert_close(got.float(), ref.decode_attention(q, kc, vc, cl).float(),
-                               atol=tol, rtol=tol)
+    _decode_close(got, ref.decode_attention(q, kc, vc, cl), dtype, tol)
 
 
 @pytest.mark.parametrize("B,C,H,Dh,lens", [(4, 2048, 16, 256, (2048, 2048, 1000, 0)),
                                              (2, 300, 12, 64, (300, 5))])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 def test_decode_kernel_large_group_vs_plain(dev, B, C, H, Dh, lens, dtype, tol):
-    """Group 16 at head_dim 256 (recurrentgemma-9b's MQA) and group 12 (a full
-    and a partial slice of 8 query heads)."""
-    from repro_torch.kernels import ops, ref
+    """Group 16 at head_dim 256 over a full 2048-slot ring (recurrentgemma-9b's
+    decode shape, 32 splits of 64 keys) and group 12 (12 of the mma tile's
+    16 rows)."""
+    from repro_torch.kernels import decode_attention, ops, ref
     gen = torch.Generator().manual_seed(2)
     q = _randn(gen, (B, H, Dh), dtype, dev)
     kc, vc = (_randn(gen, (B, C, 1, Dh), dtype, dev) for _ in range(2))
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = decode_attention.launches
     got = ops.decode_attention(q, kc, vc, cl)
-    torch.testing.assert_close(got.float(), ref.decode_attention(q, kc, vc, cl).float(),
-                               atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    empty = [i for i, n in enumerate(lens) if n == 0]
+    assert torch.count_nonzero(got[empty]) == 0
+    _decode_close(got, ref.decode_attention(q, kc, vc, cl), dtype, tol)
+
+
+@pytest.mark.parametrize("B,C,H,Hkv,Dh,lens", [(4, 2048, 16, 1, 256, (2048, 2048, 1000, 0)),
+                                                 (4, 544, 16, 8, 128, (1, 200, 544, 377))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_calls_are_bitwise_repeatable(dev, B, C, H, Hkv, Dh, lens, dtype):
+    """No atomics and a fixed order of sums in the partial pass and the
+    combine: two calls on the same inputs give the same bits (at both serve
+    shapes)."""
+    from repro_torch.kernels import decode_attention
+    gen = torch.Generator().manual_seed(5)
+    q = _randn(gen, (B, H, Dh), dtype, dev)
+    kc, vc = (_randn(gen, (B, C, Hkv, Dh), dtype, dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    a = decode_attention.decode_attention_cuda(q, kc, vc, cl, softmax_scale=Dh ** -0.5)
+    b = decode_attention.decode_attention_cuda(q, kc, vc, cl, softmax_scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_decode_refuses_bf16_off_a_16_byte_boundary(dev):
+    """The mma body moves 16-byte rows with cp.async: a bf16 cache view 2
+    bytes past a boundary raises, and is not copied behind the caller's
+    back (the C entry point refuses it too, past the wrapper's check); the
+    FMA body (bf16 rows of 20 elements) reads elements and runs."""
+    from repro_torch.kernels import decode_attention, ref
+    gen = torch.Generator().manual_seed(6)
+    cl = torch.tensor([8], dtype=torch.int32, device=dev)
+    for Dh, raises in ((32, True), (20, False)):
+        q = _randn(gen, (1, 2, Dh), torch.bfloat16, dev)
+        buf = _randn(gen, (1 + 8 * Dh,), torch.bfloat16, dev)
+        kc = buf[1:].view(1, 8, 1, Dh)
+        before = decode_attention.launches
+        if raises:
+            with pytest.raises(ValueError, match="16-byte"):
+                decode_attention.decode_attention_cuda(q, kc, kc, cl, softmax_scale=1.0)
+            assert decode_attention.launches == before
+            plan = decode_attention.plan_splits(1, 8, 1, 2, Dh, torch.bfloat16, 132)
+            with pytest.raises(RuntimeError, match="misaligned"):
+                decode_attention._launch(q, kc, kc, cl, 1.0, plan)
+        else:
+            got = decode_attention.decode_attention_cuda(q, kc, kc, cl, softmax_scale=1.0)
+            _decode_close(got, ref.decode_attention(q, kc, kc, cl, softmax_scale=1.0),
+                          torch.bfloat16, 2e-2)
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [(2, 300, 8, 64, 128, 256, True),
