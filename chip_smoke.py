@@ -14,7 +14,8 @@ Phases, each printed as one JSON object per line:
    sequential oracle at 5e-4 (bf16: 2e-2 on y, the oracle rounding only its
    output) and against the port's chunked plain version within a relative
    RMS of 1e-2 in bf16 (5e-4 in f32); the cases include each serve shape,
-   ragged S and W, a non-zero h0, group 16 at head_dim 256, a window that
+   ragged S and W, a non-zero h0 (carried by the SSD scan across 8 chunks
+   too), an SSD chunk of 1, group 16 at head_dim 256, a window that
    cuts keys, and flash at head_dim 80 and 96 (run on the head_dim 128
    body with zero columns) with ragged Sq and Skv under q_offset; decode
    at groups 1 to 16, rows of len 0 (exactly 0), 1, a key either side of a
@@ -49,7 +50,7 @@ Phases, each printed as one JSON object per line:
    against the same model on the plain versions, on the card, in bf16 and
    f32 (recurrentgemma-9b's f32 copy keeps one pattern unit and the tail);
    trace: device busy and idle share of one prefill and of decode steps,
-   and the decode kernels' share of them;
+   and the decode kernels' and the SSD scan's share of them;
 5. train: TrainerRuntime on qwen3-1.7b at full width, bf16, random weights
    from seed 0, 8 steps of 4 x 2048 tokens, once fed by the bypass
    dataplane and once by the kernel-stack feed, on the same batches, each
@@ -63,9 +64,11 @@ Phases, each printed as one JSON object per line:
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
-   gather's benchmark; CUDA events; the gather and decode also their device
-   time from the profiler, decode per kernel and with the L2 flushed before
-   each call too, SDPA's the same way), its plain version, a PyTorch call
+   gather's benchmark; CUDA events; the gather, decode and the SSD scan
+   also their device time from the profiler, decode and the SSD scan per
+   kernel, decode with the L2 flushed before each call too, SDPA's the same
+   way; the SSD scan also its FMA floor, its FLOP over the 67 TFLOP/s of
+   f32 FMAs), its plain version, a PyTorch call
    computing the same function where there is one (checked against the
    kernel), and the bound;
    before them, one line with the flash forward's achieved TFLOP/s at its
@@ -123,6 +126,8 @@ DECODE_BF16_REL_RMS = 1e-2
 SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
            "flash_attention_bwd", "burst_gather"]
 DECODE_KERNELS = "decode_attn_"  # the name part of decode's partial pass and combine
+SSD_KERNELS = "ssd_scan_"  # the name part of the SSD scan's four kernels
+SSD_PHASES = ("state", "scores", "pass", "out")  # their names after it, in launch order
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
 PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072}
 EXPECTED = {  # exact launches of one serve run; every other counter must read 0
@@ -279,6 +284,8 @@ SSD_CASES = [
     (2, 37, 3, 8, 16, 8, True),               # smoke-sized heads, ragged S, h0
     (1, 100, 4, 16, 32, 32, False),
     (2, 48, 2, 64, 128, 64, False),           # S shorter than a 256 chunk would be
+    (1, 1024, 4, 64, 128, 128, True),         # the state pass carries h0 across 8 chunks
+    (2, 40, 3, 16, 32, 1, True),              # chunk 1: every step its own chunk
 ]
 RGLRU_CASES = [
     # B, S, W, h0
@@ -833,6 +840,8 @@ def run_trace(cfg, params, dev, steps=8):
             "device_idle_share": None if busy is None else 1.0 - busy / wall_us,
             "decode_attention_ms_per_step": sum(
                 v for k, v in by_name.items() if DECODE_KERNELS in k) / n / 1e3,
+            "ssd_scan_ms_per_step": sum(
+                v for k, v in by_name.items() if SSD_KERNELS in k) / n / 1e3,
             "top_kernels_ms_per_step": sorted(
                 ([k[:90], v / n / 1e3] for k, v in by_name.items()), key=lambda kv: -kv[1])[:8],
         }
@@ -1242,11 +1251,16 @@ def time_ssd(launches, errs, card, dev):
     nc, tri = -(-S // Q), Q * (Q + 1) // 2
     flops = B * nc * (2 * tri * N + H * (2 * tri * P + 2 * 2 * Q * P * N))
     b_ms, b_by = bound(nbytes, flops)
+    kern = lambda: kssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
     return _row("ssd_scan", "mamba2-1.3b", launches, errs, card,
-                ms=time_ms(lambda: kssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q), iters=10),
+                ms=time_ms(kern, iters=10), device_ms=device_ms(kern, SSD_KERNELS, iters=10),
+                device_ms_per_kernel={ph: device_ms(kern, SSD_KERNELS + ph, iters=10)
+                                      for ph in SSD_PHASES},
                 plain_ms=time_ms(lambda: ref.ssd_scan(x, dt, A, Bm, Cm, chunk=Q),
                                  iters=3, warmup=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                # the same products on the CUDA cores, where this design runs them
+                fma_floor_ms=flops / F32_FLOP_PER_S * 1e3, library_ms=None,
                 library="none: no single PyTorch call computes an SSD scan",
                 shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
                        "dtype": "bfloat16", "flops": flops, "bytes": nbytes})

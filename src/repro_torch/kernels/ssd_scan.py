@@ -1,13 +1,18 @@
-"""Wrapper of the CUDA Mamba-2 SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the CUDA Mamba-2 SSD scan kernels (``csrc/ssd_scan.cu``).
 
 Replaces ``src/repro/kernels/ssd_scan.py:66`` (``ssd_scan_pallas``). What
-bounds the kernel on the H100 and what its design does about it is in the
-note at the top of the CUDA source. ``launches`` counts kernel launches.
+bounds the kernels on the H100 and what their design does about it is in the
+note at the top of the CUDA source. Each call runs four kernels on the
+current stream (the chunk states, C·Bᵀ once per chunk, the state pass over
+the chunks, the outputs), whose grids and f32 workspace ``plan`` works out
+here on the host from the shapes alone. ``launches`` counts calls of the
+wrapper (four kernels each).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -15,14 +20,62 @@ from . import _build
 
 launches = 0
 
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128  # the kernel's compile-time bounds
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128  # the kernels' compile-time bounds
+TILE = 64       # rows of a query tile and of a key tile
+THREADS = 256   # threads of a block of the state pass
+MAX_BLOCKS = 2 ** 31 - 1  # a one-dimensional grid
+
+
+class Plan(NamedTuple):
+    """Grids and f32 workspace of one call. The workspace is one buffer:
+    the C·Bᵀ tiles (B, n_chunks, n_pairs, TILE, TILE) first, on the
+    allocator's alignment, then the chunk states (B, n_chunks, H, P, N),
+    then cum (B, n_chunks, H, chunk)."""
+    chunk: int          # Q, the chunk the kernels run: min(chunk, S)
+    n_chunks: int
+    n_tiles: int        # TILE-row tiles of a chunk
+    n_pairs: int        # (query tile, key tile at or below it) pairs of a chunk
+    state_blocks: int   # one per (row, chunk, head)
+    score_blocks: int   # one per (row, chunk, tile pair)
+    pass_blocks: int    # one thread per (row, head, p, n)
+    out_blocks: int     # one per (row, chunk, head, query tile)
+    score_floats: int
+    state_floats: int
+    cum_floats: int
+
+    @property
+    def workspace_floats(self) -> int:
+        return self.score_floats + self.state_floats + self.cum_floats
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> Plan:
+    """The call's plan from its shapes (Python ints; nothing on the device
+    is read). Raises ValueError where the kernels' compile-time bounds or a
+    one-dimensional grid refuse the shapes."""
+    Q = min(chunk, S)
+    if not (S >= 1 and 1 <= Q <= MAX_CHUNK and P <= MAX_HEAD_DIM and N <= MAX_STATE):
+        raise ValueError(f"ssd_scan_cuda takes S >= 1, a chunk in [1, {MAX_CHUNK}], head "
+                         f"dim <= {MAX_HEAD_DIM} and state <= {MAX_STATE}, got S {S}, "
+                         f"chunk {chunk}, P {P}, N {N}")
+    nc, nt = -(-S // Q), -(-Q // TILE)
+    n_pairs = nt * (nt + 1) // 2
+    p = Plan(chunk=Q, n_chunks=nc, n_tiles=nt, n_pairs=n_pairs,
+             state_blocks=B * nc * H, score_blocks=B * nc * n_pairs,
+             pass_blocks=-(-B * H * P * N // THREADS), out_blocks=B * nc * H * nt,
+             score_floats=B * nc * n_pairs * TILE * TILE, state_floats=B * nc * H * P * N,
+             cum_floats=B * nc * H * Q)
+    if max(p.state_blocks, p.score_blocks, p.pass_blocks, p.out_blocks) > MAX_BLOCKS:
+        raise ValueError(f"ssd_scan_cuda: a grid of more than {MAX_BLOCKS} blocks for "
+                         f"B {B}, S {S}, H {H}, chunk {Q}, P {P}, N {N}")
+    return p
 
 
 def _fn():
     lib = _build.load("ssd_scan")
     fn = lib.ssd_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -52,12 +105,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
         raise ValueError(f"shapes do not match: x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"A {tuple(A.shape)} B {tuple(Bmat.shape)} C {tuple(Cmat.shape)} "
                          f"h0 {None if h0 is None else tuple(h0.shape)}")
-    Q = min(chunk, S)
-    if not (S >= 1 and 1 <= Q <= MAX_CHUNK and P <= MAX_HEAD_DIM and N <= MAX_STATE
-            and B <= 65535):
-        raise ValueError(f"ssd_scan_cuda takes S >= 1, a chunk in [1, {MAX_CHUNK}], head "
-                         f"dim <= {MAX_HEAD_DIM}, state <= {MAX_STATE} and <= 65535 batch "
-                         f"rows, got S {S}, chunk {chunk}, P {P}, N {N}, B {B}")
+    p = plan(B, S, H, P, N, chunk)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssd_scan_cuda needs contiguous inputs")
     _build.refuse_grad("ssd_scan_cuda", *ts)
@@ -67,10 +115,16 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
         return y, h_final
     lib, fn = _fn()
     with torch.cuda.device(x.device):
+        # from the caching allocator on the current stream, which the kernels run on
+        ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
+        scores = ws.data_ptr()
+        states = scores + 4 * p.score_floats
+        cum = states + 4 * p.state_floats
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
                  Cmat.data_ptr(), h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                 h_final.data_ptr(), B, S, H, P, N, Q, _build.DTYPE_CODES[x.dtype], stream)
+                 h_final.data_ptr(), scores, states, cum, B, S, H, P, N, p.chunk,
+                 _build.DTYPE_CODES[x.dtype], stream)
     launches += 1
     _build.check(lib, "ssd_scan", err)
     return y, h_final

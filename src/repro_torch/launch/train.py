@@ -8,7 +8,7 @@ The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the
 plain kernel versions on the CPU, which is meant for small configs. ``--arch``
 takes the ported ids, and only the dense family trains. ``--mesh`` other than
-``none`` raises: sharding is not ported (ROADMAP.md, Queue 1 item 10).
+``none`` raises: sharding is not ported (ROADMAP.md, Queue 1, "Sharding").
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ def main(argv: Optional[List[str]] = None) -> TrainerRuntime:
     args = parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(f"--mesh {args.mesh}: sharding is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 10)")
+                                  '(ROADMAP.md, Queue 1, "Sharding")')
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.global_batch, seed=args.seed)

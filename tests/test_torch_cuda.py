@@ -9,7 +9,9 @@ Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16
 (its gradient 1e-4 and a relative RMS of 2e-2 against autograd through the
 plain forward, 1e-2 against the plain backward, see below); the RG-LRU scan
 1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
-which the oracle rounds only at its output); the burst gather exactly.
+which the oracle rounds only at its output) and, at the prefill shape in bf16,
+a relative RMS of 1e-2 against the chunked plain version; the burst gather
+exactly.
 """
 import pytest
 import torch
@@ -154,18 +156,29 @@ def test_decode_refuses_bf16_off_a_16_byte_boundary(dev):
                           torch.bfloat16, 2e-2)
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [(2, 300, 8, 64, 128, 256, True),
-                                                     (2, 37, 3, 8, 16, 8, True),
-                                                     (1, 512, 4, 64, 128, 256, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_vs_oracle(dev, B, S, H, P, N, chunk, with_h0, dtype):
-    from repro_torch.kernels import ops, ref, ssd_scan
-    gen = torch.Generator().manual_seed(3)
+def _ssd_inputs(dev, B, S, H, P, N, with_h0, dtype, seed=3):
+    gen = torch.Generator().manual_seed(seed)
     x = _randn(gen, (B, S, H, P), dtype, dev)
     dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), torch.float32, dev) - 3.0)
     A = -torch.linspace(1.0, 16.0, H, device=dev)
     Bm, Cm = (_randn(gen, (B, S, N), dtype, dev) for _ in range(2))
     h0 = _randn(gen, (B, H, P, N), torch.float32, dev) if with_h0 else None
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_h0", [
+    (2, 300, 8, 64, 128, 256, True),
+    (2, 37, 3, 8, 16, 8, True),
+    (1, 512, 4, 64, 128, 256, False),
+    (1, 1024, 4, 64, 128, 128, True),   # the state pass carries h0 across 8 chunks
+    (2, 333, 4, 32, 64, 64, True),      # ragged S over 6 chunks at P 32, N 64
+    (2, 40, 3, 16, 32, 1, True),        # chunk 1: every step its own chunk
+    (1, 100, 3, 64, 128, 256, True),    # S shorter than the chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_vs_oracle(dev, B, S, H, P, N, chunk, with_h0, dtype):
+    from repro_torch.kernels import ops, ref, ssd_scan
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, B, S, H, P, N, with_h0, dtype)
     before = ssd_scan.launches
     y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
@@ -174,6 +187,45 @@ def test_ssd_kernel_vs_oracle(dev, B, S, H, P, N, chunk, with_h0, dtype):
     tol = 5e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), yo.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(hf, ho, atol=5e-4, rtol=5e-4)
+
+
+def test_ssd_kernel_at_the_prefill_shape_vs_plain(dev):
+    """mamba2-1.3b's prefill in bf16 against the chunked plain version, which
+    rounds its dot inputs to bf16 where the kernel stays in f32: within the
+    relative RMS of chip_smoke.py (1e-2)."""
+    from repro_torch.kernels import ref, ssd_scan
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(dev, 4, 2048, 64, 64, 128, False, torch.bfloat16)
+    y, hf = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=256)
+    yp, hp = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+    for got, want in ((y, yp), (hf, hp)):
+        assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("case", [(4, 2048, 64, 64, 128, 256, False),
+                                  (2, 333, 4, 32, 64, 64, True)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_kernel_repeats_bitwise(dev, case):
+    from repro_torch.kernels import ssd_scan
+    B, S, H, P, N, chunk, with_h0 = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, B, S, H, P, N, with_h0, torch.bfloat16)
+    y1, h1 = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    y2, h2 = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_ssd_kernel_on_a_side_stream(dev):
+    """The kernels and their workspace follow the caller's current stream."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, 2, 700, 8, 64, 128, True, torch.bfloat16)
+    want = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=256, h0=h0)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=256, h0=h0)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("B,S,W,with_h0", [(3, 1001, 1000, True), (2, 7, 33, False)])

@@ -605,6 +605,6 @@ def test_train_main_refuses_without_a_gpu_and_with_a_mesh(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_launch.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "Sharding"'):
         train_launch.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                            "--mesh", "single"])
