@@ -128,6 +128,8 @@ SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
 DECODE_KERNELS = "decode_attn_"  # the name part of decode's partial pass and combine
 SSD_KERNELS = "ssd_scan_"  # the name part of the SSD scan's four kernels
 SSD_PHASES = ("state", "scores", "pass", "out")  # their names after it, in launch order
+RGLRU_KERNELS = "rglru_scan_"  # the name part of the RG-LRU scan's three kernels
+RGLRU_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
 PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072}
 EXPECTED = {  # exact launches of one serve run; every other counter must read 0
@@ -291,8 +293,11 @@ RGLRU_CASES = [
     # B, S, W, h0
     (4, 3072, 4096, False),                   # recurrentgemma-9b prefill, full width
     (3, 1001, 1000, True),                    # ragged S and W, h0
-    (2, 7, 33, True),
+    (2, 7, 33, True),                         # one chunk
     (1, 256, 512, False),
+    (2, 1, 33, True),                         # S 1
+    (2, 65, 33, True),                        # chunks of 64: the last of one step
+    (2, 197, 33, True),                       # 3 chunks of 64 and one of 5
 ]
 
 
@@ -842,6 +847,8 @@ def run_trace(cfg, params, dev, steps=8):
                 v for k, v in by_name.items() if DECODE_KERNELS in k) / n / 1e3,
             "ssd_scan_ms_per_step": sum(
                 v for k, v in by_name.items() if SSD_KERNELS in k) / n / 1e3,
+            "rglru_scan_ms_per_step": sum(
+                v for k, v in by_name.items() if RGLRU_KERNELS in k) / n / 1e3,
             "top_kernels_ms_per_step": sorted(
                 ([k[:90], v / n / 1e3] for k, v in by_name.items()), key=lambda kv: -kv[1])[:8],
         }
@@ -1276,13 +1283,26 @@ def time_rglru(launches, errs, card, dev):
     # per element: exp, a*a, 1 - a^2, max, sqrt, the product with x, one FMA
     flops = 7 * x.numel()
     b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    p = krglru.plan(B, S, W)
+    # what this design moves: x and a_log read by the chunk kernel (all chunks
+    # but the last) and again by the out kernel, y and h_last written, and the
+    # f32 workspace (P and E written, read by the pass, E rewritten, then read
+    # by the out kernel), were none of it held in the L2
+    slots = B * (p.n_chunks - 1) * W
+    design_bytes = (slots * p.chunk * 6 + x.numel() * (6 + 2) + B * W * 2
+                    + slots * (8 + 8 + 4 + 4))
+    kern = lambda: krglru.rglru_scan_cuda(x, a_log)  # noqa: E731
     return _row("rglru_scan", "recurrentgemma-9b", launches, errs, card,
-                ms=time_ms(lambda: krglru.rglru_scan_cuda(x, a_log), iters=20),
+                ms=time_ms(kern, iters=20), device_ms=device_ms(kern, RGLRU_KERNELS, iters=20),
+                device_ms_per_kernel={ph: device_ms(kern, RGLRU_KERNELS + ph, iters=20)
+                                      for ph in RGLRU_PHASES},
                 plain_ms=time_ms(lambda: ref.rglru_scan(x, a_log), iters=2, warmup=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                design_floor_ms=design_bytes / HBM_BYTES_PER_S * 1e3, library_ms=None,
                 library="none: no single PyTorch call computes an RG-LRU scan",
                 shape={"B": B, "S": S, "W": W, "x": "bfloat16", "a_log": "float32",
-                       "bytes": nbytes})
+                       "bytes": nbytes, "design_bytes": design_bytes,
+                       "plan": p._asdict()})
 
 
 def run_times(launches, errs, card, dev):

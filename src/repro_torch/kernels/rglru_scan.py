@@ -1,13 +1,19 @@
-"""Wrapper of the CUDA RG-LRU scan kernel (``csrc/rglru_scan.cu``).
+"""Wrapper of the CUDA RG-LRU scan kernels (``csrc/rglru_scan.cu``).
 
 Replaces ``src/repro/kernels/rglru_scan.py:46`` (``rglru_scan_pallas``).
-What bounds the kernel on the H100 and what its design does about it is in
-the note at the top of the CUDA source. ``launches`` counts kernel launches.
+What bounds the kernels on the H100 and what their design does about it is
+in the note at the top of the CUDA source. Each call runs three kernels on
+the current stream (the chunks' decay products and end states, the pass
+over the chunks, the outputs from the carried state), or the output kernel
+alone where S is one chunk; ``plan`` works out the chunk length, the grids
+and the f32 workspace here on the host, from the shapes alone. ``launches``
+counts calls of the wrapper (up to three kernels each).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -15,12 +21,54 @@ from . import _build
 
 launches = 0
 
+THREADS = 128       # threads of a block, one per channel
+CHUNK = 64          # steps of a chunk (see plan)
+MAX_GRID_YZ = 65535  # CUDA's bound on gridDim.y and gridDim.z
+
+# the C entry's arguments: x, a_log, h0, y, h_last, ws; B, S, W, L, dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """Chunk length, grids ((x, y, z) blocks of THREADS) and f32 workspace of
+    one call. The workspace holds the decay products (B, n_chunks - 1, W),
+    then the end states of the same shape, which the pass overwrites with
+    the state entering each following chunk; it is empty for one chunk,
+    where only the output kernel runs."""
+    chunk: int                          # L: steps of every chunk but the last
+    n_chunks: int
+    chunk_grid: Tuple[int, int, int]    # one thread per (b, chunk, w), all chunks but the last
+    pass_grid: Tuple[int, int, int]     # one thread per (b, w)
+    out_grid: Tuple[int, int, int]      # one thread per (b, chunk, w)
+    workspace_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, S: int, W: int) -> Plan:
+    """The call's plan from its shapes (Python ints; nothing on the device is
+    read). L is CHUNK (or S, where S is shorter), and grows past it only to
+    keep the chunks within a grid dimension. At recurrentgemma-9b's prefill
+    CHUNK makes 6144 blocks, about three waves of full SMs on an H100. A
+    shorter L on a grid of under a wave was slower on the card at every
+    shape tried: the pass, a chain of loads over the chunks, grows with
+    their number. Raises ValueError for shapes the grids cannot take."""
+    if not (B >= 1 and S >= 1 and W >= 1):
+        raise ValueError(f"rglru_scan_cuda takes B, S and W of 1 or more, got B {B}, "
+                         f"S {S}, W {W}")
+    if B > MAX_GRID_YZ:
+        raise ValueError(f"rglru_scan_cuda takes at most {MAX_GRID_YZ} batch rows, got {B}")
+    wb = -(-W // THREADS)
+    L = min(max(CHUNK, -(-S // MAX_GRID_YZ)), S)
+    nc = -(-S // L)
+    return Plan(chunk=L, n_chunks=nc, chunk_grid=(wb, nc - 1, B), pass_grid=(wb, B, 1),
+                out_grid=(wb, nc, B), workspace_floats=2 * B * (nc - 1) * W)
+
 
 def _fn():
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -46,20 +94,23 @@ def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("rglru_scan_cuda needs contiguous inputs")
     B, S, W = x.shape
-    if S == 0 or B > 65535:
-        raise ValueError(f"rglru_scan_cuda takes 1 or more steps and at most 65535 "
-                         f"batch rows, got S {S}, B {B}")
+    if S == 0 or B > MAX_GRID_YZ:
+        raise ValueError(f"rglru_scan_cuda takes 1 or more steps and at most "
+                         f"{MAX_GRID_YZ} batch rows, got S {S}, B {B}")
     _build.refuse_grad("rglru_scan_cuda", *ts)
     y = torch.empty_like(x)
     h_last = torch.empty((B, W), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y, h_last
+    p = plan(B, S, W)
     lib, fn = _fn()
     with torch.cuda.device(x.device):
+        # from the caching allocator on the current stream, which the kernels run on
+        ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), a_log.data_ptr(), h0.data_ptr() if h0 is not None else None,
-                 y.data_ptr(), h_last.data_ptr(), B, S, W, _build.DTYPE_CODES[x.dtype],
-                 stream)
+                 y.data_ptr(), h_last.data_ptr(), ws.data_ptr(),
+                 B, S, W, p.chunk, _build.DTYPE_CODES[x.dtype], stream)
     launches += 1
     _build.check(lib, "rglru_scan", err)
     return y, h_last

@@ -8,7 +8,8 @@ runs inside the fixture, never at import). On a machine with an H100:
 Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16
 (its gradient 1e-4 and a relative RMS of 2e-2 against autograd through the
 plain forward, 1e-2 against the plain backward, see below); the RG-LRU scan
-1e-4 / 3e-2; the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
+1e-4 / 3e-2 (its kernels reassociate only the state entering each chunk, about
+L ulp); the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
 which the oracle rounds only at its output) and, at the prefill shape in bf16,
 a relative RMS of 1e-2 against the chunked plain version; the burst gather
 exactly.
@@ -228,14 +229,28 @@ def test_ssd_kernel_on_a_side_stream(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("B,S,W,with_h0", [(3, 1001, 1000, True), (2, 7, 33, False)])
+def _rglru_inputs(dev, B, S, W, with_h0, dtype, seed=4, unit_decay=False):
+    gen = torch.Generator().manual_seed(seed)
+    x = _randn(gen, (B, S, W), dtype, dev)
+    a_log = -_randn(gen, (B, S, W), torch.float32, dev).abs() * 0.5
+    if unit_decay:  # a = 1 in f32: the gate is 1e-6 and h0 carries through
+        a_log = torch.where(a_log < -0.3, 0.0, -1e-9)
+    h0 = _randn(gen, (B, W), torch.float32, dev) if with_h0 else None
+    return x, a_log, h0
+
+
+# The plan's chunk L is 64: S 63, 64, 65 and 197 are L - 1 (one chunk), L,
+# L + 1 (a last chunk of one step) and 3L + 5; the prefill shape runs 48 chunks.
+RGLRU_CHUNK_CASES = [(2, 63, 33), (2, 64, 33), (2, 65, 33), (2, 197, 33)]
+
+
+@pytest.mark.parametrize("B,S,W,with_h0", [(3, 1001, 1000, True), (2, 7, 33, False)]
+                         + [(*shape, True) for shape in RGLRU_CHUNK_CASES]
+                         + [(4, 3072, 4096, True)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_rglru_kernel_vs_plain(dev, B, S, W, with_h0, dtype, tol):
     from repro_torch.kernels import ops, ref, rglru_scan
-    gen = torch.Generator().manual_seed(4)
-    x = _randn(gen, (B, S, W), dtype, dev)
-    a_log = -_randn(gen, (B, S, W), torch.float32, dev).abs() * 0.5
-    h0 = _randn(gen, (B, W), torch.float32, dev) if with_h0 else None
+    x, a_log, h0 = _rglru_inputs(dev, B, S, W, with_h0, dtype)
     before = rglru_scan.launches
     y, hl = ops.rglru_scan(x, a_log, h0=h0)
     torch.cuda.synchronize()
@@ -243,6 +258,45 @@ def test_rglru_kernel_vs_plain(dev, B, S, W, with_h0, dtype, tol):
     yp, hp = ref.rglru_scan(x, a_log, h0=h0)
     torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(hl.float(), hp.float(), atol=tol, rtol=tol)
+    assert torch.equal(hl, y[:, -1])  # the last chunk's own state, as a sequential scan
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 197, 33), (3, 1001, 1000)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_rglru_kernel_with_unit_decay(dev, B, S, W, dtype, tol):
+    """a_log 0: decay products of 1 and a gate of 1e-6 in every chunk."""
+    from repro_torch.kernels import ref, rglru_scan
+    x, a_log, h0 = _rglru_inputs(dev, B, S, W, True, dtype, seed=8, unit_decay=True)
+    y, hl = rglru_scan.rglru_scan_cuda(x, a_log, h0=h0)
+    yp, hp = ref.rglru_scan(x, a_log, h0=h0)
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(hl.float(), hp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", [(4, 3072, 4096, False), (3, 1001, 1000, True)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rglru_kernel_repeats_bitwise(dev, case):
+    from repro_torch.kernels import rglru_scan
+    x, a_log, h0 = _rglru_inputs(dev, *case, torch.bfloat16, seed=5)
+    before = rglru_scan.launches
+    y1, h1 = rglru_scan.rglru_scan_cuda(x, a_log, h0=h0)
+    y2, h2 = rglru_scan.rglru_scan_cuda(x, a_log, h0=h0)
+    assert rglru_scan.launches == before + 2
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_rglru_kernel_on_a_side_stream(dev):
+    """The kernels and their workspace follow the caller's current stream."""
+    from repro_torch.kernels import rglru_scan
+    x, a_log, h0 = _rglru_inputs(dev, 3, 1001, 1000, True, torch.float32, seed=6)
+    want = rglru_scan.rglru_scan_cuda(x, a_log, h0=h0)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = rglru_scan.rglru_scan_cuda(x, a_log, h0=h0)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _flash_inputs(case, dtype, dev, seed):
