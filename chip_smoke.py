@@ -24,9 +24,12 @@ Phases, each printed as one JSON object per line:
    gather: the burst gather exactly equal to its plain version on the
    shapes of tests/test_kernels.py, the edge cases (slots past the arena and
    negative, lengths negative and past the width, a width past the slot
-   size, no packets) and the benchmark shape (arena 4096 x 1518, 256
-   packets); then 16 bursts at the benchmark shape through ops.burst_gather
-   with the counters set to 0 just before (16 launches, 0 plain calls);
+   size, no packets, widths 1, 15 and 17 whose 16-byte chunks straddle rows,
+   a partial last chunk at 1518, arenas that are views off a 16-byte
+   boundary), the whole ring of 4096 slots and the benchmark shape (arena
+   4096 x 1518, 256 packets); then 16 bursts at the benchmark shape through
+   ops.burst_gather with the counters set to 0 just before (16 launches, 0
+   plain calls);
    flash_forward_digest: a sha256 over the forward's outputs and
    logsumexp at those cases and the train shape, f32 and bf16 (two trees
    with equal digests on one card compute bitwise-equal forwards);
@@ -74,7 +77,14 @@ Phases, each printed as one JSON object per line:
    before them, one line with the flash forward's achieved TFLOP/s at its
    three shapes beside the bound's, one with the backward's at the train
    shape, and one (decode_rate) with decode's achieved GB/s over the valid
-   K and V bytes beside the HBM's 3.35 TB/s.
+   K and V bytes beside the HBM's 3.35 TB/s; gather_host: the host us per
+   call of each stage of the gather's wrapper at the benchmark shape
+   (time.perf_counter over 1000 calls), and the floors torch.empty and
+   torch.empty + fill_(0) timed as the wrapper is (launch_floor_ms, also in
+   the gather's row); gather_sweep: the
+   gather at bursts of 32 to 1024 packets and the whole ring of 4096, each
+   checked exactly, by wrapper time, device time warm and with the L2
+   flushed, beside the byte bound and the achieved GB/s.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -193,17 +203,38 @@ def device_ms(fn, name_part, iters=50, flush=None):
     card busy (a short kernel behind a Python wrapper). With ``flush``, each
     call first runs it (a write over more than the 50 MB L2, so that the
     call finds its inputs in device memory, as a decode step does); the
-    flush's own kernels are not counted."""
-    fn()
-    skip = {e.name for e in _cuda_events(flush)} if flush is not None else set()
+    flush's own kernels are not counted.
 
-    def run():
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-    return sum(e.time_range.elapsed_us() for e in _cuda_events(run)
-               if name_part in e.name and e.name not in skip) / iters / 1e3
+    A trace can hold fewer kernel events than were launched (on an H100, a
+    trace of one call has held none, one of 50 calls 47 of 50), so the time
+    is, for each kernel name, its mean event time times its launches per
+    call, ceil(events / iters): the sum over events over ``iters`` when none
+    is lost. A trace without one matching event is taken again, and a third
+    fails. The flush's kernels are named from a trace of ``iters`` flushes:
+    a trace of one can hold none, which counted the flush in."""
+
+    def repeat(f):
+        def run():
+            for _ in range(iters):
+                f()
+        return run
+
+    def call():
+        if flush is not None:
+            flush()
+        fn()
+    fn()
+    # the flush's kernel names, from as many calls as are measured
+    skip = {e.name for e in _cuda_events(repeat(flush))} if flush is not None else set()
+    for _ in range(3):
+        times = {}
+        for e in _cuda_events(repeat(call)):
+            if name_part in e.name and e.name not in skip:
+                times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if times:
+            return sum(math.ceil(len(v) / iters) * sum(v) / len(v)
+                       for v in times.values()) / 1e3
+    fail(f"device_ms({name_part!r}): 3 traces of {iters} calls without a matching kernel event")
 
 
 def randn(gen, shape, dtype, dev):
@@ -453,7 +484,8 @@ def forward_digest(dev):
 
 GATHER_CASES = {
     # name: (n_slots, slot_size, slots or a count of random distinct slots,
-    #        lengths or None for random ones, out_width)
+    #        lengths or None for random ones, out_width[, rows of the buffer
+    #        before the arena, a contiguous view that starts there])
     "16x256_w256": (64, 256, 16, None, 256),          # tests/test_kernels.py:132
     "8x128_w300": (64, 128, 8, None, 300),
     "32x64_w32": (64, 64, 32, None, 32),
@@ -463,6 +495,14 @@ GATHER_CASES = {
     "lengths_past_the_width": (4, 16, [0, 1, 2], [17, 100, (1 << 31) - 1], 12),
     "width_past_the_slot_size": (8, 16, [7, 0, 3], [16, 20, 9], 40),
     "no_packets": (4, 16, [], [], 16),
+    # chunks of 16 output bytes that straddle rows and partial last chunks
+    "w1": (64, 8, 37, None, 1),                       # 16 rows a chunk, tail of 5
+    "w15": (64, 9, 33, None, 15),                     # a width past the slot size
+    "w17": (64, 40, 33, None, 17),                    # tail of 1
+    "w1518_tail": (4096, 1518, 255, None, 1518),      # 255 * 1518 % 16 = 2
+    "view_unaligned": (300, 1518, 64, None, 1518, 1),  # arena = buffer[1:], 14 mod 16
+    "view_odd": (300, 33, 64, None, 40, 3),           # arena = buffer[3:], 3 mod 4
+    "whole_ring": (4096, 1518, 4096, None, 1518),     # every slot in one call
     "bench": (4096, 1518, 256, None, 1518),           # benchmarks/kernels_bench.py:77
 }
 GATHER_BURSTS = 16  # bursts at the benchmark shape on the counted main-path run
@@ -472,16 +512,17 @@ def gather_inputs(case, dev, seed=0):
     """arena, slots, lengths (int32), out_width; random lengths are 64-1517 at
     the Ethernet frame size (as kernels_bench.py draws them), else 1 up to the
     slot size."""
-    n_slots, slot_size, slots, lengths, width = case
+    n_slots, slot_size, slots, lengths, width = case[:5]
+    skip = case[5] if len(case) > 5 else 0
     gen = torch.Generator().manual_seed(seed)
-    arena = torch.randint(0, 256, (n_slots, slot_size), generator=gen, dtype=torch.uint8)
+    arena = torch.randint(0, 256, (skip + n_slots, slot_size), generator=gen,
+                          dtype=torch.uint8).to(dev)[skip:]
     if isinstance(slots, int):
         slots = torch.randperm(n_slots, generator=gen)[:slots]
         lengths = torch.randint(64 if slot_size == 1518 else 1, slot_size, (len(slots),),
                                 generator=gen)
     as_i32 = dict(dtype=torch.int32, device=dev)
-    return (arena.to(dev), torch.as_tensor(slots, **as_i32),
-            torch.as_tensor(lengths, **as_i32), width)
+    return arena, torch.as_tensor(slots, **as_i32), torch.as_tensor(lengths, **as_i32), width
 
 
 def byte_err(got, want):
@@ -1181,25 +1222,134 @@ def time_flash_bwd(launches, errs, card, dev):
                        "causal": True, "dtype": "bfloat16", "bytes": nbytes})
 
 
-def time_gather(launches, errs, card, dev):
+GATHER_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)  # the paper's DPDK bursts, the ring
+HOST_CALLS, HOST_SYNC_EVERY = 1000, 100
+
+
+def gather_bytes(arena, lens, width):
+    """What a gather must move: each packet's valid bytes read, each output
+    row written, its slot and length read."""
+    n = lens.numel()
+    return int(lens.clamp(0, min(arena.shape[1], width)).sum()) + n * width + 8 * n
+
+
+def l2_flusher(dev):
+    """A write over twice the L2, so that the next call finds its inputs in
+    device memory."""
+    buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    return lambda: buf.fill_(1)
+
+
+def host_us(fn, calls=HOST_CALLS, every=HOST_SYNC_EVERY):
+    """Host microseconds per call of ``fn`` (time.perf_counter), synchronising
+    every ``every`` calls, outside the timing, so that the queue stays short."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // every):
+        t0 = time.perf_counter()
+        for _ in range(every):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def gather_host(dev, card):
+    """Host us per call of each stage of burst_gather_cuda at the benchmark
+    shape, in the wrapper's order, and two floors timed as the wrapper is
+    (CUDA events over back-to-back calls): torch.empty alone, and
+    torch.empty + fill_(0), one PyTorch op that allocates and launches
+    (launch_floor_ms)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import burst_gather as kgather
+    arena, slots, lens, width = gather_inputs(GATHER_CASES["bench"], dev, seed=11)
+    n, n_slots, slot_size = kgather.check_args(arena, slots, lens, width)
+    lib, fn, raw_stream = kgather._fn()
+    index = arena.get_device()
+    out = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    p = kgather.plan(n, width)
+    args = (arena.data_ptr(), slots.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            n, n_slots, slot_size, width, p.chunks, p.tail, p.grid, p.threads)
+    stream = raw_stream(index)
+    shape = (n, width)
+
+    def call():
+        _build.check(lib, "burst_gather", fn(*args, stream))
+
+    stages = {
+        "checks": lambda: kgather.check_args(arena, slots, lens, width),
+        "torch.empty": lambda: torch.empty(shape, dtype=torch.uint8, device=arena.device),
+        "_fn()": lambda: kgather._launcher or kgather._fn(),
+        "device guard": lambda: arena.get_device() == torch.cuda.current_device(),
+        "stream lookup": lambda: raw_stream(index),
+        "plan and pointers": lambda: (kgather.plan(n, width), arena.data_ptr(),
+                                      slots.data_ptr(), lens.data_ptr(), out.data_ptr()),
+        "ctypes call + _build.check": call,
+    }
+    stage_us = {k: host_us(f) for k, f in stages.items()}
+    kern = lambda: kgather.burst_gather_cuda(arena, slots, lens, width)  # noqa: E731
+    line = {"shape": {"packets": n, "out_width": width}, "calls": HOST_CALLS,
+            "sync_every": HOST_SYNC_EVERY, "stages_us": stage_us,
+            "sum_of_stages_us": sum(stage_us.values()), "wrapper_us": host_us(kern),
+            "empty_ms": time_ms(lambda: torch.empty(shape, dtype=torch.uint8, device=dev),
+                                iters=200),
+            "launch_floor_ms": time_ms(lambda: torch.empty(shape, dtype=torch.uint8,
+                                                           device=dev).fill_(0), iters=200),
+            "card": card}
+    emit("gather_host", line)
+    return line
+
+
+def gather_sweep(dev, card):
+    """The gather at the paper's DPDK bursts (its section 5.2 sweeps 32 to
+    1024) and the whole ring of 4096 slots in one call: the arena of the
+    benchmark, random distinct slots, lengths 64-1517, out_width 1518. Each
+    burst's output is first checked equal to the plain version."""
+    from repro_torch.kernels import burst_gather as kgather
+    from repro_torch.kernels import ref
+    flush = l2_flusher(dev)
+    rows = []
+    for n in GATHER_SWEEP:
+        arena, slots, lens, width = gather_inputs((4096, 1518, n, None, 1518), dev,
+                                                  seed=20 + n)
+        kern = lambda: kgather.burst_gather_cuda(arena, slots, lens, width)  # noqa: E731
+        err = byte_err(kern(), ref.burst_gather(arena, slots, lens, width))
+        if err:
+            fail(f"burst_gather at n {n}: max abs byte error {err}")
+        nbytes = gather_bytes(arena, lens, width)
+        b_ms = bound(nbytes, 0)[0]
+        dev_ms = device_ms(kern, "burst_gather")
+        cold_ms = device_ms(kern, "burst_gather", flush=flush)
+        rows.append({"n": n, "bytes": nbytes, "ms": time_ms(kern, iters=200),
+                     "device_ms": dev_ms, "device_ms_cold_l2": cold_ms, "bound_ms": b_ms,
+                     "device_gb_per_s": nbytes / dev_ms / 1e6,
+                     "device_gb_per_s_cold_l2": nbytes / cold_ms / 1e6,
+                     "cold_over_bound": cold_ms / b_ms})
+    emit("gather_sweep", {"rows": rows, "hbm_gb_per_s": HBM_BYTES_PER_S / 1e9,
+                          "card": card})
+    return rows
+
+
+def time_gather(launches, errs, card, dev, launch_floor_ms):
     from repro_torch.kernels import burst_gather as kgather
     from repro_torch.kernels import ref
     arena, slots, lens, width = gather_inputs(GATHER_CASES["bench"], dev, seed=11)
     n = slots.numel()
-    # the bytes these descriptors need: each packet's valid bytes read, each
-    # output row written, the slot and length read
-    valid = int(lens.clamp(0, min(arena.shape[1], width)).sum())
-    nbytes = valid + n * width + 8 * n
+    nbytes = gather_bytes(arena, lens, width)
     b_ms, b_by = bound(nbytes, 0)
     kern = lambda: kgather.burst_gather_cuda(arena, slots, lens, width)  # noqa: E731
     return _row("burst_gather", "bench", launches, errs, card,
-                ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "burst_gather_kernel"),
+                ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "burst_gather"),
+                device_ms_cold_l2=device_ms(kern, "burst_gather", flush=l2_flusher(dev)),
+                launch_floor_ms=launch_floor_ms,
                 plain_ms=time_ms(lambda: ref.burst_gather(arena, slots, lens, width),
                                  iters=50),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library="none (no single call)",
                 shape={"n_slots": arena.shape[0], "slot_size": arena.shape[1], "packets": n,
-                       "out_width": width, "bytes": nbytes})
+                       "out_width": width, "bytes": nbytes,
+                       "plan": kgather.plan(n, width)._asdict()})
 
 
 def time_decode(arch, launches, errs, card, dev):
@@ -1223,8 +1373,7 @@ def time_decode(arch, launches, errs, card, dev):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q1t, kct, vct, scale=scale, enable_gqa=True)[:, :, 0]
     heads_major = [t.contiguous() for t in (q1t, kct, vct)]
-    l2_flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
-    flush = lambda: l2_flush.fill_(1)  # noqa: E731
+    flush = l2_flusher(dev)
     return _row("decode_attention", arch, launches, errs, card,
                 ms=time_ms(kern, iters=200), device_ms=device_ms(kern, DECODE_KERNELS),
                 device_ms_partial=device_ms(kern, DECODE_KERNELS + "partial"),
@@ -1314,7 +1463,8 @@ def run_times(launches, errs, card, dev):
             time_decode("recurrentgemma-9b", launches, errs, card, dev),
             time_flash(TRAIN_LABEL, launches, errs, card, dev),
             time_flash_bwd(launches, errs, card, dev),
-            time_gather(launches, errs, card, dev)]
+            time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"])]
+    gather_sweep(dev, card)
     emit("flash_forward_rate", [
         {"name": r["name"], "ms": r["ms"], "tflop_per_s": r["tflop_per_s"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -565,23 +565,42 @@ def test_wrappers_without_a_backward_raise_under_autograd(dev):
 
 
 GATHER_CASES = [
-    # n_slots, slot_size, slots, lengths, out_width
+    # n_slots, slot_size, slots, lengths, out_width[, rows of the buffer before
+    # the arena, which is the contiguous view that starts there]
     (64, 256, list(range(0, 64, 4)), [1, 255, 17, 256] * 4, 256),
     (64, 128, [63, 0, 5, 9, 11, 2, 3, 40], [127, 1, 64, 0, 128, 5, 90, 100], 300),
     (64, 64, list(range(32)), [i * 2 for i in range(32)], 32),
     (4, 16, [5, -1, -5, -10, 3], [16, 100, -3, 16, 8], 16),
     (4, 16, [], [], 16),
     (4096, 1518, list(range(0, 4096, 16)), [64 + 5 * i for i in range(256)], 1518),
+    # 16-byte output chunks that straddle rows, partial last chunks
+    (64, 8, [(7 * i) % 64 for i in range(37)], [i % 10 - 1 for i in range(37)], 1),
+    (64, 9, [(5 * i) % 64 for i in range(33)], [i % 12 - 1 for i in range(33)], 15),
+    (64, 40, [63 - i for i in range(33)], [(3 * i) % 45 - 2 for i in range(33)], 17),
+    (4096, 1518, [(17 * i) % 4096 for i in range(255)],
+     [64 + (7 * i) % 1454 for i in range(255)], 1518),      # 255 * 1518 % 16 = 2
+    # the arena is buffer[1:]: its rows are off 16-byte boundaries
+    (300, 1518, [(11 * i) % 300 for i in range(64)],
+     [(37 * i) % 1530 - 5 for i in range(64)], 1518, 1),
+    # the whole ring of 4096 slots in one call
+    (4096, 1518, [(1031 * i) % 4096 for i in range(4096)],
+     [64 + (13 * i) % 1454 for i in range(4096)], 1518),
 ]
+
+
+def _gather_arena(case, dev):
+    n_slots, slot_size = case[:2]
+    skip = case[5] if len(case) > 5 else 0
+    gen = torch.Generator().manual_seed(6)
+    return torch.randint(0, 256, (skip + n_slots, slot_size), generator=gen,
+                         dtype=torch.uint8).to(dev)[skip:]
 
 
 @pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: f"{c[0]}x{c[1]}-n{len(c[2])}")
 def test_burst_gather_kernel_vs_plain(dev, case):
     from repro_torch.kernels import burst_gather, ops, ref
-    n_slots, slot_size, slots, lengths, width = case
-    gen = torch.Generator().manual_seed(6)
-    arena = torch.randint(0, 256, (n_slots, slot_size), generator=gen,
-                          dtype=torch.uint8).to(dev)
+    slots, lengths, width = case[2:5]
+    arena = _gather_arena(case, dev)
     s = torch.tensor(slots, dtype=torch.int32, device=dev)
     n = torch.tensor(lengths, dtype=torch.int32, device=dev)
     before = burst_gather.launches
@@ -590,6 +609,25 @@ def test_burst_gather_kernel_vs_plain(dev, case):
     assert burst_gather.launches == before + (1 if slots else 0)
     assert got.shape == (len(slots), width) and got.device == arena.device
     assert torch.equal(got, ref.burst_gather(arena, s, n, width))
+
+
+def test_burst_gather_twice_on_a_side_stream_bitwise_equal(dev):
+    """Two calls on a stream other than the default give the same bytes as
+    the plain version: the launch goes to the caller's current stream."""
+    from repro_torch.kernels import burst_gather, ops, ref
+    case = GATHER_CASES[-3]  # a partial last chunk at 1518
+    arena = _gather_arena(case, dev)
+    s = torch.tensor(case[2], dtype=torch.int32, device=dev)
+    n = torch.tensor(case[3], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    before = burst_gather.launches
+    with torch.cuda.stream(side):
+        a, b = ops.burst_gather(arena, s, n, case[4]), ops.burst_gather(arena, s, n, case[4])
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    assert burst_gather.launches == before + 2
+    assert torch.equal(a, b) and torch.equal(a, ref.burst_gather(arena, s, n, case[4]))
 
 
 def test_loss_backward_through_the_kernels_reaches_attention_weights(dev, monkeypatch):
