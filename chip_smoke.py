@@ -6,7 +6,7 @@ Phases, each printed as one JSON object per line:
 
 1. device: name, capability, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build: the six CUDA sources under src/repro_torch/kernels/csrc, one nvcc
+2. build: the seven CUDA sources under src/repro_torch/kernels/csrc, one nvcc
    per source, started together;
 3. checks: each kernel against its plain PyTorch version on the card, on the
    same inputs, in f32 (TF32 off) and bf16: flash and decode attention at
@@ -44,6 +44,14 @@ Phases, each printed as one JSON object per line:
    torch.logsumexp, and the rows of exp(s - lse) over the f32 scores the
    backward recomputes summing to 1 (the train shape's worst bf16 error on
    a line of its own);
+   ssd_bwd: dx, ddt, dA, dB, dC and dh0 of the SSD scan's autograd.Function
+   against autograd through the plain ref.ssd_scan (f32: max abs <= 1e-4
+   (1 + max |ref|); bf16: relative RMS <= 2e-2), and of the backward kernels
+   alone against ref.ssd_scan_bwd on the same inputs and the forward's saved
+   workspace (f32 the same bound; bf16 within a relative RMS of 1e-2), two
+   calls bitwise equal, on ragged S, a chunk of 1, h0 given and not, a
+   cotangent on the final state and none, N 16 to 128, and mamba2-1.3b's
+   train shape;
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
    with random weights from seed 0 — serve: 8 requests in batches of 4, 32
    generated tokens, greedy, through repro_torch.launch.serve, with every
@@ -62,16 +70,23 @@ Phases, each printed as one JSON object per line:
    must be bitwise equal; checkpointing is off at this size; a profile of
    one more step (trace_train: the flash forward and backward kernels'
    device time, which must not read 0, the backward's also per kernel);
-   train_vs_plain: one step's loss and every gradient with the kernels
-   against the plain versions, f32, full width, 4 layers;
+   the same for mamba2-1.3b, bypass feed only (exactly 768 ssd_scan and 384
+   ssd_scan_bwd launches), profiled for the SSD forward's and backward's
+   device time and idle share; trace_train scales each counted kernel's mean
+   event time by its launches in the step (the wrapper counters), as
+   device_ms does, since the profiler drops events;
+   train_vs_plain, for each of the two archs: one step's loss and every
+   gradient with the kernels against the plain versions, f32, full width,
+   4 layers;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
-   gather's benchmark; CUDA events; the gather, decode and the SSD scan
-   also their device time from the profiler, decode and the SSD scan per
-   kernel, decode with the L2 flushed before each call too, SDPA's the same
-   way; the SSD scan also its FMA floor, its FLOP over the 67 TFLOP/s of
-   f32 FMAs), its plain version, a PyTorch call
+   gather's benchmark; CUDA events; the gather, decode, the SSD scan and
+   its backward also their device time from the profiler, decode, the SSD
+   scan and its backward per kernel, decode with the L2 flushed before each
+   call too, SDPA's the same way; the SSD scan and its backward also their
+   FMA floor, their FLOP over the 67 TFLOP/s of f32 FMAs), its plain
+   version, a PyTorch call
    computing the same function where there is one (checked against the
    kernel), and the bound;
    before them, one line with the flash forward's achieved TFLOP/s at its
@@ -134,10 +149,21 @@ FLASH_FWD_BF16_REL_RMS = 1e-2
 # wrong mask, split or combine moves the output by order 100%.
 DECODE_BF16_REL_RMS = 1e-2
 SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "flash_attention_bwd", "burst_gather"]
+           "flash_attention_bwd", "burst_gather", "ssd_scan_bwd"]
 DECODE_KERNELS = "decode_attn_"  # the name part of decode's partial pass and combine
 SSD_KERNELS = "ssd_scan_"  # the name part of the SSD scan's four kernels
 SSD_PHASES = ("state", "scores", "pass", "out")  # their names after it, in launch order
+SSD_BWD_KERNELS = "ssd_bwd_"  # the name part of the SSD backward's eight kernels
+# their names after it, in launch order; no name is a prefix of another
+SSD_BWD_PHASES = ("dstate", "pass", "scores", "dbc_part", "dbc_sum", "dx", "dt", "da")
+SSD_BWD_F32_TOL, SSD_BWD_BF16_REL_RMS = 1e-4, 2e-2
+# bf16 SSD backward kernels vs ref.ssd_scan_bwd on the same inputs: both do
+# all math in f32 and round only their outputs, so the gap is summation order
+# and that rounding; through autograd the plain forward also rounds its dot
+# inputs to bf16 where the kernels do not (SSD_PLAIN_BF16_REL_RMS bounds that
+# gap on the forward at 1e-2), hence 2e-2 there. A wrong decay, mask, head sum
+# or chunk edge moves a gradient by order 100%.
+SSD_BWD_VS_PLAIN_BF16_REL_RMS = 1e-2
 RGLRU_KERNELS = "rglru_scan_"  # the name part of the RG-LRU scan's three kernels
 RGLRU_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
@@ -254,10 +280,11 @@ def rel_rms(got, want):
 
 def kernel_modules():
     from repro_torch.kernels import (burst_gather, decode_attention, flash_attention,
-                                     flash_attention_bwd, rglru_scan, ssd_scan)
+                                     flash_attention_bwd, rglru_scan, ssd_scan, ssd_scan_bwd)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
-            "flash_attention_bwd": flash_attention_bwd, "burst_gather": burst_gather}
+            "flash_attention_bwd": flash_attention_bwd, "burst_gather": burst_gather,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def zero_counters():
@@ -692,6 +719,96 @@ def run_flash_bwd_checks(dev):
 
 
 # --------------------------------------------------------------------------
+# SSD backward against autograd through the plain version
+# --------------------------------------------------------------------------
+
+SSD_BWD_CASES = [
+    # B, S, H, P, N, chunk, h0, a cotangent on the final state
+    (2, 300, 8, 64, 128, 256, True, True),    # ragged S (one full and one partial chunk), h0
+    (2, 37, 3, 8, 16, 8, True, False),        # N 16, ragged S over 5 chunks
+    (2, 40, 3, 16, 32, 1, True, True),        # chunk 1: every step its own chunk
+    (1, 1024, 4, 64, 128, 128, False, True),  # 8 chunks of two tiles, no h0
+    (2, 333, 4, 32, 64, 64, True, True),      # N 64, ragged S over 6 chunks
+    (4, 2048, 64, 64, 128, 256, False, False),  # mamba2-1.3b train, full width
+]
+SSD_TRAIN = SSD_BWD_CASES[-1]
+
+
+def ssd_grads(fn, x, dt, A, Bm, Cm, h0, dy, dh):
+    """The gradients (dx, ddt, dA, dB, dC[, dh0]) of <y, dy> + <h_final, dh>
+    through ``fn`` by autograd, on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    h0l = h0.detach().clone().requires_grad_(True) if h0 is not None else None
+    y, hf = fn(*leaves, h0l)
+    loss = (y.float() * dy.float()).sum() + ((hf * dh).sum() if dh is not None else 0)
+    return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+
+
+def _grad_errs(got, want, dtype, rel_rms_bound):
+    """Per gradient: f32 max abs against 1e-4 (1 + max |want|); bf16 the
+    relative RMS against ``rel_rms_bound``. Returns (results, all ok)."""
+    res, ok = {}, True
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        if b is None:
+            continue
+        err = float((a.float() - b.float()).abs().max())
+        if dtype == torch.float32:
+            bound = SSD_BWD_F32_TOL * (1 + float(b.float().abs().max()))
+            res[name] = {"max_abs": err, "bound_max_abs": bound}
+            ok = ok and err <= bound
+        else:
+            rr = rel_rms(a, b)
+            res[name] = {"rel_rms": rr, "bound_rel_rms": rel_rms_bound, "max_abs": err}
+            ok = ok and rr <= rel_rms_bound
+        ok = ok and bool(torch.isfinite(a).all()) and a.dtype == b.dtype
+    return res, ok
+
+
+def run_ssd_bwd_checks(dev):
+    """Returns the bf16 max abs error of the backward kernels against
+    ref.ssd_scan_bwd at the train shape (largest over the gradients)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.kernels import ssd_scan_bwd as kbwd
+    worst = None
+    for case in SSD_BWD_CASES:
+        B, S, H, P, N, chunk, with_h0, with_dh = case
+        dtypes = (torch.bfloat16,) if case == SSD_TRAIN else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
+            x, dt, A, Bm, Cm, h0 = ssd_inputs(case[:7], dtype, dev, seed=7)
+            gen = torch.Generator().manual_seed(8)
+            dy = randn(gen, x.shape, dtype, dev)
+            dh = randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
+            g = ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                          x, dt, A, Bm, Cm, h0, dy, dh)
+            gp = ssd_grads(lambda *a: ref.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                           x, dt, A, Bm, Cm, h0, dy, dh)
+            torch.cuda.synchronize()
+            res, ok = _grad_errs(g, gp, dtype, SSD_BWD_BF16_REL_RMS)
+            del g, gp
+            # the kernels alone, twice, against ref.ssd_scan_bwd on the same inputs
+            _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+            gk = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                        fwd_workspace=ws)
+            gk2 = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                         fwd_workspace=ws)
+            gm = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
+            torch.cuda.synchronize()
+            res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
+                                            if a is not None)
+            res["dh0_iff_h0"] = (gk[5] is None) == (h0 is None)
+            res["vs_ssd_scan_bwd"], ok_k = _grad_errs(gk, gm, dtype,
+                                                      SSD_BWD_VS_PLAIN_BF16_REL_RMS)
+            ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
+            _check("ssd_scan_bwd", case, dtype, res, ok, "")
+            if case == SSD_TRAIN:
+                worst = max(v["max_abs"] for v in res["vs_ssd_scan_bwd"].values())
+            del x, dy, Bm, Cm, gk, gk2, gm, ws
+            torch.cuda.empty_cache()
+    return worst
+
+
+# --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
 
@@ -902,13 +1019,26 @@ def run_trace(cfg, params, dev, steps=8):
 
 TRAIN = dict(arch="qwen3-1.7b", seq_len=2048, global_batch=4, steps=8, seed=0)
 TRAIN_LABEL = "qwen3-1.7b train"
+SSM_TRAIN_LABEL = "mamba2-1.3b train"
+TRAIN_FEEDS = {"qwen3-1.7b": ("bypass", "kernel"), "mamba2-1.3b": ("bypass",)}
 TRAIN_LOSS_REL, TRAIN_GRAD_OF_MAX, RESTART_TOL = 1e-5, 1e-4, 1e-4
+# the kernels of each family's train step: (name part of their kernels,
+# counter of their wrapper); each kernel name launches once a wrapper call
+TRAIN_KERNELS = {
+    "dense": {"flash_fwd": ("flash_fwd_", "flash_attention"),
+              "flash_bwd": ("flash_bwd_", "flash_attention_bwd")},
+    "ssm": {"ssd_fwd": (SSD_KERNELS, "ssd_scan"), "ssd_bwd": (SSD_BWD_KERNELS, "ssd_scan_bwd")},
+}
+# leaves whose gradient only the family's backward kernel gives
+KERNEL_GRAD_LEAVES = {"dense": ("wq", "wk", "wv"), "ssm": ("a_log", "dt_bias")}
 
 
-def train_expected(n_layers, steps):
+def train_expected(cfg, steps):
     """Launches of ``steps`` train steps: per layer, the forward and its
-    recompute under torch.utils.checkpoint, then one backward."""
-    return {"flash_attention": 2 * n_layers * steps, "flash_attention_bwd": n_layers * steps}
+    recompute under torch.utils.checkpoint, then one backward, of the
+    family's kernel (flash attention, or the SSD scan)."""
+    fwd, bwd = [counter for _, counter in TRAIN_KERNELS[cfg.family].values()]
+    return {fwd: 2 * cfg.n_layers * steps, bwd: cfg.n_layers * steps}
 
 
 def _pct(xs, q):
@@ -932,7 +1062,16 @@ def _kernel_profile(prof, wall_us):
 
 
 def trace_train(cfg, rt, state, dev):
-    """Profile one more train step (a fresh batch of the same stream)."""
+    """Profile one more train step (a fresh batch of the same stream).
+
+    The profiler drops kernel events (device_ms), so the family's kernels
+    (TRAIN_KERNELS: each of their names launches once a wrapper call) are
+    counted as device_ms counts them: each name's mean event time times its
+    launches in the step, read from the wrapper counters; the events lost
+    there are added to the busy time, whose idle share is then corrected for
+    them (the step runs on one stream, so they overlap nothing). Other
+    kernels' lost events stay uncounted."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import synth_tokens
     from repro_torch.runtime.steps import make_train_step
@@ -940,41 +1079,56 @@ def trace_train(cfg, rt, state, dev):
     host = synth_tokens(cfg, rt.dcfg, 0, 1, TRAIN["steps"])
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     torch.cuda.synchronize()
+    zero_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(state.params, state.opt_state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches, _ = read_counters()
     by_name, busy, out = _kernel_profile(prof, wall_us)
-    # flash_fwd_mma_kernel (bf16) and flash_fwd_kernel (f32); flash_bwd_*
-    fwd = sum(v for k, v in by_name.items() if "flash_fwd_" in k) / 1e3
-    # flash_bwd_dot_kernel, then flash_bwd_dkdv_* and flash_bwd_dq_* of either body
-    bwd_by = {k[:60]: v / 1e3 for k, v in by_name.items() if "flash_bwd_" in k}
-    bwd = sum(bwd_by.values())
-    out.update({"arch": cfg.arch_id, "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
-                "flash_bwd_ms_by_kernel": bwd_by,
-                "flash_share_of_busy": None if not busy else (fwd + bwd) * 1e3 / busy})
+    events = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            events.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    lost_us, counted = 0.0, {}
+    for fam, (part, counter) in TRAIN_KERNELS[cfg.family].items():
+        n = launches[counter]
+        names = [k for k in events if part in k and (fam != "ssd_fwd" or SSD_BWD_KERNELS not in k)]
+        mean = {k: sum(events[k]) / len(events[k]) for k in names}
+        by = {k[:60]: mean[k] * max(n, len(events[k])) / 1e3 for k in names}
+        lost_us += sum(max(0, n - len(events[k])) * mean[k] for k in names)
+        counted[fam] = {"ms": sum(by.values()), "ms_by_kernel": by, "launches": n,
+                        "events": {k[:60]: len(events[k]) for k in names}}
+    busy_c = None if busy is None else busy + lost_us
+    total = sum(c["ms"] for c in counted.values())
+    out.update({"arch": cfg.arch_id, "counted": counted,
+                "device_busy_ms_corrected": None if busy_c is None else busy_c / 1e3,
+                "device_idle_share_corrected": None if busy_c is None else 1.0 - busy_c / wall_us,
+                "counted_share_of_busy": None if not busy_c else total * 1e3 / busy_c})
     emit("trace_train", out)
-    if fwd <= 0 or bwd <= 0:
-        fail(f"trace_train: no flash forward or backward kernel in the profile ({fwd}, {bwd} ms)")
+    if any(c["ms"] <= 0 for c in counted.values()):
+        fail(f"trace_train: a kernel family of {cfg.arch_id} reads no device time: "
+             f"{ {f: c['ms'] for f, c in counted.items()} }")
 
 
-def run_train(dev, card):
-    """qwen3-1.7b at full width, bf16, 8 steps with each feed on the same
-    batches. Returns the bypass run's launch counts."""
+def run_train(dev, card, arch):
+    """``arch`` at full width, bf16, 8 steps with each of its feeds
+    (TRAIN_FEEDS) on the same batches. Returns the bypass run's launch
+    counts."""
     import contextlib
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.registry import get_config
     from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
-    cfg = get_config(TRAIN["arch"])
+    cfg = get_config(arch)
     dcfg = DataConfig(seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"],
                       seed=TRAIN["seed"])
-    emit("train_checkpointing", "off at full width: params, f32 master copy and AdamW "
-         "moments are 27.6 GB to hash and write; the restart phase drives checkpoints "
-         "at the smoke config")
-    expected = train_expected(cfg.n_layers, TRAIN["steps"])
+    emit("train_checkpointing", f"{arch}: off at full width: params, gradients, f32 master "
+         f"copy and AdamW moments are {16 * cfg.param_count() / 1e9:.1f} GB to hash and "
+         "write; the restart phase drives checkpoints at the smoke config")
+    expected = train_expected(cfg, TRAIN["steps"])
     runs = {}
-    for feed in ("bypass", "kernel"):
+    for feed in TRAIN_FEEDS[arch]:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         rt = TrainerRuntime(cfg, dcfg, TrainerConfig(steps=TRAIN["steps"], feed=feed,
@@ -1017,19 +1171,20 @@ def run_train(dev, card):
         if feed == "bypass":
             trace_train(cfg, rt, state, dev)
         del state, rt
-    same = runs["bypass"]["losses"] == runs["kernel"]["losses"]
-    emit("train_feeds", {"losses_bitwise_equal": same,
-                         "feed_wait_ms_per_batch": {f: runs[f]["feed_wait_ms_per_batch"]
-                                                    for f in runs},
-                         "step_ms_median": {f: runs[f]["step_ms_median"] for f in runs}})
-    if not same:
-        fail(f"the two feeds gave different losses: {runs['bypass']['losses']} vs "
-             f"{runs['kernel']['losses']}")
+    if len(runs) > 1:
+        same = runs["bypass"]["losses"] == runs["kernel"]["losses"]
+        emit("train_feeds", {"arch": arch, "losses_bitwise_equal": same,
+                             "feed_wait_ms_per_batch": {f: runs[f]["feed_wait_ms_per_batch"]
+                                                        for f in runs},
+                             "step_ms_median": {f: runs[f]["step_ms_median"] for f in runs}})
+        if not same:
+            fail(f"the two feeds gave different losses: {runs['bypass']['losses']} vs "
+                 f"{runs['kernel']['losses']}")
     torch.cuda.empty_cache()
     return runs["bypass"]["launches"]
 
 
-def run_train_vs_plain(dev):
+def run_train_vs_plain(dev, arch):
     """One step's loss and every gradient, kernels against plain versions:
     f32, full width, 4 layers."""
     from repro_torch import tree
@@ -1037,8 +1192,7 @@ def run_train_vs_plain(dev):
     from repro_torch.launch import serve
     from repro_torch.models.registry import get_config
     from repro_torch.runtime.steps import loss_and_grads
-    cfg = get_config(TRAIN["arch"]).replace(n_layers=4, param_dtype="float32",
-                                            compute_dtype="float32")
+    cfg = get_config(arch).replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
     params = serve.init_params(cfg, 0, dev)
     host = synth_tokens(cfg, DataConfig(seq_len=TRAIN["seq_len"],
                                         global_batch=TRAIN["global_batch"], seed=1), 0, 1, 0)
@@ -1047,7 +1201,7 @@ def run_train_vs_plain(dev):
     loss_k, _, gk = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
     launches, plain_calls = read_counters()
-    want = {name: train_expected(cfg.n_layers, 1).get(name, 0) for name in launches}
+    want = {name: train_expected(cfg, 1).get(name, 0) for name in launches}
     with plain_kernels():
         loss_p, _, gp = loss_and_grads(cfg, params, batch)
     gk, gp = tree.leaf_paths(gk), tree.leaf_paths(gp)
@@ -1060,15 +1214,17 @@ def run_train_vs_plain(dev):
     lk, lp = float(loss_k), float(loss_p)
     loss_ok = abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
-    out = {"n_layers": cfg.n_layers, "dtype": "float32", "loss_kernels": lk, "loss_plain": lp,
-           "loss_rel_diff": abs(lk - lp) / abs(lp), "bound_loss_rel": TRAIN_LOSS_REL,
-           "grad_leaves": len(gp), "worst_grad_err_of_max": top,
-           "bound_grad_err_of_max": TRAIN_GRAD_OF_MAX,
-           "attention_grads_nonzero": all(bool(gk[k].abs().max() > 0) for k in gk
-                                          if k.split("/")[-1] in ("wq", "wk", "wv")),
+    leaves = KERNEL_GRAD_LEAVES[cfg.family]
+    out = {"arch": arch, "n_layers": cfg.n_layers, "dtype": "float32", "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "bound_loss_rel": TRAIN_LOSS_REL, "grad_leaves": len(gp),
+           "worst_grad_err_of_max": top, "bound_grad_err_of_max": TRAIN_GRAD_OF_MAX,
+           "kernel_grad_leaves": leaves,
+           "kernel_grads_nonzero": all(bool(gk[k].abs().max() > 0) for k in gk
+                                       if k.split("/")[-1] in leaves),
            "launches": launches, "expected_launches": want, "plain_calls": plain_calls}
     emit("train_vs_plain", out)
-    if not (ok and loss_ok and out["attention_grads_nonzero"]) or launches != want \
+    if not (ok and loss_ok and out["kernel_grads_nonzero"]) or launches != want \
             or plain_calls:
         fail(f"train_vs_plain: {out}")
     del params, gk, gp
@@ -1127,7 +1283,9 @@ def _row(name, arch, launches, errs, card, **kw):
            "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:46"),
            # the gradient of the Pallas forward, which JAX takes through its chunked path
            "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention.py:92"),
-           "burst_gather": ("burst_gather.cu", "burst_gather.py:34")}[name]
+           "burst_gather": ("burst_gather.cu", "burst_gather.py:34"),
+           # the gradient of the Pallas forward, which JAX takes through its chunked path
+           "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:66")}[name]
     return {"name": f"{name} ({arch})", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src[0]}",
             "replaces": f"src/repro/kernels/{src[1]}",
@@ -1422,6 +1580,50 @@ def time_ssd(launches, errs, card, dev):
                        "dtype": "bfloat16", "flops": flops, "bytes": nbytes})
 
 
+def ssd_bwd_flops(B, S, H, P, N, Q):
+    """The chunked form's products in the SSD gradient, lower triangles
+    only: per (row, chunk, head) four P x N-by-chunk products (the chunk's
+    state gradient, g B, dY^T h_c, XDT^T g) and two over the triangle (G and
+    (L o S)^T dY); per (row, chunk) M B and M^T C."""
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    return B * nc * (4 * tri * N + H * (8 * Q * P * N + 4 * tri * P))
+
+
+def time_ssd_bwd(launches, errs, card, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.kernels import ssd_scan_bwd as kbwd
+    B, S, H, P, N, Q, _, _ = SSD_TRAIN
+    x, dt, A, Bm, Cm, _ = ssd_inputs(SSD_TRAIN[:7], torch.bfloat16, dev, seed=5)
+    dy = randn(torch.Generator().manual_seed(6), x.shape, torch.bfloat16, dev)
+    # read x, dy, dt, A, B, C once, write dx, ddt, dA, dB, dC
+    nbytes = (3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * A.numel() * 4
+              + 4 * Bm.numel() * 2)
+    flops = ssd_bwd_flops(B, S, H, P, N, Q)
+    b_ms, b_by = bound(nbytes, flops)
+    _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=Q, h0=None)
+    kern = lambda: kbwd.ssd_scan_bwd_cuda(  # noqa: E731
+        x, dt, A, Bm, Cm, None, dy, None, chunk=Q, fwd_workspace=ws)
+    # plain: autograd's backward through ref.ssd_scan, its graph built outside the timing
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    y_p, _ = ref.ssd_scan(*leaves, chunk=Q)
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_p, leaves, dy, retain_graph=True),
+                       iters=3, warmup=1)
+    del y_p, leaves
+    torch.cuda.empty_cache()
+    ms = time_ms(kern, iters=10)
+    return _row("ssd_scan_bwd", SSM_TRAIN_LABEL, launches, errs, card,
+                ms=ms, device_ms=device_ms(kern, SSD_BWD_KERNELS, iters=10),
+                device_ms_per_kernel={ph: device_ms(kern, SSD_BWD_KERNELS + ph, iters=10)
+                                      for ph in SSD_BWD_PHASES},
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                # the same products on the CUDA cores, where this design runs them
+                fma_floor_ms=flops / F32_FLOP_PER_S * 1e3, library_ms=None,
+                library="none: no single PyTorch call computes an SSD gradient",
+                shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
+                       "dtype": "bfloat16", "flops": flops, "bytes": nbytes})
+
+
 def time_rglru(launches, errs, card, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as krglru
@@ -1463,6 +1665,7 @@ def run_times(launches, errs, card, dev):
             time_decode("recurrentgemma-9b", launches, errs, card, dev),
             time_flash(TRAIN_LABEL, launches, errs, card, dev),
             time_flash_bwd(launches, errs, card, dev),
+            time_ssd_bwd(launches, errs, card, dev),
             time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"])]
     gather_sweep(dev, card)
     emit("flash_forward_rate", [
@@ -1535,9 +1738,11 @@ def main():
     launches = {}
     launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
     errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})
+    errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
-    launches[TRAIN_LABEL] = run_train(dev, card)
-    run_train_vs_plain(dev)
+    for arch in TRAIN_FEEDS:
+        launches[f"{arch} train"] = run_train(dev, card, arch)
+        run_train_vs_plain(dev, arch)
     run_restart(dev)
     rows = run_times(launches, errs, card, dev)
 

@@ -169,6 +169,114 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Ten
     return y, h
 
 
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+                 Cmat: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                 dh_final: Optional[torch.Tensor], *, chunk: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the chunked SSD (``ssd_scan``) as explicit formulas, in
+    f32, in the phase order of the backward kernels: x (B,S,H,P), dt (B,S,H),
+    A (H,), Bmat and Cmat (B,S,N), h0 (B,H,P,N) or None, dy (B,S,H,P) and
+    dh_final (B,H,P,N) or None (no gradient on the final state) → (dx in x's
+    dtype, ddt f32, dA f32, dB and dC in Bmat's dtype, dh0 f32 or None when h0
+    is None).
+
+    Per (row, head) and chunk c, with cum the in-chunk prefix sum of dt·A[h],
+    xdt_k = dt_k x_k, S = C·Bᵀ, L_qk = exp(cum_q − cum_k) for k ≤ q (else 0),
+    h_c the state entering chunk c and g_c the gradient of h_c:
+    1. the reverse state pass, g_nc = dh_final, g_c = exp(cum_end) g_{c+1}
+       + Σ_q exp(cum_q) dy_q ⊗ C_q, and dh0 = g_0;
+    2. per chunk, G = dY·XDTᵀ, dxdt = (L∘S)ᵀ dY + exp(cum_end − cum_k)
+       g_{c+1} B_k, dx = dt·dxdt and ddt ⊇ Σ_p x·dxdt;
+    3. dB and dC, sums over the heads that share the one B/C group: with
+       M = Σ_h L∘G, dC = M B + Σ_h exp(cum_q) dy_qᵀ h_c and dB = Mᵀ C
+       + Σ_h exp(cum_end − cum_k) xdt_kᵀ g_{c+1};
+    4. dcum = the row sums minus the column sums of L∘S∘G, plus the carried
+       term exp(cum_q) dy_q·(h_c C_q), minus the state term u_k =
+       exp(cum_end − cum_k) xdt_k·(g_{c+1} B_k); Σ_k u_k and exp(cum_end)
+       ⟨g_{c+1}, h_c⟩ go to cum_end. The reverse cumsum inside the chunk
+       gives d(dA), so ddt += A·d(dA) and dA[h] = Σ d(dA)·dt.
+    Steps past S are padded with dt = 0, as the forward pads them."""
+    global calls
+    calls += 1
+    Bb, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bmat, Cmat = (F.pad(t, (0, 0, 0, pad)) for t in (Bmat, Cmat))
+    nc = (S + pad) // Q
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dyf = dy.float().reshape(Bb, nc, Q, H, P)
+    dtf = dt.float().reshape(Bb, nc, Q, H)
+    Bf = Bmat.float().reshape(Bb, nc, Q, N)
+    Cf = Cmat.float().reshape(Bb, nc, Q, N)
+    Af = A.float()
+    xdt = xf * dtf[..., None]
+    cs = (dtf * Af).cumsum(2)                              # cum, (B, nc, Q, H)
+    csh = cs.transpose(2, 3)                               # (B, nc, H, Q)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((csh[..., :, None] - csh[..., None, :]).masked_fill(~tri, float("-inf")))
+    scores = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)       # S, (B, nc, Q, Q)
+    dec_end = torch.exp(cs[:, :, -1:] - cs)                # (B, nc, Q, H)
+    chunk_decay = torch.exp(cs[:, :, -1])                  # (B, nc, H)
+
+    # the forward's entering states h_c
+    s_chunk = torch.einsum("bcqn,bcqhp->bchpn", Bf, xdt * dec_end[..., None])
+    h = (h0.float() if h0 is not None
+         else torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device))
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + s_chunk[:, c]
+    h_enter = torch.stack(h_enter, 1)                      # (B, nc, H, P, N)
+
+    # 1. reverse state pass: g_after[c] = g_{c+1}, the gradient leaving chunk c
+    d_chunk = torch.einsum("bcqhp,bcqn->bchpn", dyf * torch.exp(cs)[..., None], Cf)
+    g = (dh_final.float() if dh_final is not None
+         else torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device))
+    g_after = [None] * nc
+    for c in reversed(range(nc)):
+        g_after[c] = g
+        g = chunk_decay[:, c, :, None, None] * g + d_chunk[:, c]
+    dh0 = g if h0 is not None else None
+    g_after = torch.stack(g_after, 1)                      # (B, nc, H, P, N)
+
+    # 2. per chunk: G, dxdt, dx and the x part of ddt
+    G = torch.einsum("bcqhp,bckhp->bchqk", dyf, xdt)       # (B, nc, H, Q, Q)
+    LS = L * scores[:, :, None]
+    gB = torch.einsum("bchpn,bckn->bckhp", g_after, Bf)    # g_{c+1} B_k
+    dxdt = torch.einsum("bchqk,bcqhp->bckhp", LS, dyf) + dec_end[..., None] * gB
+    dx = dxdt * dtf[..., None]
+    ddt = (xf * dxdt).sum(-1)                              # (B, nc, Q, H)
+
+    # 3. dB and dC, summed over the heads
+    LG = L * G
+    M = LG.sum(2)                                          # (B, nc, Q, Q)
+    dyh = torch.einsum("bcqhp,bchpn->bcqhn", dyf, h_enter)  # dy_qᵀ h_c per head
+    xg = torch.einsum("bckhp,bchpn->bckhn", xdt, g_after)   # xdt_kᵀ g_{c+1} per head
+    dC = (torch.einsum("bcqk,bckn->bcqn", M, Bf)
+          + torch.einsum("bcqh,bcqhn->bcqn", torch.exp(cs), dyh))
+    dB = (torch.einsum("bcqk,bcqn->bckn", M, Cf)
+          + torch.einsum("bckh,bckhn->bckn", dec_end, xg))
+
+    # 4. dcum, its reverse cumsum d(dA), then ddt and dA
+    T = LG * scores[:, :, None]
+    carried = torch.exp(cs) * torch.einsum("bcqhn,bcqn->bcqh", dyh, Cf)
+    u = dec_end * torch.einsum("bckhn,bckn->bckh", xg, Bf)
+    dcum = (T.sum(-1) - T.sum(-2)).transpose(2, 3) + carried - u   # (B, nc, Q, H)
+    end = u.sum(2) + chunk_decay * (g_after * h_enter).sum((-1, -2))  # (B, nc, H)
+    dda = dcum.flip(2).cumsum(2).flip(2) + end[:, :, None]
+    ddt = ddt + Af * dda
+    dA = (dda * dtf).sum((0, 1, 2))
+
+    def unchunk(t, dtype):
+        return t.reshape(Bb, nc * Q, *t.shape[3:])[:, :S].to(dtype)
+    return (unchunk(dx, x.dtype), unchunk(ddt, torch.float32), dA,
+            unchunk(dB, Bmat.dtype), unchunk(dC, Cmat.dtype), dh0)
+
+
 def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bmat: torch.Tensor, Cmat: torch.Tensor,
                    h0: Optional[torch.Tensor] = None

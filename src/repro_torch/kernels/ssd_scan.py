@@ -5,8 +5,13 @@ bounds the kernels on the H100 and what their design does about it is in the
 note at the top of the CUDA source. Each call runs four kernels on the
 current stream (the chunk states, C·Bᵀ once per chunk, the state pass over
 the chunks, the outputs), whose grids and f32 workspace ``plan`` works out
-here on the host from the shapes alone. ``launches`` counts calls of the
-wrapper (four kernels each).
+here on the host from the shapes alone. ``launches`` counts forward calls
+(four kernels each).
+
+When autograd needs a gradient (grad mode on and an input that requires
+grad), the call goes through ``SSDScan``, an ``autograd.Function`` whose
+backward is the CUDA backward (``ssd_scan_bwd.py``). Otherwise the forward
+runs alone and its workspace is freed.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -80,20 +86,18 @@ def _fn():
     return lib, fn
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
-                  Cmat: torch.Tensor, *, chunk: int, h0: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,H,P) f32 or bf16, dt (B,S,H) f32, A (H,) f32, Bmat/Cmat (B,S,N) in
-    x's dtype, h0 (B,H,P,N) f32 or None, on one CUDA device → (y (B,S,H,P) in
-    x's dtype, final state (B,H,P,N) f32)."""
-    global launches
+def check_inputs(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bmat: torch.Tensor, Cmat: torch.Tensor, h0: Optional[torch.Tensor]
+                 ) -> Tuple[int, int, int, int, int]:
+    """Raise on what the forward and backward kernels do not take; returns
+    (B, S, H, P, N)."""
     ts = (x, dt, A, Bmat, Cmat) + ((h0,) if h0 is not None else ())
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
-        raise ValueError(f"ssd_scan_cuda needs every input on one CUDA device, got "
+        raise ValueError(f"{name} needs every input on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
     if (x.dtype not in _build.DTYPE_CODES or Bmat.dtype != x.dtype or Cmat.dtype != x.dtype
             or any(t.dtype != torch.float32 for t in ts[1:3] + ts[5:])):
-        raise TypeError(f"ssd_scan_cuda takes f32 or bf16 x, Bmat, Cmat of one dtype and "
+        raise TypeError(f"{name} takes f32 or bf16 x, Bmat, Cmat of one dtype and "
                         f"f32 dt, A, h0, got {[t.dtype for t in ts]}")
     if x.dim() != 4:
         raise ValueError(f"x must be (B,S,H,P), got {tuple(x.shape)}")
@@ -105,14 +109,23 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
         raise ValueError(f"shapes do not match: x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"A {tuple(A.shape)} B {tuple(Bmat.shape)} C {tuple(Cmat.shape)} "
                          f"h0 {None if h0 is None else tuple(h0.shape)}")
-    p = plan(B, S, H, P, N, chunk)
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("ssd_scan_cuda needs contiguous inputs")
-    _build.refuse_grad("ssd_scan_cuda", *ts)
+        raise ValueError(f"{name} needs contiguous inputs")
+    return B, S, H, P, N
+
+
+def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+             Cmat: torch.Tensor, *, chunk: int, h0: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, final state, the f32 workspace after the call: the C·Bᵀ tiles, the
+    states entering each chunk and cum, as ``plan`` lays them out)."""
+    global launches
+    B, S, H, P, N = check_inputs("ssd_scan_cuda", x, dt, A, Bmat, Cmat, h0)
+    p = plan(B, S, H, P, N, chunk)
     y = torch.empty_like(x)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:  # B, H or P is 0: h_final is empty too
-        return y, h_final
+        return y, h_final, torch.empty(0, dtype=torch.float32, device=x.device)
     lib, fn = _fn()
     with torch.cuda.device(x.device):
         # from the caching allocator on the current stream, which the kernels run on
@@ -127,4 +140,42 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
                  _build.DTYPE_CODES[x.dtype], stream)
     launches += 1
     _build.check(lib, "ssd_scan", err)
-    return y, h_final
+    return y, h_final, ws
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with the CUDA backward kernels as its gradient. The
+    forward keeps its f32 workspace (cum, the C·Bᵀ tiles and the entering
+    states) for the backward, which reads it instead of computing it again."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, h0, chunk):
+        y, h_final, ws = _forward(x, dt, A, Bmat, Cmat, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, h0, ws)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # no gradient on the final state: no zeros made
+        return y, h_final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_final):
+        from .ssd_scan_bwd import ssd_scan_bwd_cuda
+        x, dt, A, Bmat, Cmat, h0, ws = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh_final = None if dh_final is None else dh_final.contiguous()
+        dx, ddt, dA, dB, dC, dh0 = ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, h0, dy, dh_final,
+                                                     chunk=ctx.chunk, fwd_workspace=ws)
+        return dx, ddt, dA, dB, dC, dh0, None
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+                  Cmat: torch.Tensor, *, chunk: int, h0: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,H,P) f32 or bf16, dt (B,S,H) f32, A (H,) f32, Bmat/Cmat (B,S,N) in
+    x's dtype, h0 (B,H,P,N) f32 or None, on one CUDA device → (y (B,S,H,P) in
+    x's dtype, final state (B,H,P,N) f32), differentiable through the
+    backward kernels."""
+    ts = (x, dt, A, Bmat, Cmat) + ((h0,) if h0 is not None else ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return SSDScan.apply(x, dt, A, Bmat, Cmat, h0, chunk)
+    return _forward(x, dt, A, Bmat, Cmat, chunk=chunk, h0=h0)[:2]

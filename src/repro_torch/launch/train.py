@@ -7,7 +7,8 @@ asked, the CPU).
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the
 plain kernel versions on the CPU, which is meant for small configs. ``--arch``
-takes the ported ids, and only the dense family trains. ``--mesh`` other than
+takes the ported ids; the dense and ssm families train (qwen3-1.7b,
+mamba2-1.3b), the hybrid one raises. ``--mesh`` other than
 ``none`` raises: sharding is not ported (ROADMAP.md, Queue 1, "Sharding").
 """
 from __future__ import annotations

@@ -95,13 +95,22 @@ def _block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor
     return out, h_final, conv_tail
 
 
+def _layer(cfg: ModelConfig, p_block: Params, p_norm: Params, x: torch.Tensor) -> torch.Tensor:
+    return x + _block_prefill(cfg, p_block, apply_norm(cfg, p_norm, x))[0]
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all blocks over the sequence (no cache). Returns (hidden, aux 0)."""
+    """Run all blocks over the sequence (no cache). Returns (hidden, aux 0).
+
+    Each block runs under ``torch.utils.checkpoint`` (the JAX package's
+    ``remat=True``): only its input is kept, and the backward runs the block
+    again (the SSD scan's forward kernels included) to rebuild what it needs."""
     for i in range(cfg.n_layers):
-        out, _, _ = _block_prefill(cfg, layer_of(params["blocks"], i),
-                                   apply_norm(cfg, layer_of(params["norms"], i), x))
-        x = x + out
+        # the blocks draw no random numbers: no RNG state to replay
+        x = torch.utils.checkpoint.checkpoint(_layer, cfg, layer_of(params["blocks"], i),
+                                              layer_of(params["norms"], i), x,
+                                              use_reentrant=False, preserve_rng_state=False)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -229,6 +229,78 @@ def test_ssd_kernel_on_a_side_stream(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+SSD_BWD_CASES = [
+    # B, S, H, P, N, chunk, h0, a cotangent on the final state
+    (2, 300, 8, 64, 128, 256, True, True),    # ragged S: one full and one partial chunk
+    (2, 37, 3, 8, 16, 8, True, False),        # smoke-sized heads, ragged S
+    (2, 40, 3, 16, 32, 1, True, True),        # chunk 1
+    (1, 1024, 4, 64, 128, 128, False, True),  # 8 chunks of two tiles, no h0
+    (2, 333, 4, 32, 64, 64, True, True),      # ragged S over 6 chunks at P 32, N 64
+]
+
+
+def _ssd_grads(fn, x, dt, A, Bm, Cm, h0, dy, dh):
+    """The gradients of <y, dy> + <h_final, dh> through ``fn`` by autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    h0l = h0.detach().clone().requires_grad_(True) if h0 is not None else None
+    y, hf = fn(*leaves, h0l)
+    loss = (y.float() * dy.float()).sum() + ((hf * dh).sum() if dh is not None else 0)
+    return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_vs_autograd_through_the_plain_version(dev, case, dtype):
+    """SSDScan's gradients against autograd through ref.ssd_scan: f32 max abs
+    within 1e-4 (1 + max |ref|); bf16 a relative RMS of 2e-2 (the plain
+    version rounds its dot inputs to bf16, the kernels do all math in f32)."""
+    from repro_torch.kernels import ops, ref, ssd_scan_bwd
+    B, S, H, P, N, chunk, with_h0, with_dh = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, B, S, H, P, N, with_h0, dtype)
+    gen = torch.Generator().manual_seed(9)
+    dy = _randn(gen, x.shape, dtype, dev)
+    dh = _randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
+    before = ssd_scan_bwd.launches
+    got = _ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                     x, dt, A, Bm, Cm, h0, dy, dh)
+    assert ssd_scan_bwd.launches == before + 1
+    want = _ssd_grads(lambda *a: ref.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                      x, dt, A, Bm, Cm, h0, dy, dh)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and g.dtype == w.dtype
+        if dtype == torch.float32:
+            bound = 1e-4 * (1 + float(w.abs().max()))
+            assert float((g - w).abs().max()) <= bound
+        else:
+            assert float((g.float() - w.float()).norm() / w.float().norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES + [(4, 2048, 64, 64, 128, 256, False, False)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_backward_kernel_vs_the_plain_backward(dev, case):
+    """The kernels alone against ref.ssd_scan_bwd on the same bf16 inputs:
+    each gradient within a relative RMS of 1e-2; two calls bitwise equal."""
+    from repro_torch.kernels import ref, ssd_scan, ssd_scan_bwd
+    B, S, H, P, N, chunk, with_h0, with_dh = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, B, S, H, P, N, with_h0, torch.bfloat16)
+    gen = torch.Generator().manual_seed(10)
+    dy = _randn(gen, x.shape, torch.bfloat16, dev)
+    dh = _randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
+    _, _, ws = ssd_scan._forward(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    got = ssd_scan_bwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                         fwd_workspace=ws)
+    again = ssd_scan_bwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                           fwd_workspace=ws)
+    want = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (got[5] is None) == (h0 is None)
+    for g, a, w in zip(got, again, want):
+        if w is None:
+            continue
+        assert torch.equal(g, a)
+        assert float((g.float() - w.float()).norm() / w.float().norm()) <= 1e-2
+
+
 def _rglru_inputs(dev, B, S, W, with_h0, dtype, seed=4, unit_decay=False):
     gen = torch.Generator().manual_seed(seed)
     x = _randn(gen, (B, S, W), dtype, dev)
@@ -544,24 +616,38 @@ def test_flash_backward_refuses_head_dims_past_128(dev):
 
 
 def test_wrappers_without_a_backward_raise_under_autograd(dev):
-    """decode, SSD and RG-LRU have no backward kernel: under grad mode an
-    input that requires grad must raise, not yield an output without grad."""
+    """decode and RG-LRU have no backward kernel: under grad mode an input
+    that requires grad must raise, not yield an output without grad."""
     from repro_torch.kernels import ops
     q = torch.zeros(1, 2, 16, device=dev, requires_grad=True)
     kc = torch.zeros(1, 8, 1, 16, device=dev)
     cl = torch.ones(1, dtype=torch.int32, device=dev)
-    x = torch.zeros(1, 8, 2, 8, device=dev, requires_grad=True)
-    dt, A = torch.ones(1, 8, 2, device=dev), -torch.ones(2, device=dev)
-    Bm = torch.zeros(1, 8, 4, device=dev)
     xr = torch.zeros(1, 8, 16, device=dev, requires_grad=True)
     calls = [lambda: ops.decode_attention(q, kc, kc, cl),
-             lambda: ops.ssd_scan(x, dt, A, Bm, Bm, chunk=8),
              lambda: ops.rglru_scan(xr, torch.zeros(1, 8, 16, device=dev))]
     for call in calls:
         with pytest.raises(RuntimeError, match="ROADMAP.md"):
             call()
         with torch.no_grad():
             call()
+
+
+def test_ssd_gradient_flows_through_the_backward_kernels(dev):
+    """The SSD scan under autograd gives every input a gradient through its
+    backward kernels, and none of the plain versions runs."""
+    from repro_torch.kernels import ops, ref, ssd_scan, ssd_scan_bwd
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, 1, 8, 2, 8, 4, True, torch.float32)
+    leaves = [t.requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+    fwd, bwd, plain = ssd_scan.launches, ssd_scan_bwd.launches, ref.calls
+    y, hf = ops.ssd_scan(*leaves[:5], chunk=8, h0=leaves[5])
+    assert y.grad_fn is not None and hf.grad_fn is not None
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches, ref.calls) == (fwd + 1, bwd + 1, plain)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(*leaves[:5], chunk=8, h0=leaves[5])
+    assert y.grad_fn is None and ssd_scan.launches == fwd + 2
 
 
 GATHER_CASES = [
@@ -698,5 +784,18 @@ def test_smoke_train_goes_through_the_kernels(dev):
     rt = train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "2", "--seq-len", "32",
                      "--global-batch", "2", "--log-every", "1"])
     assert (flash_attention.launches, flash_attention_bwd.launches) == (16, 8)
+    assert ref.calls == 0
+    assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN
+
+
+def test_smoke_train_of_mamba2_goes_through_the_kernels(dev):
+    """Two mamba2 smoke train steps (4 blocks): per step each block's SSD
+    forward and its recompute, and one SSD backward; no plain call."""
+    from repro_torch.kernels import ref, ssd_scan, ssd_scan_bwd
+    from repro_torch.launch import train
+    ssd_scan.launches = ssd_scan_bwd.launches = ref.calls = 0
+    rt = train.main(["--arch", "mamba2-1.3b", "--smoke", "--steps", "2", "--seq-len", "32",
+                     "--global-batch", "2", "--log-every", "1"])
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (16, 8)
     assert ref.calls == 0
     assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN

@@ -140,7 +140,7 @@ def test_train_loss_and_every_gradient_match_jax():
     assert not any(p.requires_grad for p in tree.leaf_paths(tp).values())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_train_loss_of_families_without_backward_kernels_raises(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -164,11 +164,11 @@ def test_refuse_grad_raises_only_when_a_gradient_would_be_lost():
     x = torch.ones(3, requires_grad=True)
     y = torch.ones(3)
     with pytest.raises(RuntimeError, match="ROADMAP.md"):
-        _build.refuse_grad("ssd_scan_cuda", y, x, None)
-    _build.refuse_grad("ssd_scan_cuda", y, None)
+        _build.refuse_grad("rglru_scan_cuda", y, x, None)
+    _build.refuse_grad("rglru_scan_cuda", y, None)
     with torch.no_grad():
-        _build.refuse_grad("ssd_scan_cuda", x, y)
-    _build.refuse_grad("ssd_scan_cuda", x.detach())
+        _build.refuse_grad("rglru_scan_cuda", x, y)
+    _build.refuse_grad("rglru_scan_cuda", x.detach())
 
 
 # -- AdamW ------------------------------------------------------------------------
