@@ -50,8 +50,10 @@ Phases, each printed as one JSON object per line:
    alone against ref.ssd_scan_bwd on the same inputs and the forward's saved
    workspace (f32 the same bound; bf16 within a relative RMS of 1e-2), two
    calls bitwise equal, on ragged S, a chunk of 1, h0 given and not, a
-   cotangent on the final state and none, N 16 to 128, and mamba2-1.3b's
-   train shape;
+   cotangent on the final state and none, N 16 to 128, mamba2-1.3b's train
+   shape, and adversarial magnitudes (A 4x as negative, dy scaled by 1e3 and
+   by 1e-3; the kernels split the f32 operands of their tensor-core products
+   into bf16 parts);
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
    with random weights from seed 0 — serve: 8 requests in batches of 4, 32
    generated tokens, greedy, through repro_torch.launch.serve, with every
@@ -85,7 +87,9 @@ Phases, each printed as one JSON object per line:
    its backward also their device time from the profiler, decode, the SSD
    scan and its backward per kernel, decode with the L2 flushed before each
    call too, SDPA's the same way; the SSD scan and its backward also their
-   FMA floor, their FLOP over the 67 TFLOP/s of f32 FMAs), its plain
+   FMA floor, their FLOP over the 67 TFLOP/s of f32 FMAs, and the backward
+   its design's floor, its bf16 mma FLOP (split terms counted) over the
+   989 TFLOP/s of the tensor cores plus the rest over the FMA rate), its plain
    version, a PyTorch call
    computing the same function where there is one (checked against the
    kernel), and the bound;
@@ -732,6 +736,12 @@ SSD_BWD_CASES = [
     (4, 2048, 64, 64, 128, 256, False, False),  # mamba2-1.3b train, full width
 ]
 SSD_TRAIN = SSD_BWD_CASES[-1]
+# adversarial magnitudes: A 4x as negative, -4 to -64 (exp(cum) spans
+# hundreds of decades within a chunk and most of L underflows to 0), with dy
+# scaled by 1e3 and by 1e-3; (case, A's factor, dy's factor), checked at the
+# same bounds. Far more negative A leaves f32 itself short of the f32 bound on
+# ddt = x dxdt + A d(dA), the plain version's as much as the kernels'.
+SSD_BWD_ADVERSARIAL = [(SSD_BWD_CASES[0], 4.0, 1e3), (SSD_BWD_CASES[0], 4.0, 1e-3)]
 
 
 def ssd_grads(fn, x, dt, A, Bm, Cm, h0, dy, dh):
@@ -771,13 +781,14 @@ def run_ssd_bwd_checks(dev):
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.kernels import ssd_scan_bwd as kbwd
     worst = None
-    for case in SSD_BWD_CASES:
+    for case, a_scale, dy_scale in [(c, 1.0, 1.0) for c in SSD_BWD_CASES] + SSD_BWD_ADVERSARIAL:
         B, S, H, P, N, chunk, with_h0, with_dh = case
         dtypes = (torch.bfloat16,) if case == SSD_TRAIN else (torch.float32, torch.bfloat16)
         for dtype in dtypes:
             x, dt, A, Bm, Cm, h0 = ssd_inputs(case[:7], dtype, dev, seed=7)
+            A = A * a_scale
             gen = torch.Generator().manual_seed(8)
-            dy = randn(gen, x.shape, dtype, dev)
+            dy = (randn(gen, x.shape, torch.float32, dev) * dy_scale).to(dtype)
             dh = randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
             g = ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
                           x, dt, A, Bm, Cm, h0, dy, dh)
@@ -800,6 +811,8 @@ def run_ssd_bwd_checks(dev):
             res["vs_ssd_scan_bwd"], ok_k = _grad_errs(gk, gm, dtype,
                                                       SSD_BWD_VS_PLAIN_BF16_REL_RMS)
             ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
+            if (a_scale, dy_scale) != (1.0, 1.0):
+                res["A_factor"], res["dy_factor"] = a_scale, dy_scale
             _check("ssd_scan_bwd", case, dtype, res, ok, "")
             if case == SSD_TRAIN:
                 worst = max(v["max_abs"] for v in res["vs_ssd_scan_bwd"].values())
@@ -1589,6 +1602,19 @@ def ssd_bwd_flops(B, S, H, P, N, Q):
     return B * nc * (4 * tri * N + H * (8 * Q * P * N + 4 * tri * P))
 
 
+def ssd_bwd_mma_flops(B, S, H, P, N, Q):
+    """The products of ssd_bwd_flops that the bf16 backward kernels run on
+    the tensor cores, lower triangles only: G (two raw bf16 operands),
+    (L o S)^T dY, g B, dY^T h_c and X^T g (an f32 operand split into hi + lo,
+    so two bf16 products each). Returns (their bf16 FLOP, split terms
+    counted; their FLOP counted once). The chunk's state gradient and M B,
+    M^T C stay on f32 FMAs."""
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    per_head = 2 * tri * P, 2 * tri * P + 3 * 2 * Q * P * N  # raw x raw; split
+    return (B * nc * H * (per_head[0] + 2 * per_head[1]),
+            B * nc * H * (per_head[0] + per_head[1]))
+
+
 def time_ssd_bwd(launches, errs, card, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
@@ -1600,6 +1626,7 @@ def time_ssd_bwd(launches, errs, card, dev):
     nbytes = (3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * A.numel() * 4
               + 4 * Bm.numel() * 2)
     flops = ssd_bwd_flops(B, S, H, P, N, Q)
+    mma_flops, mma_flops_once = ssd_bwd_mma_flops(B, S, H, P, N, Q)
     b_ms, b_by = bound(nbytes, flops)
     _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=Q, h0=None)
     kern = lambda: kbwd.ssd_scan_bwd_cuda(  # noqa: E731
@@ -1617,8 +1644,14 @@ def time_ssd_bwd(launches, errs, card, dev):
                 device_ms_per_kernel={ph: device_ms(kern, SSD_BWD_KERNELS + ph, iters=10)
                                       for ph in SSD_BWD_PHASES},
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                # the same products on the CUDA cores, where this design runs them
-                fma_floor_ms=flops / F32_FLOP_PER_S * 1e3, library_ms=None,
+                # the same products all on the f32 CUDA cores
+                fma_floor_ms=flops / F32_FLOP_PER_S * 1e3,
+                # this design's: its bf16 mma FLOP, split terms counted, on the
+                # tensor cores, and the rest of the products on f32 FMAs
+                mma_flops=mma_flops, mma_floor_ms=mma_flops / BF16_FLOP_PER_S * 1e3,
+                design_floor_ms=(mma_flops / BF16_FLOP_PER_S
+                                 + (flops - mma_flops_once) / F32_FLOP_PER_S) * 1e3,
+                library_ms=None,
                 library="none: no single PyTorch call computes an SSD gradient",
                 shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
                        "dtype": "bfloat16", "flops": flops, "bytes": nbytes})

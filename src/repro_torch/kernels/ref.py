@@ -169,10 +169,47 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Ten
     return y, h
 
 
+def split_bf16(a: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
+    """f32 ``a`` as ``parts`` bf16-valued f32 tensors, each the bf16 rounding
+    of what the ones before it leave of ``a`` (exact in f32): hi = bf16(a),
+    lo = bf16(a − hi), so that |a − hi − lo| ≤ 2⁻¹⁶·|a|, and a third part
+    brings that to about 2⁻²⁴. The split the SSD backward kernels apply to
+    their tensor-core operands."""
+    out, rest = [], a.float()
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return tuple(out)
+
+
+def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, split: Optional[torch.dtype],
+                   f32: Optional[int]) -> torch.Tensor:
+    """``einsum(eq, a, b)`` with the operands the kernels of dtype ``split``
+    give their bf16 products. For bf16, operand ``f32`` (0, 1 or None) in two
+    parts and a raw input as it is; for f32, both in three parts. The sum of
+    the products of parts i and j with i + j below the larger count, largest
+    first. None: the plain f32 product."""
+    if split is None:
+        return torch.einsum(eq, a, b)
+    raw, f32_parts = (3, 3) if split == torch.float32 else (1, 2)
+
+    def parts(t: torch.Tensor, is_f32: bool) -> Tuple[torch.Tensor, ...]:
+        n = f32_parts if is_f32 else raw
+        return split_bf16(t, n) if n > 1 else (t,)
+    pa, pb = parts(a, f32 == 0), parts(b, f32 == 1)
+    out = None
+    for t in range(max(len(pa), len(pb))):
+        for i in range(min(t + 1, len(pa))):
+            if t - i < len(pb):
+                term = torch.einsum(eq, pa[i], pb[t - i])
+                out = term if out is None else out + term
+    return out
+
+
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
                  Cmat: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
-                 dh_final: Optional[torch.Tensor], *, chunk: int
-                 ) -> Tuple[torch.Tensor, ...]:
+                 dh_final: Optional[torch.Tensor], *, chunk: int,
+                 split: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """The gradient of the chunked SSD (``ssd_scan``) as explicit formulas, in
     f32, in the phase order of the backward kernels: x (B,S,H,P), dt (B,S,H),
     A (H,), Bmat and Cmat (B,S,N), h0 (B,H,P,N) or None, dy (B,S,H,P) and
@@ -195,7 +232,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch
        exp(cum_end − cum_k) xdt_k·(g_{c+1} B_k); Σ_k u_k and exp(cum_end)
        ⟨g_{c+1}, h_c⟩ go to cum_end. The reverse cumsum inside the chunk
        gives d(dA), so ddt += A·d(dA) and dA[h] = Σ d(dA)·dt.
-    Steps past S are padded with dt = 0, as the forward pads them."""
+    Steps past S are padded with dt = 0, as the forward pads them.
+
+    ``split`` (tests only) mirrors the operand rounding of the CUDA kernels
+    of that dtype in G, (L∘S)ᵀ dY, g_{c+1} B_k, dy_qᵀ h_c and x_kᵀ g_{c+1}
+    (``_split_product``): for bf16, each f32 operand as bf16 hi + lo and the
+    raw inputs as they are; for f32, every operand in three bf16 parts; dt_k
+    and the decay weights applied to the products' results."""
     global calls
     calls += 1
     Bb, S, H, P = x.shape
@@ -244,18 +287,26 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch
     g_after = torch.stack(g_after, 1)                      # (B, nc, H, P, N)
 
     # 2. per chunk: G, dxdt, dx and the x part of ddt
-    G = torch.einsum("bcqhp,bckhp->bchqk", dyf, xdt)       # (B, nc, H, Q, Q)
+    if split is None:
+        G = torch.einsum("bcqhp,bckhp->bchqk", dyf, xdt)   # (B, nc, H, Q, Q)
+    else:  # dy_q·x_k, then dt_k
+        G = (_split_product("bcqhp,bckhp->bchqk", dyf, xf, split, None)
+             * dtf.transpose(2, 3)[:, :, :, None, :])
     LS = L * scores[:, :, None]
-    gB = torch.einsum("bchpn,bckn->bckhp", g_after, Bf)    # g_{c+1} B_k
-    dxdt = torch.einsum("bchqk,bcqhp->bckhp", LS, dyf) + dec_end[..., None] * gB
+    gB = _split_product("bchpn,bckn->bckhp", g_after, Bf, split, 0)  # g_{c+1} B_k
+    dxdt = (_split_product("bchqk,bcqhp->bckhp", LS, dyf, split, 0)
+            + dec_end[..., None] * gB)
     dx = dxdt * dtf[..., None]
     ddt = (xf * dxdt).sum(-1)                              # (B, nc, Q, H)
 
     # 3. dB and dC, summed over the heads
     LG = L * G
     M = LG.sum(2)                                          # (B, nc, Q, Q)
-    dyh = torch.einsum("bcqhp,bchpn->bcqhn", dyf, h_enter)  # dy_qᵀ h_c per head
-    xg = torch.einsum("bckhp,bchpn->bckhn", xdt, g_after)   # xdt_kᵀ g_{c+1} per head
+    dyh = _split_product("bcqhp,bchpn->bcqhn", dyf, h_enter, split, 1)  # dy_qᵀ h_c per head
+    if split is None:
+        xg = torch.einsum("bckhp,bchpn->bckhn", xdt, g_after)  # xdt_kᵀ g_{c+1} per head
+    else:  # x_kᵀ g_{c+1}, then dt_k
+        xg = _split_product("bckhp,bchpn->bckhn", xf, g_after, split, 1) * dtf[..., None]
     dC = (torch.einsum("bcqk,bckn->bcqn", M, Bf)
           + torch.einsum("bcqh,bcqhn->bcqn", torch.exp(cs), dyh))
     dB = (torch.einsum("bcqk,bcqn->bckn", M, Cf)

@@ -15,17 +15,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
-from .ssd_scan import MAX_BLOCKS, MAX_STATE, THREADS, TILE, check_inputs
+from .ssd_scan import MAX_BLOCKS, MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE, THREADS, TILE, check_inputs
 from .ssd_scan import plan as forward_plan
 
 launches = 0
 
 HEAD_GROUP = 8  # heads a block sums for M and for dB and dC
+# pitches (bf16 elements) of the tensor-core kernels' operand tiles: 64 and 128
+# columns, each row padded by 16 bytes
+PITCH_64, PITCH_128 = TILE + 8, MAX_STATE + 8
 
 
 class Plan(NamedTuple):
@@ -37,7 +40,10 @@ class Plan(NamedTuple):
     the column sums of L∘S∘G (B, n_chunks, n_pairs, H, TILE) each; three
     per-step rows (the carried and the state terms of dcum, Σ_p x·dxdt)
     (B, n_chunks, H, chunk) each; two per-chunk sums (⟨g, h⟩, the chunk's
-    part of dA) (B, n_chunks, H) each."""
+    part of dA) (B, n_chunks, H) each. The dynamic shared memory of the
+    kernels that take it depends on the dtype alone: f32 inputs split every
+    operand tile into more parts (``csrc/ssd_scan_bwd.cu``, whose
+    ``ssd_scan_bwd_smem`` gives the same numbers)."""
     chunk: int          # Q, the chunk the kernels run: min(chunk, S)
     n_chunks: int
     n_tiles: int        # TILE-row tiles of a chunk
@@ -57,6 +63,11 @@ class Plan(NamedTuple):
     partial_floats: int  # the row and the column sums together
     row_floats: int      # the three per-step rows together
     chunk_floats: int    # the two per-chunk sums together
+    dstate_smem: int     # bytes of dynamic shared memory a block
+    scores_smem: int
+    dbc_part_smem: int
+    dbc_sum_smem: int
+    dx_smem: int
 
     @property
     def workspace_floats(self) -> int:
@@ -64,11 +75,29 @@ class Plan(NamedTuple):
                 + self.partial_floats + self.row_floats + self.chunk_floats)
 
 
+def _smem(dtype: torch.dtype) -> Dict[str, int]:
+    """Dynamic shared memory (bytes) of dstate, scores, dbc_part, dbc_sum
+    and dx for inputs of ``dtype``, laid out as the CUDA source lays it out:
+    each tensor-core operand as bf16 tiles, one for a raw bf16 input, two for
+    an f32 operand of a bf16 call, three for every operand of an f32 call."""
+    size = torch.empty((), dtype=dtype).element_size()
+    raw, f32 = (3, 3) if dtype == torch.float32 else (1, 2)  # tiles an operand takes
+    a_tile, b_tile = 2 * TILE * PITCH_64, 2 * TILE * PITCH_128  # bf16 bytes
+    state = 2 * MAX_HEAD_DIM * PITCH_128  # one tile of a head's P x N state
+    return dict(dstate_smem=4 * (TILE * MAX_HEAD_DIM + TILE * MAX_STATE + MAX_CHUNK),
+                scores_smem=2 * (2 * raw * a_tile + 3 * TILE * 4) + 6 * TILE * 4,
+                dbc_part_smem=raw * a_tile + f32 * state + TILE * PITCH_128 * size + 3 * TILE * 4,
+                dbc_sum_smem=4 * (TILE * (TILE + 4) + TILE * MAX_STATE),
+                dx_smem=raw * b_tile + f32 * state + (MAX_CHUNK + 8 + 2 * TILE) * 4)
+
+
 @functools.lru_cache(maxsize=256)
-def plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> Plan:
-    """The call's plan from its shapes (Python ints; nothing on the device is
-    read). Raises ValueError where the kernels' compile-time bounds or a
-    one-dimensional grid refuse the shapes, the forward's bounds among them."""
+def plan(B: int, S: int, H: int, P: int, N: int, chunk: int,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The call's plan from its shapes and the inputs' dtype (nothing on the
+    device is read). Raises ValueError where the kernels' compile-time bounds
+    or a one-dimensional grid refuse the shapes, the forward's bounds among
+    them."""
     f = forward_plan(B, S, H, P, N, chunk)
     Q, nc, nt, n_pairs = f.chunk, f.n_chunks, f.n_tiles, f.n_pairs
     bc, ng = B * nc, -(-H // HEAD_GROUP)
@@ -81,7 +110,7 @@ def plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> Plan:
              dbc_part_floats=2 * bc * nt * ng * TILE * MAX_STATE,
              grad_state_floats=bc * H * P * N,
              partial_floats=2 * bc * n_pairs * H * TILE, row_floats=3 * bc * H * Q,
-             chunk_floats=2 * bc * H)
+             chunk_floats=2 * bc * H, **_smem(dtype))
     if max(p.dx_blocks, p.pass_blocks, p.dstate_blocks, p.scores_blocks,
            p.dbc_part_blocks) > MAX_BLOCKS:
         raise ValueError(f"ssd_scan_bwd_cuda: a grid of more than {MAX_BLOCKS} blocks for "
@@ -122,7 +151,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan_bwd_cuda needs dh_final contiguous (B,H,P,N) f32 on "
                          f"{x.device}, got {tuple(dh_final.shape)} {dh_final.dtype} on "
                          f"{dh_final.device}")
-    p = plan(B, S, H, P, N, chunk)
+    p = plan(B, S, H, P, N, chunk, x.dtype)
     f = forward_plan(B, S, H, P, N, chunk)
     dx, dB, dC = torch.empty_like(x), torch.empty_like(Bmat), torch.empty_like(Cmat)
     ddt, dA = torch.empty_like(dt), torch.empty_like(A)

@@ -301,6 +301,60 @@ def test_ssd_backward_kernel_vs_the_plain_backward(dev, case):
         assert float((g.float() - w.float()).norm() / w.float().norm()) <= 1e-2
 
 
+@pytest.mark.parametrize("dy_scale", [1e3, 1e-3], ids=lambda v: f"dy{v:g}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_at_adversarial_magnitudes(dev, dtype, dy_scale):
+    """A 4x as negative (-4 to -64), so exp(cum) spans hundreds of decades
+    within a chunk and most of L underflows to 0, with dy scaled by 1e3 and
+    1e-3: the operands split into bf16 parts keep every bound of the checks
+    above, and two calls stay bitwise equal."""
+    from repro_torch.kernels import ops, ref, ssd_scan, ssd_scan_bwd
+    B, S, H, P, N, chunk = 2, 300, 8, 64, 128, 256
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(dev, B, S, H, P, N, True, dtype)
+    A = A * 4.0
+    gen = torch.Generator().manual_seed(11)
+    dy = (_randn(gen, x.shape, torch.float32, dev) * dy_scale).to(dtype)
+    dh = _randn(gen, (B, H, P, N), torch.float32, dev)
+    got = _ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                     x, dt, A, Bm, Cm, h0, dy, dh)
+    want = _ssd_grads(lambda *a: ref.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                      x, dt, A, Bm, Cm, h0, dy, dh)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and g.dtype == w.dtype
+        if dtype == torch.float32:
+            assert float((g - w).abs().max()) <= 1e-4 * (1 + float(w.abs().max()))
+        else:
+            assert float((g.float() - w.float()).norm() / w.float().norm()) <= 2e-2
+    _, _, ws = ssd_scan._forward(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    k1 = ssd_scan_bwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                       fwd_workspace=ws)
+    k2 = ssd_scan_bwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
+                                       fwd_workspace=ws)
+    plain = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
+    for a, b, w in zip(k1, k2, plain):
+        assert torch.equal(a, b)
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-4 * (1 + float(w.abs().max()))
+        else:
+            assert float((a.float() - w.float()).norm() / w.float().norm()) <= 1e-2
+
+
+def test_ssd_backward_plan_shared_memory_is_the_kernels(dev):
+    """ssd_scan_bwd.plan's dynamic shared memory per kernel is what the
+    library launches with, for both dtypes."""
+    import ctypes
+    from repro_torch.kernels import _build, ssd_scan_bwd
+    lib, _ = ssd_scan_bwd._fn()
+    fn = lib.ssd_scan_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        got = (ctypes.c_int * 5)()
+        assert fn(_build.DTYPE_CODES[dtype], got) == 0
+        p = ssd_scan_bwd.plan(4, 2048, 64, 64, 128, 256, dtype)
+        assert tuple(got) == (p.dstate_smem, p.scores_smem, p.dbc_part_smem, p.dbc_sum_smem,
+                              p.dx_smem)
+
+
 def _rglru_inputs(dev, B, S, W, with_h0, dtype, seed=4, unit_decay=False):
     gen = torch.Generator().manual_seed(seed)
     x = _randn(gen, (B, S, W), dtype, dev)

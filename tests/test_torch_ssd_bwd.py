@@ -128,26 +128,47 @@ def test_plain_backward_rounds_its_outputs_to_the_input_dtype():
 
 # -- the plan of the backward kernels ----------------------------------------------
 
+# The dynamic shared memory (bytes) of dstate, scores, dbc_part, dbc_sum and dx
+# for bf16 inputs, the same at every shape: f32 tiles of 64 x 64, 64 x 128 and
+# 256 cum (dstate); two stages of dy and x as 64 x 72 bf16 with three rows of
+# 64 floats, 4 x 64 column sums and 2 x 64 row sums (scores); a 64 x 72 bf16 row tile, hi and
+# lo of a 64 x 136 bf16 state, the rows' own C or B as 64 x 136 bf16 and
+# three rows of 64 floats (dbc_part); M 64 x 68 and 64 x 128 rows, f32
+# (dbc_sum);
+# B as 64 x 136 bf16, hi and lo of g as 64 x 136 bf16, 256 cum, 8 warp sums
+# and 2 x 64 row sums (dx).
+BF16_SMEM = (4 * (64 * 64 + 64 * 128 + 256), 2 * (2 * 64 * 72 * 2 + 3 * 64 * 4) + 6 * 64 * 4,
+             64 * 72 * 2 + 2 * 64 * 136 * 2 + 64 * 136 * 2 + 3 * 64 * 4,
+             4 * (64 * 68 + 64 * 128), 64 * 136 * 2 + 2 * 64 * 136 * 2 + (256 + 8 + 128) * 4)
+# f32 inputs split every operand into three bf16 tiles: two more of dy and of
+# x in each stage (scores), of the row tile, one more of the state, and the own
+# rows in f32 (dbc_part), two more of B and one more of g (dx)
+F32_SMEM = (BF16_SMEM[0], BF16_SMEM[1] + 2 * 2 * 2 * 64 * 72 * 2,
+            BF16_SMEM[2] + 2 * 64 * 72 * 2 + 64 * 136 * 2 + 64 * 136 * 2, BF16_SMEM[3],
+            BF16_SMEM[4] + 2 * 64 * 136 * 2 + 64 * 136 * 2)
+
 # (B, S, H, P, N, chunk) -> (chunk run, chunks, tiles, tile pairs, head groups;
 #  dstate, pass, scores, dbc_part, dbc_sum, dx, dt and dA blocks; M, dB/dC part,
-#  state-gradient, partial, row and chunk floats)
+#  state-gradient, partial, row and chunk floats) + BF16_SMEM
 PLANS = {
     # mamba2-1.3b train: 4 sequences of 2048
     (4, 2048, 64, 64, 128, 256): (256, 8, 4, 10, 8, 2048, 8192, 2560, 2048, 256, 8192, 2048,
-                                  1, 10485760, 16777216, 16777216, 2621440, 1572864, 4096),
+                                  1, 10485760, 16777216, 16777216, 2621440, 1572864, 4096)
+                                 + BF16_SMEM,
     # chip_smoke.py's SSD backward checks
     (2, 300, 8, 64, 128, 256): (256, 2, 4, 10, 1, 32, 512, 40, 32, 32, 128, 32, 1,
-                                163840, 262144, 262144, 40960, 24576, 64),
+                                163840, 262144, 262144, 40960, 24576, 64) + BF16_SMEM,
     (2, 37, 3, 8, 16, 8): (8, 5, 1, 1, 1, 30, 3, 10, 20, 20, 30, 30, 1,
-                           40960, 163840, 3840, 3840, 720, 60),
+                           40960, 163840, 3840, 3840, 720, 60) + BF16_SMEM,
     (2, 40, 3, 16, 32, 1): (1, 40, 1, 1, 1, 240, 12, 80, 160, 160, 240, 240, 1,
-                            327680, 1310720, 122880, 30720, 720, 480),
+                            327680, 1310720, 122880, 30720, 720, 480) + BF16_SMEM,
     (1, 1024, 4, 64, 128, 128): (128, 8, 2, 3, 1, 32, 128, 24, 32, 32, 64, 32, 1,
-                                 98304, 262144, 262144, 12288, 12288, 64),
+                                 98304, 262144, 262144, 12288, 12288, 64) + BF16_SMEM,
     # the smoke config trained on the CPU: 2 sequences of 32
     (2, 32, 8, 16, 16, 8): (8, 4, 1, 1, 1, 64, 16, 8, 16, 16, 64, 64, 1,
-                            32768, 131072, 16384, 8192, 1536, 128),
+                            32768, 131072, 16384, 8192, 1536, 128) + BF16_SMEM,
 }
+SMEM_FIELDS = ("dstate_smem", "scores_smem", "dbc_part_smem", "dbc_sum_smem", "dx_smem")
 
 
 @pytest.mark.parametrize("shape", list(PLANS), ids=lambda s: "-".join(map(str, s)))
@@ -171,6 +192,17 @@ def test_backward_plan_at_the_train_shape_follows_the_config():
     # the 64 heads' sums for M and for dB and dC run over 8 groups of 8: a
     # part per group (not per head), 8 x the blocks of one group of 64
     assert p.n_groups == 8 and p.dbc_part_blocks == 8 * p.dbc_sum_blocks == 8 * 2 * 4 * 32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", list(PLANS), ids=lambda s: "-".join(map(str, s)))
+def test_backward_plan_shared_memory_fits_a_block_at_every_shape(shape, dtype):
+    p = tbwd.plan(*shape, dtype)
+    smem = tuple(getattr(p, f) for f in SMEM_FIELDS)
+    assert smem == (BF16_SMEM if dtype == torch.bfloat16 else F32_SMEM)
+    assert all(0 < b <= 232448 for b in smem)  # the H100's shared memory a block
+    # the grids and the workspace do not depend on the dtype
+    assert tuple(p)[:-5] == tuple(tbwd.plan(*shape))[:-5]
 
 
 @pytest.mark.parametrize("shape", [
