@@ -16,7 +16,10 @@ Phases, each printed as one JSON object per line:
    RMS of 1e-2 in bf16 (5e-4 in f32); the cases include each serve shape,
    ragged S and W, a non-zero h0 (carried by the SSD scan across 8 chunks
    too), an SSD chunk of 1, group 16 at head_dim 256, a window that
-   cuts keys, and flash at head_dim 80 and 96 (run on the head_dim 128
+   cuts keys (mixtral-8x7b's: 4096 at head_dim 128 over S 4608), GQA
+   groups 3, 4 and 5 at head_dim 128 (the plain attention in blocks of
+   query rows where its scores would not fit), and flash at head_dim 80
+   and 96 (run on the head_dim 128
    body with zero columns) with ragged Sq and Skv under q_offset; decode
    at groups 1 to 16, rows of len 0 (exactly 0), 1, a key either side of a
    64-key tile edge and C, C not a multiple of the tile, and head_dim 24
@@ -54,16 +57,25 @@ Phases, each printed as one JSON object per line:
    shape, and adversarial magnitudes (A 4x as negative, dy scaled by 1e3 and
    by 1e-3; the kernels split the f32 operands of their tensor-core products
    into bf16 parts);
-4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, each at full width
-   with random weights from seed 0 — serve: 8 requests in batches of 4, 32
-   generated tokens, greedy, through repro_torch.launch.serve, with every
-   launch counter set to 0 just before and read just after: the counts must
-   be exactly those of EXPECTED and the plain-version counter 0;
-   serve_vs_plain: prefill and teacher-forced decode logits with the kernels
-   against the same model on the plain versions, on the card, in bf16 and
-   f32 (recurrentgemma-9b's f32 copy keeps one pattern unit and the tail);
+4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, granite-8b,
+   phi4-mini-3.8b, llama3.2-3b, mixtral-8x7b (16 of 32 layers) and
+   llama4-maverick-400b-a17b (2 of 48 layers: one dense and one MoE layer),
+   each at full width with random weights from seed 0, its params freed
+   before the next — serve: 8 requests in batches of 4, 32 generated tokens,
+   greedy, through repro_torch.launch.serve, with every launch counter set
+   to 0 just before and read just after: the counts must be exactly those of
+   EXPECTED and the plain-version counter 0; the peak device memory since
+   the params were made;
    trace: device busy and idle share of one prefill and of decode steps,
    and the decode kernels' and the SSD scan's share of them;
+   serve_vs_plain: prefill and teacher-forced decode logits with the kernels
+   against the same model on the plain versions (attention in blocks of
+   query rows where its scores would not fit; in MoE layers the plain run
+   takes the kernels' run's expert choices, as decode takes its tokens, and
+   counts the tokens whose own choice differs), on the card, in bf16 and then,
+   the served params freed, in f32 (recurrentgemma-9b's f32 copy keeps one
+   pattern unit and the tail, mixtral-8x7b's 4 layers; llama4-maverick's
+   does not fit, and its f32 check is the kernels' at its shapes);
 5. train: TrainerRuntime on qwen3-1.7b at full width, bf16, random weights
    from seed 0, 8 steps of 4 x 2048 tokens, once fed by the bypass
    dataplane and once by the kernel-stack feed, on the same batches, each
@@ -110,6 +122,7 @@ and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -171,21 +184,41 @@ SSD_BWD_VS_PLAIN_BF16_REL_RMS = 1e-2
 RGLRU_KERNELS = "rglru_scan_"  # the name part of the RG-LRU scan's three kernels
 RGLRU_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
-PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072}
+# mixtral-8x7b's prompt passes its 4096-token window, so prefill rotates the
+# ring cache and every decode step overwrites its oldest slot
+PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072,
+          "granite-8b": 512, "phi4-mini-3.8b": 512, "llama3.2-3b": 512,
+          "mixtral-8x7b": 4608, "llama4-maverick-400b-a17b": 512}
+# depth cuts of the archs whose weights do not fit the card (width is never
+# cut): mixtral-8x7b's 32 layers are 93.4 GB in bf16, 16 are about 47 GB;
+# llama4-maverick keeps one (dense, MoE) unit, about 37 GB (the 128 experts of
+# one MoE layer are 32 GB)
+DEPTH = {"mixtral-8x7b": 16, "llama4-maverick-400b-a17b": 2}
 EXPECTED = {  # exact launches of one serve run; every other counter must read 0
     "qwen3-1.7b": {"flash_attention": 56, "decode_attention": 1792},
     "mamba2-1.3b": {"ssd_scan": 96},
     "recurrentgemma-9b": {"rglru_scan": 52, "flash_attention": 24, "decode_attention": 768},
+    "granite-8b": {"flash_attention": 72, "decode_attention": 2304},
+    "phi4-mini-3.8b": {"flash_attention": 64, "decode_attention": 2048},
+    "llama3.2-3b": {"flash_attention": 56, "decode_attention": 1792},
+    "mixtral-8x7b": {"flash_attention": 32, "decode_attention": 1024},
+    "llama4-maverick-400b-a17b": {"flash_attention": 4, "decode_attention": 128},
 }
 # plain vs kernel serving in bf16: relative RMS of the logit difference. Both
 # sides compute in f32 and round to bf16, but at other points, so bf16
 # rounding flips feed every layer of random weights; the bound is about twice
 # that noise as measured on the card (0.029 qwen3 over 28 layers; 0.040
 # mamba2 over 48, whose plain SSD also rounds its dot inputs to bf16 where
-# the kernel does not; 0.037 recurrentgemma over 38), while a wrong mask,
-# head, slot or decay moves the logits by order 100%. f32 is the tight check
+# the kernel does not; 0.037 recurrentgemma over 38; 0.053 granite over 36,
+# 0.044 phi4-mini over 32, 0.042 llama3.2 over 28; 0.051 mixtral over 16 and
+# 0.011 llama4-maverick over 2, each with the plain run's expert choices
+# forced to the kernels' run: left free, 5.6% of mixtral's routed tokens
+# flip their top 2 and its relative RMS is 0.33), while a wrong mask, head,
+# slot or decay moves the logits by order 100%. f32 is the tight check
 # (summation order only).
-SERVE_BF16_REL_RMS = {"qwen3-1.7b": 0.05, "mamba2-1.3b": 0.08, "recurrentgemma-9b": 0.08}
+SERVE_BF16_REL_RMS = {"qwen3-1.7b": 0.05, "mamba2-1.3b": 0.08, "recurrentgemma-9b": 0.08,
+                      "granite-8b": 0.1, "phi4-mini-3.8b": 0.09, "llama3.2-3b": 0.08,
+                      "mixtral-8x7b": 0.1, "llama4-maverick-400b-a17b": 0.02}
 SERVE_F32_ABS = 1e-3
 
 
@@ -324,8 +357,16 @@ FLASH_CASES = [
     (1, 100, 161, 4, 2, 96, True, 0, 61),     # Dh 96, ragged Sq and Skv under q_offset
     (4, 512, 512, 16, 8, 128, True, 0, 0),    # qwen3-1.7b prefill, full width
     (4, 3072, 3072, 16, 1, 256, True, 2048, 0),  # recurrentgemma-9b prefill: window cuts keys
+    (4, 512, 512, 32, 8, 128, True, 0, 0),    # granite-8b prefill: group 4
+    (4, 512, 512, 24, 8, 128, True, 0, 0),    # phi4-mini-3.8b, llama3.2-3b prefill: group 3
+    (4, 512, 512, 40, 8, 128, True, 0, 0),    # llama4-maverick prefill: group 5
+    (4, 4608, 4608, 32, 8, 128, True, 4096, 0),  # mixtral-8x7b prefill: window 4096 < S
 ]
-FLASH_SERVE = {"qwen3-1.7b": FLASH_CASES[-2], "recurrentgemma-9b": FLASH_CASES[-1]}
+DIGEST_CASES = 15  # forward_digest's cases: those it covered when first recorded
+FLASH_SERVE = {"qwen3-1.7b": FLASH_CASES[13], "recurrentgemma-9b": FLASH_CASES[14],
+               "granite-8b": FLASH_CASES[15], "phi4-mini-3.8b": FLASH_CASES[16],
+               "llama3.2-3b": FLASH_CASES[16], "llama4-maverick-400b-a17b": FLASH_CASES[17],
+               "mixtral-8x7b": FLASH_CASES[18]}
 DECODE_CASES = [
     # B, C, H, Hkv, Dh, cache_len
     (4, 300, 4, 2, 64, (0, 1, 300, 157)),
@@ -339,8 +380,15 @@ DECODE_CASES = [
     (2, 200, 16, 1, 20, (200, 65)),           # Dh 20: the FMA body in bf16 too
     (4, 544, 16, 8, 128, (1, 200, 544, 377)),  # qwen3-1.7b decode, full width
     (4, 2048, 16, 1, 256, (2048, 2048, 1000, 0)),  # recurrentgemma-9b: group 16, full ring
+    (4, 544, 32, 8, 128, (1, 200, 544, 377)),  # granite-8b: group 4
+    (4, 544, 24, 8, 128, (1, 200, 544, 377)),  # phi4-mini-3.8b, llama3.2-3b: group 3
+    (4, 544, 40, 8, 128, (1, 200, 544, 377)),  # llama4-maverick: group 5
+    (4, 4096, 32, 8, 128, (4096, 4096, 4096, 4096)),  # mixtral-8x7b: group 4, full ring
 ]
-DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[-2], "recurrentgemma-9b": DECODE_CASES[-1]}
+DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[9], "recurrentgemma-9b": DECODE_CASES[10],
+                "granite-8b": DECODE_CASES[11], "phi4-mini-3.8b": DECODE_CASES[12],
+                "llama3.2-3b": DECODE_CASES[12], "llama4-maverick-400b-a17b": DECODE_CASES[13],
+                "mixtral-8x7b": DECODE_CASES[14]}
 SSD_CASES = [
     # B, S, H, P, N, chunk, h0
     (4, 2048, 64, 64, 128, 256, False),       # mamba2-1.3b prefill, full width
@@ -400,6 +448,24 @@ def rglru_inputs(case, dtype, dev, seed=0):
     return x, a_log, h0
 
 
+PLAIN_SCORES = 1 << 29  # f32 scores per plain attention call: 2 GiB
+
+
+def plain_mha(q, k, v, **kw):
+    """ref.mha, in blocks of query rows (each under its own q_offset) so that
+    no call holds more than PLAIN_SCORES f32 scores: the same function, in
+    memory beside mixtral-8x7b's weights (its whole prefill's scores are
+    10.9 GB, and the softmax copies them)."""
+    from repro_torch.kernels import ref
+    B, Sq, H, _ = q.shape
+    rows = max(1, PLAIN_SCORES // (B * H * k.shape[1]))
+    if rows >= Sq:
+        return ref.mha(q, k, v, **kw)
+    q_offset = kw.pop("q_offset", 0)
+    return torch.cat([ref.mha(q[:, i:i + rows], k, v, q_offset=q_offset + i, **kw)
+                      for i in range(0, Sq, rows)], dim=1)
+
+
 def _check(kernel, case, dtype, out, ok, msg):
     emit("check", {"kernel": kernel, "case": case, "dtype": str(dtype), **out, "ok": ok})
     if not ok:
@@ -417,7 +483,7 @@ def run_checks(dev):
             causal, window, q_offset = case[6:]
             q, k, v = flash_inputs(case, dtype, dev)
             got = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
-            want = ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
+            want = plain_mha(q, k, v, causal=causal, window=window, q_offset=q_offset)
             torch.cuda.synchronize()
             err, ok = max_err(got, want, tol)
             out = {"max_abs_err": err, "tol": tol}
@@ -492,12 +558,13 @@ def run_checks(dev):
 
 def forward_digest(dev):
     """sha256 over the bytes of the flash forward's output and logsumexp, f32
-    and bf16, at every FLASH_CASES entry and the train shape: two trees whose
-    digests agree on one card compute bitwise-equal forwards."""
+    and bf16, at the first DIGEST_CASES of FLASH_CASES and the train shape:
+    two trees whose digests agree on one card compute bitwise-equal
+    forwards."""
     import hashlib
     from repro_torch.kernels import flash_attention as kflash
     h = hashlib.sha256()
-    cases = FLASH_CASES + [FLASH_TRAIN]
+    cases = FLASH_CASES[:DIGEST_CASES] + [FLASH_TRAIN]
     for case in cases:
         causal, window, q_offset = case[6:]
         for dtype in (torch.float32, torch.bfloat16):
@@ -838,7 +905,8 @@ def run_serve(cfg, params, dev, card):
     n_batches = -(-SERVE["requests"] // SERVE["batch"])
     ms = 1e-6
     out = {
-        "card": card, "arch": cfg.arch_id, "params": cfg.param_count(),
+        "card": card, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "requests": SERVE["requests"], **kw,
         "ttft_ms_median": res["ttft"].median_ns * ms, "ttft_ms_p99": res["ttft"].p99_ns * ms,
         "tpot_ms_median": res["tpot"].median_ns * ms, "tpot_ms_p99": res["tpot"].p99_ns * ms,
@@ -868,8 +936,8 @@ class plain_kernels:
         self.ops, self.saved = ops, {n: getattr(ops, n) for n in self.NAMES}
 
         def flash(q, k, v, *, causal=True, window=0, q_offset=0, softmax_scale=None):
-            return ref.mha(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                           softmax_scale=softmax_scale)
+            return plain_mha(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                             softmax_scale=softmax_scale)
 
         def decode(q, kc, vc, cl, *, softmax_scale=None):
             return ref.decode_attention(q, kc, vc, cl, softmax_scale=softmax_scale)
@@ -913,54 +981,105 @@ def _cast_tree(node, dtype):
     return node.to(dtype)
 
 
+# the layers of the transformer archs' f32 copies that are cut to fit the
+# card alone, at full width: mixtral-8x7b keeps 4 of its 16 served layers
+# (23.6 GB); llama4-maverick's one unit is 66 GB in f32 and does not fit
+# beside its activations, so its f32 check is the kernels' at its attention
+# shapes (run_checks)
+F32_LAYERS = {"mixtral-8x7b": 4, "llama4-maverick-400b-a17b": 0}
+
+
 def f32_copy(cfg, params):
-    """An f32 copy of the served model. recurrentgemma-9b (35 GB in f32) keeps
-    its first pattern unit and the tail: full width, 5 of 38 layers."""
+    """(config, params) of an f32 copy of the served model, or (None, None)
+    where none fits. recurrentgemma-9b (35 GB in f32) keeps its first pattern
+    unit and the tail (5 of 38 layers), the transformer archs the layers
+    F32_LAYERS says, the others all."""
+    n = F32_LAYERS.get(cfg.arch_id)
+    if n == 0:
+        return None, None
     c = cfg.replace(param_dtype="float32", compute_dtype="float32")
     p = params
     if cfg.family == "hybrid":
         c = c.replace(n_layers=len(cfg.block_pattern) + len(params["backbone"]["tail"]))
-        unit0 = [{k: _slice0(v) for k, v in u.items()} for u in params["backbone"]["units"]]
+        unit0 = [_slice(u, 1) for u in params["backbone"]["units"]]
         p = {**params, "backbone": {"units": unit0, "tail": params["backbone"]["tail"]}}
+    elif n is not None:  # a transformer: whole units of its stacked layers
+        c = c.replace(n_layers=n)
+        units = [_slice(u, n // len(params["backbone"]["units"]))
+                 for u in params["backbone"]["units"]]
+        p = {**params, "backbone": {"units": units}}
     return c, _cast_tree(p, torch.float32)
 
 
-def _slice0(node):
-    return {k: _slice0(v) for k, v in node.items()} if isinstance(node, dict) else node[:1]
+def _slice(node, n):
+    return {k: _slice(v, n) for k, v in node.items()} if isinstance(node, dict) else node[:n]
 
 
-def run_serve_vs_plain(cfg, params, dev, steps=4):
-    gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[cfg.arch_id]),
-                           generator=gen).to(dev)
-    out = {"arch": cfg.arch_id}
-    for name in ("bfloat16", "float32"):
-        c, p = (cfg, params) if name == "bfloat16" else f32_copy(cfg, params)
-        kern, toks = logits_run(c, p, prompt, steps)
-        with plain_kernels():
-            plain, _ = logits_run(c, p, prompt, steps, forced=toks)
-        del p
-        diff = kern - plain
-        rr = float(diff.norm() / plain.norm())
-        max_abs = float(diff.abs().max())
-        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-        bf16_bound = SERVE_BF16_REL_RMS[cfg.arch_id]
-        ok = bool(torch.isfinite(kern).all()) and (
-            rr <= bf16_bound if name == "bfloat16" else max_abs <= SERVE_F32_ABS)
-        out[name] = {"n_layers": c.n_layers,
-                     "prefill_max_abs": float(diff[0].abs().max()),
-                     "decode_max_abs": float(diff[1:].abs().max()),
-                     "max_abs": max_abs, "rel_rms": rr, "argmax_agree": agree,
-                     "max_abs_logit": float(plain.abs().max()), "decode_steps": steps,
-                     "bound": ({"rel_rms": bf16_bound} if name == "bfloat16"
-                               else {"max_abs": SERVE_F32_ABS}), "ok": ok}
-        del kern, plain, diff
-        torch.cuda.empty_cache()
-        if not ok:
-            emit("serve_vs_plain", out)
-            fail(f"{cfg.arch_id}: serving with kernels disagrees with the plain versions "
-                 f"in {name}: {out[name]}")
-    emit("serve_vs_plain", out)
+class forced_experts:
+    """Teacher forcing of the MoE layers' expert choices, as logits_run's
+    ``forced`` tokens are of the decode inputs. In ``mode(replay=False)``
+    moe.route keeps each call's chosen experts; in ``mode(replay=True)`` each
+    call, in the same order, takes the recorded ones in place of its own top
+    k (its combine weights the softmax of its own logits at them) and counts
+    the tokens whose own top k differs. bf16 rounding flips a near tie of two
+    experts' logits and sends that token through another expert, which moves
+    its logits by order 100% and says nothing of the kernels."""
+
+    def __init__(self):
+        self.choices, self.flipped, self.tokens = [], 0, 0
+
+    @contextlib.contextmanager
+    def mode(self, replay):
+        from repro_torch.models import moe
+        route, recorded = moe.route, iter(self.choices)
+
+        def forced(cfg, router, x2d):
+            idx, weights, aux = route(cfg, router, x2d)
+            if not replay:
+                self.choices.append(idx)
+                return idx, weights, aux
+            want = next(recorded)
+            self.flipped += int((idx != want).any(dim=-1).sum())
+            self.tokens += idx.shape[0]
+            logits = x2d.float() @ router.float()
+            return want, torch.softmax(logits.gather(1, want), dim=-1), aux
+        moe.route = forced
+        try:
+            yield
+        finally:
+            moe.route = route
+
+
+def serve_vs_plain(cfg, params, prompt, steps=4):
+    """Prefill and ``steps`` decode steps with the kernels against the same
+    model on the plain versions (teacher-forced by the kernels' tokens and,
+    in MoE layers, expert choices), in the config's dtype: bf16 within
+    SERVE_BF16_REL_RMS, f32 within SERVE_F32_ABS."""
+    experts = forced_experts()
+    with experts.mode(replay=False):
+        kern, toks = logits_run(cfg, params, prompt, steps)
+    with plain_kernels(), experts.mode(replay=True):
+        plain, _ = logits_run(cfg, params, prompt, steps, forced=toks)
+    diff = kern - plain
+    rr = float(diff.norm() / plain.norm())
+    max_abs = float(diff.abs().max())
+    bf16 = cfg.param_dtype == "bfloat16"
+    bound = {"rel_rms": SERVE_BF16_REL_RMS[cfg.arch_id]} if bf16 else {"max_abs": SERVE_F32_ABS}
+    ok = bool(torch.isfinite(kern).all()) and (
+        rr <= bound["rel_rms"] if bf16 else max_abs <= SERVE_F32_ABS)
+    out = {"n_layers": cfg.n_layers, "prefill_max_abs": float(diff[0].abs().max()),
+           "decode_max_abs": float(diff[1:].abs().max()), "max_abs": max_abs, "rel_rms": rr,
+           # per step: a routing flip moves whole tokens' logits
+           "rel_rms_per_step": [float(d.norm() / p.norm()) for d, p in zip(diff, plain)],
+           "argmax_agree": float((kern.argmax(-1) == plain.argmax(-1)).float().mean()),
+           "max_abs_logit": float(plain.abs().max()), "decode_steps": steps,
+           # routed tokens (over all MoE layers and calls) whose own top k
+           # differs from the kernels' run, which the plain run was forced to
+           "expert_flips": {"tokens": experts.tokens, "flipped": experts.flipped},
+           "bound": bound, "ok": ok}
+    del kern, plain, diff
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1334,8 +1453,8 @@ def time_flash(arch, launches, errs, card, dev):
     ms = time_ms(kern, iters=20 if window else 50)
     return _row("flash_attention", arch, launches, errs, card,
                 ms=ms, flops=flops, tflop_per_s=flops / ms / 1e9,
-                plain_ms=time_ms(lambda: ref.mha(q, k, v, causal=causal, window=window,
-                                                 softmax_scale=scale), iters=3, warmup=1),
+                plain_ms=time_ms(lambda: plain_mha(q, k, v, causal=causal, window=window,
+                                                   softmax_scale=scale), iters=3, warmup=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=20),
                 library="scaled_dot_product_attention" + (" with a window mask" if window else ""),
                 library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
@@ -1696,6 +1815,9 @@ def run_times(launches, errs, card, dev):
             time_rglru(launches, errs, card, dev),
             time_flash("recurrentgemma-9b", launches, errs, card, dev),
             time_decode("recurrentgemma-9b", launches, errs, card, dev),
+            time_flash("mixtral-8x7b", launches, errs, card, dev),
+            time_decode("phi4-mini-3.8b", launches, errs, card, dev),
+            time_decode("llama4-maverick-400b-a17b", launches, errs, card, dev),
             time_flash(TRAIN_LABEL, launches, errs, card, dev),
             time_flash_bwd(launches, errs, card, dev),
             time_ssd_bwd(launches, errs, card, dev),
@@ -1720,6 +1842,10 @@ def run_times(launches, errs, card, dev):
          "hbm_gb_per_s": HBM_BYTES_PER_S / 1e9, "card": r["card"]}
         for r in rows if r["name"].startswith("decode_attention (")])
     for r in rows:
+        # the kernel's launches on every main path of this run
+        kernel = r["name"].split(" (")[0]
+        r["launches_all_paths"] = {path: n[kernel] for path, n in launches.items()
+                                   if n.get(kernel)}
         emit("time", r)
         # a yardstick must compute the kernel's function on the same inputs
         agree = r.get("library_vs_kernel_max_abs", r.get("library_vs_kernel_rel_rms"))
@@ -1729,18 +1855,36 @@ def run_times(launches, errs, card, dev):
 
 
 def run_arch(arch, dev, card):
-    """Serve, serve_vs_plain and trace for one arch at full width; returns
-    the serve run's launch counts."""
+    """Serve, trace and serve_vs_plain for one arch at full width (depth cut
+    where DEPTH says); returns the serve run's launch counts. The served
+    params are freed before the f32 copy is run, and before the next arch."""
     from repro_torch.launch import serve
     from repro_torch.models.registry import get_config
     cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = cfg.replace(n_layers=DEPTH[arch])
     torch.cuda.reset_peak_memory_stats(dev)
     params = serve.init_params(cfg, SERVE["seed"], dev)
     served = run_serve(cfg, params, dev, card)
-    run_serve_vs_plain(cfg, params, dev)
     run_trace(cfg, params, dev)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[arch]),
+                           generator=gen).to(dev)
+    out = {"arch": arch, "bfloat16": serve_vs_plain(cfg, params, prompt)}
+    c32, p32 = f32_copy(cfg, params)
     del params
     torch.cuda.empty_cache()
+    if out["bfloat16"]["ok"]:
+        out["float32"] = (serve_vs_plain(c32, p32, prompt) if c32 is not None else
+                          {"ok": True, "not_run": "no f32 copy fits the card; its kernels "
+                           "are checked in f32 at this arch's shapes (check)"})
+    del p32
+    torch.cuda.empty_cache()
+    emit("serve_vs_plain", out)
+    for name in ("bfloat16", "float32"):
+        if name in out and not out[name]["ok"]:
+            fail(f"{arch}: serving with kernels disagrees with the plain versions in {name}: "
+                 f"{out[name]}")
     return served["launches"]
 
 

@@ -1,0 +1,28 @@
+"""phi4-mini-3.8b [dense] 32L d3072 24H GQA-8 ff8192 v200064 (RoPE SwiGLU GQA)
+[arXiv:2412.08905] — the assigned config and its reduced smoke config
+(copies of the reference's)."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    parallel_layout='fsdp',
+    arch_id='phi4-mini-3.8b',
+    family='dense',
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=200064,
+    rope_theta=10000.0,
+    tie_embeddings=True,)
+
+SMOKE_CONFIG = ModelConfig(
+    arch_id='phi4-mini-3.8b',
+    family='dense',
+    tie_embeddings=True,
+    n_layers=4,
+    d_model=60,
+    n_heads=6,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=512,)

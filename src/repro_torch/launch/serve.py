@@ -4,7 +4,9 @@ latency, on one CUDA device (or, when asked, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 8 --batch 4 --prompt-len 512 --gen-len 32
 
-``--arch`` takes the ported ids: qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b.
+``--arch`` takes the ported ids: qwen3-1.7b, granite-8b, phi4-mini-3.8b,
+llama3.2-3b (dense), mixtral-8x7b, llama4-maverick-400b-a17b (moe, the local
+path: no expert sharding), mamba2-1.3b (ssm), recurrentgemma-9b (hybrid).
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the

@@ -96,29 +96,63 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # -- parameter counting, as the JAX package counts ------------------------
     def param_count(self) -> int:
-        """Parameters of a dense, hybrid or ssm config (the families this port
-        serves), counted as the JAX package counts them."""
-        D, F, V = self.d_model, self.d_ff, self.vocab_size
-        total = V * D + (0 if self.tie_embeddings else V * D) + D
-        attn = (D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
-                + (2 * self.head_dim if self.qk_norm else 0) + 2 * D)
-        mlp = 3 * D * F if self.act == "silu" else 2 * D * F
-        if self.family == "dense":
-            return total + self.n_layers * (attn + mlp)
-        if self.family == "ssm":
-            # in_proj (D -> 2*d_inner + 2*N + H), conv, A/dt_bias/D, norm, out_proj
-            d_in, H, N = self.d_inner, self.n_ssm_heads, self.ssm_state
-            in_proj = D * (2 * d_in + 2 * N + H)
-            conv = self.conv_width * (d_in + 2 * N)
-            return total + self.n_layers * (in_proj + conv + 2 * H + d_in + d_in * D + D)
-        if self.family == "hybrid":
-            W = self.lru_width
-            rglru = (D * W * 2 + self.conv_width * W + 2 * W * W // 8 + W * D
-                     + 2 * W + 2 * D)
-            pat = self.block_pattern
-            n_rec = sum(1 for i in range(self.n_layers) if pat[i % len(pat)] == "rglru")
-            n_att = self.n_layers - n_rec
-            return total + n_rec * (rglru + mlp + D) + n_att * (attn + mlp + D)
-        raise NotImplementedError(
-            f"param_count covers the dense, hybrid and ssm families, not {self.family!r}")
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters one token passes through: an MoE layer counts its
+        ``experts_per_token`` routed experts, not all of them."""
+        return _param_count(self, active_only=True)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    emb = V * D
+    out_head = 0 if cfg.tie_embeddings else V * D
+    total = emb + out_head + D  # final norm
+
+    def attn_params() -> int:
+        return D * cfg.q_dim + 2 * D * cfg.kv_dim + cfg.q_dim * D + (
+            2 * cfg.head_dim if cfg.qk_norm else 0
+        ) + 2 * D  # two norms per block
+
+    def mlp_params(f: int) -> int:
+        if cfg.act == "silu":
+            return 3 * D * f
+        return 2 * D * f
+
+    if cfg.family == "ssm":
+        # mamba2: in_proj (D -> 2*d_inner + 2*G*N + H), conv, A/D, norm, out_proj
+        d_in = cfg.d_inner
+        H = cfg.n_ssm_heads
+        G = 1  # single B/C group
+        in_proj = D * (2 * d_in + 2 * G * cfg.ssm_state + H)
+        conv = cfg.conv_width * (d_in + 2 * G * cfg.ssm_state)
+        per_layer = in_proj + conv + 2 * H + d_in + d_in * D + D
+        total += cfg.n_layers * per_layer
+        return total
+
+    if cfg.family == "hybrid":
+        W = cfg.lru_width
+        # RG-LRU block: in projs (2), conv, gates (2 diag-ish dense), out proj
+        rglru = D * W * 2 + cfg.conv_width * W + 2 * W * W // 8 + W * D + 2 * W + 2 * D
+        attn = attn_params()
+        mlp = mlp_params(F) + D
+        n_rec = sum(1 for i in range(cfg.n_layers)
+                    if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru")
+        n_att = cfg.n_layers - n_rec
+        total += n_rec * (rglru + mlp) + n_att * (attn + mlp)
+        return total
+
+    for layer in range(cfg.n_layers):
+        total += attn_params()
+        is_moe = cfg.n_experts > 0 and (layer % cfg.moe_every == cfg.moe_every - 1)
+        if is_moe:
+            router = D * cfg.n_experts
+            experts = cfg.n_experts if not active_only else cfg.experts_per_token
+            total += router + experts * mlp_params(F)
+            total += cfg.n_shared_experts * mlp_params(F)
+        else:
+            total += mlp_params(F)
+    return total

@@ -11,7 +11,7 @@ plain matrix products; attention goes through ``kernels.ops``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +37,35 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
             * scale).to(dtype)
 
 
-def stack_layers(layers: List[Params]) -> Params:
-    """Stack per-layer param (or cache) dicts: every leaf gets a leading axis."""
-    return {k: stack_layers([l[k] for l in layers]) if isinstance(layers[0][k], dict)
-            else torch.stack([l[k] for l in layers]) for k in layers[0]}
+def init_stacked(n: int, make: Callable[[], Params]) -> Params:
+    """n layers from ``make()`` stacked: every leaf gets a leading (n,) axis.
+    The n layers and their stack are never held at once: each layer is copied
+    into the stacked leaves as soon as it is made, so the peak is the stack
+    and one layer (mixtral-8x7b's 16 layers are 45 GB in bf16), and a stack
+    of one is the layer itself (llama4-maverick's one MoE layer is 32 GB)."""
+    def alloc(t):
+        return ({k: alloc(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.new_empty((n, *t.shape)))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    def views(t):
+        return {k: views(v) for k, v in t.items()} if isinstance(t, dict) else t[None]
+
+    first = make()
+    if n == 1:  # a leading axis on the one layer's leaves: no copy
+        return views(first)
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 def layer_of(stacked: Params, i: int) -> Params:
@@ -212,10 +237,13 @@ def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
 # MLP (SwiGLU)
 # =============================================================================
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
+             d_ff: Optional[int] = None) -> Params:
+    """``d_ff`` defaults to the config's (an MoE layer's shared expert passes
+    ``n_shared_experts · d_ff``)."""
     if cfg.act != "silu":
         raise NotImplementedError(f"act {cfg.act!r} is not ported yet (ROADMAP.md)")
-    D, Fd = cfg.d_model, cfg.d_ff
+    D, Fd = cfg.d_model, cfg.d_ff if d_ff is None else d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
         "w_gate": _normal(gen, (D, Fd), 0.02, dt(cfg), device),

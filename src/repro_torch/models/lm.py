@@ -1,5 +1,5 @@
-"""LM facade, ``tokens`` frontend: serving over the dense, hybrid and ssm
-families, training over the dense and ssm families.
+"""LM facade, ``tokens`` frontend: serving over the dense, moe, hybrid and
+ssm families, training over the dense and ssm families.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
 * ``train_loss(cfg, params, batch)`` — scalar loss + metrics (dense and ssm)
@@ -30,6 +30,7 @@ from .layers import (
 
 _FAMILY = {
     "dense": transformer,
+    "moe": transformer,
     "hybrid": rglru,
     "ssm": mamba2,
 }
@@ -63,8 +64,8 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     """Mean next-token cross-entropy of ``batch`` {"tokens", "labels"} (B,S)
     (labels -100 ignored), with per-layer recompute. Returns (loss, {loss,
     xent, aux, tokens}), f32 scalars. The dense and ssm families train: the
-    hybrid family needs a backward kernel for its RG-LRU scan, and moe,
-    encoder and vlm are not ported (ROADMAP.md)."""
+    hybrid family needs a backward kernel for its RG-LRU scan, moe training
+    is a later slice, and encoder and vlm are not ported (ROADMAP.md)."""
     _check_frontend(cfg)
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(

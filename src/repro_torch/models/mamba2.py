@@ -17,8 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
-from .layers import (Params, _normal, apply_norm, cdt, dt, init_norm, layer_of,
-                     stack_layers)
+from .layers import (Params, _normal, apply_norm, cdt, dt, init_norm, init_stacked,
+                     layer_of)
 
 N_GROUPS = 1  # single B/C group (mamba2-1.3b default)
 
@@ -44,8 +44,8 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
-    return {"blocks": stack_layers([init_block(cfg, gen, device) for _ in range(cfg.n_layers)]),
-            "norms": stack_layers([init_norm(cfg, device) for _ in range(cfg.n_layers)])}
+    return {"blocks": init_stacked(cfg.n_layers, lambda: init_block(cfg, gen, device)),
+            "norms": init_stacked(cfg.n_layers, lambda: init_norm(cfg, device))}
 
 
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):

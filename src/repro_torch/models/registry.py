@@ -11,6 +11,11 @@ ARCHS: Dict[str, str] = {
     "qwen3-1.7b": "qwen3_1p7b",
     "mamba2-1.3b": "mamba2_1p3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "granite-8b": "granite_8b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "llama3.2-3b": "llama3p2_3b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 

@@ -35,8 +35,8 @@ from .layers import (
     init_attention,
     init_mlp,
     init_norm,
+    init_stacked,
     layer_of,
-    stack_layers,
 )
 
 N_DIAG_BLOCKS = 8  # RG-LRU gate matrices are block-diagonal (Griffin §2.4)
@@ -155,8 +155,7 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, device, kind: str) -> Par
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     return {
-        "units": [stack_layers([init_layer(cfg, gen, device, kind)
-                                for _ in range(_n_units(cfg))])
+        "units": [init_stacked(_n_units(cfg), lambda: init_layer(cfg, gen, device, kind))
                   for kind in cfg.block_pattern],
         "tail": [init_layer(cfg, gen, device, kind) for kind in _tail_kinds(cfg)],
     }

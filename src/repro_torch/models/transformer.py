@@ -1,17 +1,22 @@
-"""Dense decoder stack: stacked per-layer params, the train forward and the
-serve path.
+"""Decoder stack with optional interleaved MoE FFNs: stacked per-layer params,
+the train forward and the serve path.
 
-Params keep the JAX layout: ``{"units": [unit_params]}`` where every leaf has
-a leading ``(n_units,)`` axis (for the dense family a unit is one layer), and
-the KV cache is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``.
+Covers the dense archs (qwen3-1.7b, granite-8b, phi4-mini-3.8b, llama3.2-3b)
+and the MoE ones (mixtral-8x7b: MoE every layer, sliding window;
+llama4-maverick: MoE every other layer, with a shared expert).
+
+Params keep the JAX layout: layers are grouped into units of ``moe_every``
+consecutive layers (one layer without experts), ``{"units": [params of
+position 0, ..., position unit-1]}`` where every leaf has a leading
+``(n_units,)`` axis, and the MoE layer is the last of each unit. The KV cache
+is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``.
 ``jax.lax.scan`` over units becomes a Python loop over layers, and the
 reference's per-unit ``jax.checkpoint`` becomes ``torch.utils.checkpoint``
-per layer. MoE configs raise: the MoE FFN is a later slice of the port
-(ROADMAP.md).
+per layer.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -28,59 +33,91 @@ from .layers import (
     init_attention,
     init_mlp,
     init_norm,
+    init_stacked,
     layer_of,
-    stack_layers,
 )
+from .moe import apply_moe, init_moe_layer
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} with {cfg.n_experts} experts is "
-            "not ported yet; repro_torch serves the dense family (ROADMAP.md)")
+def _unit_size(cfg: ModelConfig) -> int:
+    return cfg.moe_every if cfg.n_experts > 0 else 1
 
 
-def init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
-    return {
+def _n_units(cfg: ModelConfig) -> int:
+    if cfg.n_layers % _unit_size(cfg):
+        raise ValueError(f"{cfg.arch_id}: {cfg.n_layers} layers are not whole units "
+                         f"of moe_every={cfg.moe_every}")
+    return cfg.n_layers // _unit_size(cfg)
+
+
+def _layer_is_moe(cfg: ModelConfig, pos_in_unit: int) -> bool:
+    # MoE occupies the last layer of each unit (llama4: dense, moe, dense, ...)
+    return cfg.n_experts > 0 and pos_in_unit == _unit_size(cfg) - 1
+
+
+def _layers(cfg: ModelConfig, params: Params):
+    """(unit, position in the unit, that layer's params) in depth order."""
+    units = params["units"]
+    for i in range(_n_units(cfg)):
+        for pos in range(_unit_size(cfg)):
+            yield i, pos, layer_of(units[pos], i)
+
+
+def init_layer(cfg: ModelConfig, gen: torch.Generator, device, is_moe: bool) -> Params:
+    p = {
         "attn_norm": init_norm(cfg, device),
         "attn": init_attention(cfg, gen, device),
         "mlp_norm": init_norm(cfg, device),
-        "mlp": init_mlp(cfg, gen, device),
     }
+    if is_moe:
+        p["moe"] = init_moe_layer(cfg, gen, device)
+    else:
+        p["mlp"] = init_mlp(cfg, gen, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
-    """Stacked params: every leaf gets a leading (n_layers,) axis."""
-    _check_dense(cfg)
-    return {"units": [stack_layers([init_layer(cfg, gen, device)
-                                    for _ in range(cfg.n_layers)])]}
+    """Stacked params: one dict per position in the unit, every leaf with a
+    leading (n_units,) axis."""
+    n_units = _n_units(cfg)
+    return {"units": [init_stacked(n_units, lambda: init_layer(cfg, gen, device,
+                                                               _layer_is_moe(cfg, pos)))
+                      for pos in range(_unit_size(cfg))]}
 
 
-def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["mlp_norm"], x))
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + FFN(norm(x)), and the layer's aux loss (None for a dense FFN)."""
+    h = apply_norm(cfg, p["mlp_norm"], x)
+    if "moe" in p:
+        y, aux = apply_moe(cfg, p["moe"], h)
+        return x + y, aux
+    return x + apply_mlp(cfg, p["mlp"], h), None
 
 
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     x = x + apply_attention(cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), positions)
     return _ffn(cfg, p, x)
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all layers. Returns (hidden (B,S,D), aux loss 0 for the dense family).
+    """Run all layers. Returns (hidden (B,S,D), aux loss summed over the MoE
+    layers; 0 without experts).
 
     Each layer runs under ``torch.utils.checkpoint``: only its input is kept,
     and the backward runs the layer again (flash attention's forward kernel
     included) to rebuild what it needs."""
-    _check_dense(cfg)
-    unit = params["units"][0]
-    for i in range(cfg.n_layers):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, p in _layers(cfg, params):
         # the layers draw no random numbers: no RNG state to replay
-        x = torch.utils.checkpoint.checkpoint(_layer, cfg, layer_of(unit, i), x,
-                                              positions, use_reentrant=False,
-                                              preserve_rng_state=False)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = torch.utils.checkpoint.checkpoint(_layer, cfg, p, x, positions,
+                                                 use_reentrant=False,
+                                                 preserve_rng_state=False)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # =============================================================================
@@ -95,9 +132,8 @@ def cache_size_for(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
     """KV caches stacked (n_units, unit, B, C, Hkv, Dh), zero-filled."""
-    _check_dense(cfg)
     C = cache_size_for(cfg, max_len)
-    shape = (cfg.n_layers, 1, batch, C, cfg.n_kv_heads, cfg.head_dim)
+    shape = (_n_units(cfg), _unit_size(cfg), batch, C, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt(cfg), device=device),
             "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
 
@@ -106,16 +142,13 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor, cache: Params
                    ) -> Tuple[torch.Tensor, Params]:
     """Forward + populate the caches (written in place). Returns (hidden, cache)."""
-    _check_dense(cfg)
-    unit = params["units"][0]
     C = cache["k"].shape[3]
-    for i in range(cfg.n_layers):
-        p = layer_of(unit, i)
+    for i, pos, p in _layers(cfg, params):
         h, k, v = apply_attention_prefill(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), positions, C)
-        cache["k"][i, 0].copy_(k)
-        cache["v"][i, 0].copy_(v)
-        x = _ffn(cfg, p, x + h)
+        cache["k"][i, pos].copy_(k)
+        cache["v"][i, pos].copy_(v)
+        x, _ = _ffn(cfg, p, x + h)
     return x, cache
 
 
@@ -124,13 +157,10 @@ def decode_hidden(cfg: ModelConfig, params: Params, cache: Params,
                   ) -> Tuple[torch.Tensor, Params]:
     """One token through all layers. x_t (B,1,D), pos (B,). The caches are
     updated in place and returned."""
-    _check_dense(cfg)
-    unit = params["units"][0]
     x = x_t
-    for i in range(cfg.n_layers):
-        p = layer_of(unit, i)
+    for i, j, p in _layers(cfg, params):
         h, _, _ = apply_attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), pos,
-            cache["k"][i, 0], cache["v"][i, 0])
-        x = _ffn(cfg, p, x + h)
+            cache["k"][i, j], cache["v"][i, j])
+        x, _ = _ffn(cfg, p, x + h)
     return x, cache

@@ -47,6 +47,10 @@ def _randn(gen, shape, dtype, dev):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 def test_flash_kernel_vs_plain(dev, case, dtype, tol):
+    _flash_vs_plain(dev, case, dtype, tol)
+
+
+def _flash_vs_plain(dev, case, dtype, tol):
     from repro_torch.kernels import flash_attention, ops, ref
     B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset = case
     gen = torch.Generator().manual_seed(0)
@@ -62,6 +66,19 @@ def test_flash_kernel_vs_plain(dev, case, dtype, tol):
         assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
 
 
+@pytest.mark.parametrize("case", [
+    (2, 300, 300, 6, 2, 128, True, 0, 0),        # group 3 (phi4-mini, llama3.2), ragged tiles
+    (2, 300, 300, 10, 2, 128, True, 0, 0),       # group 5 (llama4-maverick)
+    (1, 4608, 4608, 8, 2, 128, True, 4096, 0),   # mixtral-8x7b: window 4096 at Dh 128, S > window
+    (1, 600, 600, 6, 2, 128, True, 256, 0),      # group 3 under a window that cuts tiles
+], ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_the_transformer_family_shapes_vs_plain(dev, case, dtype, tol):
+    """The GQA groups and the window that the transformer archs served since
+    the MoE local path bring to the flash kernel, against ref.mha."""
+    _flash_vs_plain(dev, case, dtype, tol)
+
+
 def _decode_close(got, want, dtype, tol):
     """f32 within 2e-5; bf16 within 2e-2 elementwise and, as chip_smoke.py
     holds it, the whole output within a relative RMS of 1e-2."""
@@ -70,14 +87,16 @@ def _decode_close(got, want, dtype, tol):
         assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8, 12, 16])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 5, 8, 12, 16])
 @pytest.mark.parametrize("Dh", [20, 24, 64, 128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 def test_decode_kernel_vs_plain(dev, group, Dh, dtype, tol):
-    """Every GQA group the wrapper takes, at head dims that run the bf16
-    mma body (64, 128, 256; 24 with its last k-step half zero) and the FMA
-    body (20: rows not a multiple of 16 bytes; every f32 shape), over a
-    ragged cache with an empty row, a one-key row and a full one."""
+    """GQA groups the wrapper takes (3 and 5 are phi4-mini and llama3.2's,
+    and llama4-maverick's: not divisors of the mma tile's 16 rows), at head
+    dims that run the bf16 mma body (64, 128, 256; 24 with its last k-step
+    half zero) and the FMA body (20: rows not a multiple of 16 bytes; every
+    f32 shape), over a ragged cache with an empty row, a one-key row and a
+    full one."""
     from repro_torch.kernels import decode_attention, ops, ref
     B, C, Hkv = 4, 300, 2
     gen = torch.Generator().manual_seed(1)
@@ -537,14 +556,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("arch,expected", [
     ("qwen3-1.7b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
+    ("granite-8b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
+    ("mixtral-8x7b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
+    ("llama4-maverick-400b-a17b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
     ("mamba2-1.3b", {"ssd_scan": 4 * 2}),
     ("recurrentgemma-9b", {"rglru_scan": 4 * 2, "flash_attention": 2,
                            "decode_attention": 2 * 3}),
 ])
 def test_smoke_serve_goes_through_the_kernels(dev, arch, expected):
-    """Smoke configs: qwen3 4 attention layers; mamba2 4 SSD blocks; the
-    hybrid 4 RG-LRU layers and 1 local-attention layer, its 32-token prompt
-    over a window of 16."""
+    """Smoke configs: qwen3, granite, mixtral (window 32) and llama4 4
+    attention layers each (head_dim 16; the phi4 and llama3.2 smoke configs
+    have head_dim 10, which the kernels do not take); mamba2 4 SSD blocks;
+    the hybrid 4 RG-LRU layers and 1 local-attention layer, its 32-token
+    prompt over a window of 16."""
     from repro_torch.kernels import decode_attention, flash_attention, ref, rglru_scan, ssd_scan
     from repro_torch.launch import serve
     mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
@@ -853,3 +877,33 @@ def test_smoke_train_of_mamba2_goes_through_the_kernels(dev):
     assert (ssd_scan.launches, ssd_scan_bwd.launches) == (16, 8)
     assert ref.calls == 0
     assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN
+
+
+def test_mixtral_moe_layer_bf16_vs_f32_at_full_width(dev):
+    """One MoE layer at mixtral-8x7b's full width (8 experts of 4096 x 14336,
+    top-2) on 2048 tokens, bf16 against the same layer in f32 (TF32 off).
+    The router's logits are f32 products of the same bf16-exact inputs in
+    both, so they route alike and the aux losses are equal; the outputs
+    differ by the bf16 rounding of the expert products, summed over 4096 and
+    14336 terms: each token's output within a relative RMS of 2e-2 of the
+    f32 one and the whole within 1e-2, where a wrong expert, slot or weight
+    moves a token's output by order 100%."""
+    from repro_torch.configs.mixtral_8x7b import CONFIG
+    from repro_torch.models import moe
+    cfg = CONFIG.replace(n_layers=1)
+    p = moe.init_moe_layer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x = _randn(torch.Generator().manual_seed(1), (4, 512, cfg.d_model), torch.bfloat16, dev)
+    got, aux = moe.apply_moe(cfg, p, x)
+    idx, _, _ = moe.route(cfg, p["router"], x.reshape(-1, cfg.d_model))
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = {k: v.float() for k, v in p.items()}
+    want, aux32 = moe.apply_moe(c32, p32, x.float())
+    idx32, _, _ = moe.route(c32, p32["router"], x.float().reshape(-1, cfg.d_model))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(idx, idx32)
+    assert float(aux) == float(aux32)
+    diff = (got.float() - want).reshape(-1, cfg.d_model)
+    per_token = diff.norm(dim=-1) / want.reshape(-1, cfg.d_model).norm(dim=-1)
+    assert float(per_token.max()) <= 2e-2
+    assert float(diff.norm() / want.norm()) <= 1e-2

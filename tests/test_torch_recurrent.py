@@ -332,7 +332,7 @@ def test_params_from_jax_refuses_a_foreign_dtype():
 def test_unported_family_raises_naming_roadmap():
     _, tmod = _modules("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_cache(tmod.SMOKE_CONFIG.replace(family="moe"), 1, 8, "cpu")
+        lm.init_cache(tmod.SMOKE_CONFIG.replace(family="encoder"), 1, 8, "cpu")
 
 
 # =============================================================================

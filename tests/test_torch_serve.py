@@ -178,11 +178,20 @@ def test_registry_names_roadmap_for_unported_archs():
     assert dataclasses.asdict(SMOKE_CONFIG) == dataclasses.asdict(JAX_SMOKE)
     assert get_config("qwen3-1.7b").param_count() == JAX_CONFIG.param_count()
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("mixtral-8x7b")
+        get_config("hubert-xlarge")
 
 
 def test_moe_config_raises():
+    """An MoE config's cache has JAX's (n_units, unit, B, C, Hkv, Dh) shape,
+    and only a depth that is not whole units of moe_every raises, as the JAX
+    package's ``_n_units`` asserts."""
+    from repro.models import transformer as jtransformer
     from repro_torch.models import transformer
-    cfg = SMOKE_CONFIG.replace(family="moe", n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="dense"):
-        transformer.init_cache(cfg, 1, 8, "cpu")
+    kw = dict(family="moe", n_experts=4, experts_per_token=1, moe_every=2)
+    jcfg, tcfg = _configs(**kw)
+    got = transformer.init_cache(tcfg, 3, 8, "cpu")
+    want = jtransformer.init_cache(jcfg, 3, 8)
+    assert tuple(got["k"].shape) == want["k"].shape == (2, 2, 3, 8, 2, 16)
+    assert got["k"].dtype == got["v"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="moe_every"):
+        transformer.init_cache(tcfg.replace(n_layers=5), 1, 8, "cpu")
