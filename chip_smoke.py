@@ -6,7 +6,7 @@ Phases, each printed as one JSON object per line:
 
 1. device: name, capability, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build: the seven CUDA sources under src/repro_torch/kernels/csrc, one nvcc
+2. build: the eight CUDA sources under src/repro_torch/kernels/csrc, one nvcc
    per source, started together;
 3. checks: each kernel against its plain PyTorch version on the card, on the
    same inputs, in f32 (TF32 off) and bf16: flash and decode attention at
@@ -33,6 +33,23 @@ Phases, each printed as one JSON object per line:
    4096 x 1518, 256 packets); then 16 bursts at the benchmark shape through
    ops.burst_gather with the counters set to 0 just before (16 launches, 0
    plain calls);
+   epoch_pass: the simulator's epoch pass exactly equal to its plain version
+   on the card and to the numpy pass, with a queue table and without, at
+   n = 1 to 2^24 frames (tile edges, the bench epoch of 63 342) and on the
+   edge cases (no frames, one, a burst of equal times, a wire busy past
+   every frame, the ideal wire, negative flow ids), and a flow id out of
+   range raising IndexError;
+   simulate_vs_event and simulate: the port's simulator
+   (repro_torch.core.fastpath.run_epoch_sim) at benchmarks/fastpath_bench.py's
+   shape (one 100 GbE port, 8 RSS queues on 8 lcores, 1518-byte frames at
+   100 Gbit/s, 0.1 s simulated) and its two-port version (16 lcores, 200
+   Gbit/s, 0.05 s): the event loop at 0.004 s equal to both engines there,
+   then each shape through the numpy pass and through the kernel
+   (device="cuda"), three times each in turns, with the counters set to 0
+   just before each kernel run: RunReports, per-queue stats and clocks
+   bit-equal, on the fast path, the kernel's launches equal to the run's
+   epochs and 0 plain calls; the wall time of each run, simulated packets
+   per wall second and the pass's share of the run (host clock);
    flash_forward_digest: a sha256 over the forward's outputs and
    logsumexp at those cases and the train shape, f32 and bf16 (two trees
    with equal digests on one card compute bitwise-equal forwards);
@@ -115,7 +132,11 @@ Phases, each printed as one JSON object per line:
    the gather's row); gather_sweep: the
    gather at bursts of 32 to 1024 packets and the whole ring of 4096, each
    checked exactly, by wrapper time, device time warm and with the L2
-   flushed, beside the byte bound and the achieved GB/s.
+   flushed, beside the byte bound and the achieved GB/s; the epoch pass at
+   the bench shape's first epoch also by the device time of its three
+   kernels, beside a launch-and-read-back floor (torch.empty + fill_ +
+   tolist), the pass as the engine calls it (numpy in and out, the copies
+   included) and the numpy pass, on the host clock.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -166,7 +187,7 @@ FLASH_FWD_BF16_REL_RMS = 1e-2
 # wrong mask, split or combine moves the output by order 100%.
 DECODE_BF16_REL_RMS = 1e-2
 SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "flash_attention_bwd", "burst_gather", "ssd_scan_bwd"]
+           "flash_attention_bwd", "burst_gather", "ssd_scan_bwd", "epoch_pass"]
 DECODE_KERNELS = "decode_attn_"  # the name part of decode's partial pass and combine
 SSD_KERNELS = "ssd_scan_"  # the name part of the SSD scan's four kernels
 SSD_PHASES = ("state", "scores", "pass", "out")  # their names after it, in launch order
@@ -316,12 +337,13 @@ def rel_rms(got, want):
 
 
 def kernel_modules():
-    from repro_torch.kernels import (burst_gather, decode_attention, flash_attention,
-                                     flash_attention_bwd, rglru_scan, ssd_scan, ssd_scan_bwd)
+    from repro_torch.kernels import (burst_gather, decode_attention, epoch_pass,
+                                     flash_attention, flash_attention_bwd, rglru_scan,
+                                     ssd_scan, ssd_scan_bwd)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
             "flash_attention_bwd": flash_attention_bwd, "burst_gather": burst_gather,
-            "ssd_scan_bwd": ssd_scan_bwd}
+            "ssd_scan_bwd": ssd_scan_bwd, "epoch_pass": epoch_pass}
 
 
 def zero_counters():
@@ -662,6 +684,251 @@ def run_gather(dev):
         fail(f"burst_gather main path: launches {launches}, plain calls {plain_calls}, "
              f"max abs byte error {err}")
     return launches, worst
+
+
+# --------------------------------------------------------------------------
+# the simulator: the epoch pass against its plain version, then the engine
+# --------------------------------------------------------------------------
+
+# frames of the exact checks: tile edges (2048 a tile), the engine's epoch at
+# the bench shape, and 2^24 in one call (an epoch of a long run)
+EPOCH_N = (1, 1023, 1024, 1025, 2047, 2048, 2049, 63342, 1 << 24)
+EPOCH_FLOWS, EPOCH_QUEUES = 256, 8
+# the edge cases of tests/test_torch_epoch_pass.py: handed, ser, busy0, latency
+EPOCH_EDGES = {
+    "empty": ([], [], 5, 7),
+    "single": ([100], [10], 0, 3),
+    "equal-time-burst": ([1000] * 40, [121] * 40, 0, 1000),
+    "busy0-past-all": (list(range(0, 500, 10)), [4] * 50, 10_000, 1000),
+    "ideal-wire": ([0, 0, 5, 5, 9], [0] * 5, 0, 0),
+    "queueing": ([0, 5, 5, 40], [10] * 4, 3, 7),
+}
+# benchmarks/fastpath_bench.py's shape (one 100 GbE port, 8 RSS queues on 8
+# lcores, ring 1024, writeback threshold 32, burst 64, a pool of 16384
+# slots, 1518-byte frames) and its two-port version: name -> (ports,
+# Gbit/s offered over all ports, simulated s)
+SIM_SHAPES = {"1x100GbE": (1, 100.0, 0.1), "2x100GbE": (2, 200.0, 0.05)}
+SIM_EVENT_S = 0.004  # the event loop's run of the first shape, against both engines
+SIM_REPEATS = 3      # timed runs of each engine a shape, in turns
+SIM_LABEL = "simulate 1x100GbE"
+
+
+def epoch_inputs(n, dev, seed=0):
+    """handed (bursts of equal times among gaps of up to 250 ns), ser (5-249
+    ns), a queue table of 256 flows over 8 queues and flow ids, int64, and
+    busy0 (the wire busy until the middle frame's time)."""
+    gen = torch.Generator().manual_seed(seed)
+    gaps = torch.randint(0, 250, (n,), generator=gen) * torch.randint(0, 2, (n,), generator=gen)
+    handed = torch.cumsum(gaps, 0)
+    ser = torch.randint(5, 250, (n,), generator=gen)
+    table = torch.randint(0, EPOCH_QUEUES, (EPOCH_FLOWS,), generator=gen)
+    fids = torch.randint(0, EPOCH_FLOWS, (n,), generator=gen)
+    busy0 = int(handed[n // 2]) if n else 0
+    return [t.to(dev) for t in (handed, ser, table, fids)], busy0
+
+
+def epoch_equal(got, want):
+    """Two passes' outputs (tensors anywhere, or numpy) bit-equal."""
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+
+    (a, busy, q), (wa, wbusy, wq) = got, want
+    same_q = (q is None and wq is None) or (
+        q is not None and wq is not None and torch.equal(host(q), host(wq)))
+    return bool(torch.equal(host(a), host(wa)) and busy == wbusy and same_q)
+
+
+def run_epoch_checks(dev):
+    """The epoch pass kernel exactly equal to its plain version on the card
+    and to the numpy pass (the engine's reference), with a table and
+    without, on EPOCH_N and the edge cases; a flow id out of range raises
+    IndexError. Returns the largest absolute arrival difference at the
+    bench epoch (0 when equal)."""
+    from repro_torch.kernels import epoch_pass as kep
+    from repro_torch.kernels import ops, ref
+    worst = None
+    for n in EPOCH_N:
+        (h, s, table, fids), busy0 = epoch_inputs(n, dev, seed=n)
+        for steer in (True, False):
+            t, f = (table, fids) if steer else (None, None)
+            got = ops.epoch_pass(h, s, busy0, 1000, t, f)
+            want = ref.epoch_pass(h, s, busy0, 1000, t, f)
+            torch.cuda.synchronize()
+            ok = epoch_equal(got, want)
+            err = int((got[0] - want[0]).abs().max())
+            if n <= 63342:
+                host = kep.epoch_pass_np(h.cpu().numpy(), s.cpu().numpy(), busy0, 1000,
+                                         None if t is None else t.cpu().numpy(),
+                                         None if f is None else f.cpu().numpy())
+                ok = ok and epoch_equal(got, host)
+            _check("epoch_pass", {"n": n, "steer": steer}, torch.int64,
+                   {"max_abs_err": err, "busy_until": got[1]}, ok, "")
+            if n == 63342 and steer:
+                worst = err
+    tab = torch.arange(EPOCH_FLOWS, device=dev) % EPOCH_QUEUES
+    for name, (h, s, busy0, lat) in EPOCH_EDGES.items():
+        h, s = (torch.tensor(x, dtype=torch.int64, device=dev) for x in (h, s))
+        ids = (torch.arange(h.numel(), device=dev) * 37) % EPOCH_FLOWS - 3  # -3: from the end
+        ok = True
+        for t, f in ((tab, ids), (None, None), (tab, None)):
+            got = ops.epoch_pass(h, s, busy0, lat, t, f)
+            host = kep.epoch_pass_np(h.cpu().numpy(), s.cpu().numpy(), busy0, lat,
+                                     None if t is None else t.cpu().numpy(),
+                                     None if f is None else f.cpu().numpy())
+            ok = ok and epoch_equal(got, ref.epoch_pass(h, s, busy0, lat, t, f)) \
+                and epoch_equal(got, host)
+        _check("epoch_pass", name, torch.int64, {"busy_until": got[1]}, ok, "")
+    h, s = torch.arange(8, device=dev), torch.ones(8, dtype=torch.int64, device=dev)
+    for bad in (EPOCH_FLOWS, -EPOCH_FLOWS - 1):
+        ids = torch.zeros(8, dtype=torch.int64, device=dev)
+        ids[5] = bad
+        try:
+            ops.epoch_pass(h, s, 0, 0, tab, ids)
+            raised = False
+        except IndexError:
+            raised = True
+        _check("epoch_pass", f"flow id {bad} of {EPOCH_FLOWS}", torch.int64,
+               {"raised_index_error": raised}, raised, "")
+    return worst
+
+
+def sim_build(nports):
+    """The bench shape on the port's classes, one pool for all ports."""
+    from repro_torch.core import packet, pmd, simclock
+    pool = packet.PacketPool(16384, 1518)
+    ports = [pmd.Port.make(pool, ring_size=1024, writeback_threshold=32, n_queues=8,
+                           link_gbps=100.0, link_latency_ns=1000) for _ in range(nports)]
+    server = pmd.BypassL2FwdServer(ports, burst_size=64, n_lcores=8 * nports)
+    clock = simclock.SimClock()
+    server.attach_clock(clock)
+    return server, ports, clock
+
+
+@contextlib.contextmanager
+def timed_pass():
+    """Within the block, the engine's epoch pass (numpy or torch) is timed
+    on the host clock; yields a list whose one item sums the seconds."""
+    from repro_torch.core import fastpath
+    spent = [0.0]
+    make, numpy_pass = fastpath.make_pass, fastpath.epoch_pass_np
+
+    def timed(fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    fastpath.make_pass = lambda device: timed(make(device))
+    fastpath.epoch_pass_np = timed(numpy_pass)
+    try:
+        yield spent
+    finally:
+        fastpath.make_pass, fastpath.epoch_pass_np = make, numpy_pass
+
+
+def sim_run(nports, rate, duration_s, device, engine="epoch"):
+    """One open-loop run of the shape through the event loop or the epoch
+    engine (device None: the numpy pass; "cuda": the kernel). Returns what
+    must be bit-equal across engines (the RunReport, the per-queue stats of
+    tests/test_fastpath.py's queue_stats_key, the final clock), the run's
+    info, its wall seconds and the pass's seconds."""
+    from repro_torch.core import fastpath, loadgen
+    server, ports, clock = sim_build(nports)
+    lg = loadgen.LoadGen(ports)
+    pattern = loadgen.TrafficPattern(rate_gbps=rate, packet_size=1518)
+    info = fastpath.EpochRunInfo()
+    with timed_pass() as spent:
+        t0 = time.perf_counter()
+        if engine == "event":
+            rep = lg.run_sim(server, pattern, duration_s=duration_s, clock=clock)
+        else:
+            rep = fastpath.run_epoch_sim(lg, server, pattern, duration_s=duration_s,
+                                         clock=clock, device=device, info=info)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    queues = {str(k): (v.rx_packets, v.tx_packets, v.rx_bytes, v.burst_count,
+                       v.burst_packets, list(v.burst_buckets))
+              for k, v in server.per_queue_stats().items()}
+    return (rep.to_dict(), queues, clock.now_ns), info, wall, spent[0]
+
+
+def run_simulate(dev, card):
+    """The port's simulator on the card. First the event loop on the first
+    shape at SIM_EVENT_S against both engines at that length; then each
+    shape through the numpy pass and the kernel, SIM_REPEATS times each in
+    turns, every count set to 0 just before each kernel run and read just
+    after (launches == info.n_epochs, no plain call, no other kernel), all
+    observations bit-equal and on the fast path. Returns the counted
+    launches of the kernel runs, by label."""
+    nports, rate, _ = SIM_SHAPES["1x100GbE"]
+    event = sim_run(nports, rate, SIM_EVENT_S, None, engine="event")
+    short = {str(d): sim_run(nports, rate, SIM_EVENT_S, d) for d in (None, "cuda")}
+    same = {d: r[0] == event[0] for d, r in short.items()}
+    emit("simulate_vs_event", {"shape": "1x100GbE", "duration_s": SIM_EVENT_S,
+                               "packets": event[0][0]["sent"], "equal": same,
+                               "fastpath": {d: r[1].fastpath for d, r in short.items()},
+                               "event_wall_s": event[2], "card": card})
+    if not all(same.values()) or not all(r[1].fastpath for r in short.values()):
+        fail(f"simulate: the event loop and the epoch engines disagree at {SIM_EVENT_S} s")
+    launches = {}
+    for name, (nports, rate, dur) in SIM_SHAPES.items():
+        runs = {"None": [], "cuda": []}
+        for k in range(SIM_REPEATS):
+            for device in ((None, "cuda") if k % 2 == 0 else ("cuda", None)):
+                zero_counters()
+                obs, info, wall, pass_s = sim_run(nports, rate, dur, device)
+                counts, plain = read_counters()
+                runs[str(device)].append((obs, info, wall, pass_s, counts, plain))
+        want = runs["None"][0][0]
+        out = {"shape": name, "ports": nports, "offered_gbps": rate, "duration_s": dur,
+               "packets": want[0]["sent"], "card": card}
+        ok = True
+        for device, rs in runs.items():
+            walls = sorted(r[2] for r in rs)
+            info = rs[0][1]
+            expect = {k: (info.n_epochs if device == "cuda" and k == "epoch_pass" else 0)
+                      for k in rs[0][4]}
+            eng = {"engine": info.engine, "pass_device": info.pass_device,
+                   "fastpath": info.fastpath, "n_epochs": info.n_epochs,
+                   "wall_s": [r[2] for r in rs], "wall_s_median": walls[len(walls) // 2],
+                   "sim_pkts_per_s": want[0]["sent"] / walls[len(walls) // 2],
+                   "pass_s": [r[3] for r in rs],
+                   "pass_share": [r[3] / r[2] for r in rs],
+                   "launches": rs[0][4], "expected_launches": expect,
+                   "plain_calls": [r[5] for r in rs],
+                   "equal_to_numpy": all(r[0] == want for r in rs)}
+            ok = ok and eng["fastpath"] and eng["equal_to_numpy"] and all(
+                r[4] == expect and r[5] == 0 and r[1].fastpath for r in rs)
+            out[device] = eng
+        emit("simulate", out)
+        if not ok:
+            fail(f"simulate {name}: engines disagree, left the fast path or miscounted "
+                 f"(launches must equal n_epochs, plain calls 0): {out}")
+        launches[f"simulate {name}"] = runs["cuda"][0][4]
+    return launches
+
+
+def bench_epoch(dev):
+    """The first epoch slice of the bench shape's 0.1 s run as the engine
+    plans it (about 63 000 frames over 8 queues): numpy inputs, and the same
+    on the card, with the port's queue table."""
+    import numpy as np
+    from repro_torch.core import fastpath, loadgen
+    from repro_torch.kernels import epoch_pass as kep
+    _, ports, _ = sim_build(1)
+    pattern = loadgen.TrafficPattern(rate_gbps=100.0, packet_size=1518)
+    times, sizes = pattern.emission_schedule(int(SIM_SHAPES["1x100GbE"][2] * 1e9),
+                                             np.random.default_rng(pattern.seed))
+    lo, hi = next(fastpath.iter_epoch_slices(times, fastpath.default_epoch_ns(ports, times)))
+    table = fastpath._flow_queue_table(ports[0], 256, None, None)
+    host = (times[lo:hi], kep.serialization_ns_vec(sizes[lo:hi], 100.0), 0, 1000, table,
+            np.arange(lo, hi, dtype=np.int64) % 256)
+    on_dev = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+              (host[0], host[1], table, host[5])]
+    return host, on_dev
 
 
 # --------------------------------------------------------------------------
@@ -1417,7 +1684,9 @@ def _row(name, arch, launches, errs, card, **kw):
            "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention.py:92"),
            "burst_gather": ("burst_gather.cu", "burst_gather.py:34"),
            # the gradient of the Pallas forward, which JAX takes through its chunked path
-           "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:66")}[name]
+           "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:66"),
+           # jitted XLA (the scan and gather of get_epoch_pass_jax), not Pallas
+           "epoch_pass": ("epoch_pass.cu", "epoch_fastpath.py:108")}[name]
     return {"name": f"{name} ({arch})", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src[0]}",
             "replaces": f"src/repro/kernels/{src[1]}",
@@ -1642,6 +1911,47 @@ def time_gather(launches, errs, card, dev, launch_floor_ms):
                        "plan": kgather.plan(n, width)._asdict()})
 
 
+def time_epoch_pass(launches, errs, card, dev):
+    """The epoch pass at the bench shape's first epoch: the wrapper (its
+    call reads busy_until back, a synchronisation) by CUDA events, the
+    device time of its kernels, the plain version (cumsum, cummax and a
+    gather on the card), and the pass as the engine calls it (numpy in and
+    out, the copies included) beside the numpy pass, on the host clock."""
+    from repro_torch.kernels import epoch_pass as kep
+    from repro_torch.kernels import ref
+    host, (h, s, table, fids) = bench_epoch(dev)
+    n, busy0, lat = h.numel(), host[2], host[3]
+    kern = lambda: kep.epoch_pass_cuda(h, s, busy0, lat, table, fids)  # noqa: E731
+    plain = lambda: ref.epoch_pass(h, s, busy0, lat, table, fids)  # noqa: E731
+    if not (epoch_equal(kern(), plain()) and epoch_equal(kern(), kep.epoch_pass_np(*host))):
+        fail("epoch_pass at the bench epoch: the kernel, its plain version and the numpy "
+             "pass disagree")
+    nbytes = 8 * (5 * n + table.numel())  # handed, ser, fids in; arrivals, queues out
+    b_ms, b_by = bound(nbytes, 0)
+    engine_pass = kep.make_pass(dev.type)
+
+    def host_ms(fn, calls=200):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    return _row("epoch_pass", SIM_LABEL, launches, errs, card,
+                ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "epoch_pass_"),
+                device_ms_per_kernel={k: device_ms(kern, "epoch_pass_" + k)
+                                      for k in ("reduce", "carry", "apply")},
+                launch_floor_ms=time_ms(lambda: torch.empty(
+                    2, dtype=torch.int64, device=dev).fill_(0).tolist(), iters=200),
+                plain_ms=time_ms(plain, iters=200),
+                engine_pass_ms=host_ms(lambda: engine_pass(*host)),
+                numpy_pass_ms=host_ms(lambda: kep.epoch_pass_np(*host)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none: no single PyTorch call computes a max-plus scan",
+                shape={"n": n, "n_flows": table.numel(), "queues": EPOCH_QUEUES,
+                       "bytes": nbytes, "plan": kep.plan(n)._asdict()})
+
+
 def time_decode(arch, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdec
@@ -1821,7 +2131,8 @@ def run_times(launches, errs, card, dev):
             time_flash(TRAIN_LABEL, launches, errs, card, dev),
             time_flash_bwd(launches, errs, card, dev),
             time_ssd_bwd(launches, errs, card, dev),
-            time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"])]
+            time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"]),
+            time_epoch_pass(launches, errs, card, dev)]
     gather_sweep(dev, card)
     emit("flash_forward_rate", [
         {"name": r["name"], "ms": r["ms"], "tflop_per_s": r["tflop_per_s"],
@@ -1914,6 +2225,8 @@ def main():
     emit("flash_forward_digest", forward_digest(dev))
     launches = {}
     launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
+    errs[("epoch_pass", SIM_LABEL)] = run_epoch_checks(dev)
+    launches.update(run_simulate(dev, card))
     errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})

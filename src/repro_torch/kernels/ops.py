@@ -17,6 +17,7 @@ import torch
 from . import ref
 from .burst_gather import burst_gather_cuda
 from .decode_attention import decode_attention_cuda
+from .epoch_pass import epoch_pass_cuda
 from .flash_attention import flash_attention_cuda
 from .rglru_scan import rglru_scan_cuda
 from .ssd_scan import ssd_scan_cuda
@@ -109,3 +110,19 @@ def burst_gather(arena: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor
     if _device_type(arena, slots, lengths) == "cpu":
         return ref.burst_gather(arena, slots, lengths, out_width)
     return burst_gather_cuda(arena, slots.contiguous(), lengths.contiguous(), out_width)
+
+
+def epoch_pass(handed: torch.Tensor, ser: torch.Tensor, busy0: int, latency: int,
+               table: Optional[torch.Tensor] = None, fids: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+    """The simulator's epoch pass. handed, ser (n,) integer, handed
+    non-decreasing; busy0, latency ints; table (n_flows,) and fids (n,)
+    integer, or None (cast to int64, as ``epoch_pass_np`` casts its times) →
+    (arrivals (n,) int64, busy_until int, queues (n,) int64, or None unless
+    both table and fids are given)."""
+    steer = table is not None and fids is not None
+    ts = tuple(t.to(torch.int64).contiguous()
+               for t in ((handed, ser, table, fids) if steer else (handed, ser)))
+    if _device_type(*ts) == "cpu":
+        return ref.epoch_pass(ts[0], ts[1], busy0, latency, *ts[2:])
+    return epoch_pass_cuda(ts[0], ts[1], busy0, latency, *ts[2:])

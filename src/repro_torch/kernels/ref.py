@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels: attention, the Mamba-2 SSD scan,
-the RG-LRU scan and the packet burst gather.
+the RG-LRU scan, the packet burst gather and the simulator's epoch pass.
 
 The attention functions compute what ``repro.kernels.ref`` computes, in f32,
 materialising the whole score matrix; ``mha_bwd`` is ``mha``'s gradient from
@@ -8,7 +8,8 @@ the forward's saved output and logsumexp, as the backward kernel takes them
 the JAX package's chunked form (``repro.kernels.ops.ssd_scan``),
 ``ssd_sequential`` its sequential oracle, ``rglru_scan`` a sequential f32
 loop, and ``burst_gather`` copies ``repro.kernels.ref.burst_gather`` with the
-index semantics of JAX's ``arena[slots]``. The CPU takes them in ``ops``; on
+index semantics of JAX's ``arena[slots]``, and ``epoch_pass`` is
+``epoch_pass_np`` (``kernels/epoch_pass.py``) in torch. The CPU takes them in ``ops``; on
 the card they are what ``chip_smoke.py`` holds each CUDA kernel against.
 ``calls`` counts every call so a run can show that serving did not use them.
 """
@@ -388,3 +389,24 @@ def burst_gather(arena: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor
         rows, (0, out_width - slot_size))
     col = torch.arange(out_width, device=arena.device)[None, :]
     return torch.where(col < lengths.long()[:, None], rows, 0).to(torch.uint8)
+
+
+def epoch_pass(handed: torch.Tensor, ser: torch.Tensor, busy0: int, latency: int,
+               table: Optional[torch.Tensor] = None, fids: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+    """The epoch pass (``epoch_pass_np``) in torch: handed, ser (n,) int64,
+    handed non-decreasing → (arrivals (n,), busy_until int, queues or None).
+    end_i = max(busy0, cummax_{j<=i}(t_j - S_{j-1})) + S_i with S the cumsum of
+    ser, arrivals = end + latency, busy_until = end_{n-1} (busy0 when n = 0),
+    and queues = table[fids] where both are given, indexed as numpy indexes
+    (a negative id counts from the end; one outside [-n_flows, n_flows)
+    raises IndexError)."""
+    global calls
+    calls += 1
+    queues = table[fids] if table is not None and fids is not None else None
+    if handed.shape[0] == 0:
+        return handed.new_empty(0), int(busy0), queues
+    cum = torch.cumsum(ser, 0)
+    pre = handed - (cum - ser)
+    ends = torch.cummax(pre, 0).values.clamp_min(busy0) + cum
+    return ends + latency, int(ends[-1]), queues

@@ -907,3 +907,78 @@ def test_mixtral_moe_layer_bf16_vs_f32_at_full_width(dev):
     per_token = diff.norm(dim=-1) / want.reshape(-1, cfg.d_model).norm(dim=-1)
     assert float(per_token.max()) <= 2e-2
     assert float(diff.norm() / want.norm()) <= 1e-2
+
+
+# -- the simulator's epoch pass (exact: integer arithmetic) -------------------
+
+def _epoch_inputs(n, dev, seed=0, n_flows=256, queues=8):
+    gen = torch.Generator().manual_seed(seed)
+    gaps = torch.randint(0, 250, (n,), generator=gen) * torch.randint(0, 2, (n,), generator=gen)
+    handed = torch.cumsum(gaps, 0)
+    ser = torch.randint(5, 250, (n,), generator=gen)
+    table = torch.randint(0, queues, (n_flows,), generator=gen)
+    fids = torch.randint(-n_flows, n_flows, (n,), generator=gen)  # negative ids wrap
+    busy0 = int(handed[n // 2]) if n else 3
+    return [t.to(dev) for t in (handed, ser, table, fids)], busy0
+
+
+def _same_pass(got, want):
+    (a, busy, q), (wa, wbusy, wq) = got, want
+    assert torch.equal(a.cpu(), torch.as_tensor(wa).cpu()) and busy == wbusy
+    assert (q is None) == (wq is None)
+    if q is not None:
+        assert torch.equal(q.cpu(), torch.as_tensor(wq).cpu())
+
+
+@pytest.mark.parametrize("n", [0, 1, 8, 2047, 2048, 2049, 4097, 63342, 1 << 20])
+@pytest.mark.parametrize("steer", [True, False])
+def test_epoch_pass_kernel_vs_plain_and_numpy(dev, n, steer):
+    from repro_torch.kernels import epoch_pass, ops, ref
+    (h, s, table, fids), busy0 = _epoch_inputs(n, dev, seed=n)
+    t, f = (table, fids) if steer else (None, None)
+    before = epoch_pass.launches
+    got = ops.epoch_pass(h, s, busy0, 1000, t, f)
+    assert epoch_pass.launches == before + (1 if n else 0)
+    assert got[0].is_cuda and (got[2] is None) == (not steer)
+    _same_pass(got, ref.epoch_pass(h, s, busy0, 1000, t, f))
+    host = [None if x is None else x.cpu().numpy() for x in (h, s, t, f)]
+    _same_pass(got, epoch_pass.epoch_pass_np(host[0], host[1], busy0, 1000, host[2], host[3]))
+    _same_pass(ops.epoch_pass(h, s, busy0, 1000, t, f), got)  # repeat calls equal
+
+
+def test_epoch_pass_out_of_range_flow_id_raises(dev):
+    from repro_torch.kernels import ops
+    (h, s, table, fids), _ = _epoch_inputs(5000, dev)
+    fids[4321] = 256
+    with pytest.raises(IndexError):
+        ops.epoch_pass(h, s, 0, 0, table, fids)
+    fids[4321] = 3  # the status word is reset by the next call
+    assert ops.epoch_pass(h, s, 0, 0, table, fids)[2].shape == (5000,)
+
+
+def test_epoch_engine_on_the_card_matches_numpy_engine(dev):
+    """run_epoch_sim(device="cuda") on tests/test_fastpath.py's two-port
+    config: the numpy engine's RunReport and clock, one launch an epoch."""
+    from repro_torch.core import fastpath, loadgen, packet, pmd, simclock
+    from repro_torch.kernels import epoch_pass, ref
+
+    def run(device):
+        pools = [packet.PacketPool(8192, 2048) for _ in range(2)]
+        ports = [pmd.Port.make(pool, ring_size=1024, writeback_threshold=32, n_queues=4,
+                               link_gbps=40.0, link_latency_ns=1000) for pool in pools]
+        server = pmd.BypassL2FwdServer(ports, burst_size=64, n_lcores=8)
+        clock = simclock.SimClock()
+        server.attach_clock(clock)
+        info = fastpath.EpochRunInfo()
+        rep = fastpath.run_epoch_sim(loadgen.LoadGen(ports), server,
+                                     loadgen.TrafficPattern(rate_gbps=40.0, packet_size=1518),
+                                     duration_s=0.002, clock=clock, device=device, info=info,
+                                     epoch_ns=100_000)
+        return rep.to_dict(), clock.now_ns, info
+
+    want = run(None)
+    launches, calls = epoch_pass.launches, ref.calls
+    got = run("cuda")
+    assert got[2].fastpath and got[2].engine == "epoch-torch" and got[2].pass_device == "cuda"
+    assert got[:2] == want[:2]
+    assert epoch_pass.launches - launches == got[2].n_epochs >= 20 and ref.calls == calls
