@@ -50,6 +50,21 @@ Phases, each printed as one JSON object per line:
    bit-equal, on the fast path, the kernel's launches equal to the run's
    epochs and 0 plain calls; the wall time of each run, simulated packets
    per wall second and the pass's share of the run (host clock);
+   experiment and experiment_summary: the paper's figures through the
+   port's experiment layer (repro_torch.exp.run_experiment, configs built
+   as benchmarks/common.py, fig3b_sensitivity.py and fig4_dca_burst.py
+   build them): Fig. 3a's bandwidth search (trials of 0.004 s from 0.1
+   Gbit/s, 4 bisection steps) for the bypass and kernel stacks at 1 and 4
+   ports and the bypass stack at 4 lcores x 4 queues, Fig. 3b's six
+   cumulative steps for both stacks, and Fig. 4's three DCA bursts (1, 32,
+   1024); each once with engine="epoch" (the numpy pass) and once with
+   engine="epoch-torch" on "cuda" (the kernel), the counters set to 0 just
+   before the kernel run: the RunReports (extras and msb_gbps included)
+   bit-equal, the kernel's launches equal to the numpy run's pass calls
+   (above 0 in the searches that take the fast path), 0 plain calls; each
+   search's msb_gbps, the bypass/kernel ratio at 1 and 4 ports, Fig. 3b's
+   deltas from its base step, Fig. 4's p50/p99 and writebacks, and the wall
+   seconds of each engine;
    flash_forward_digest: a sha256 over the forward's outputs and
    logsumexp at those cases and the train shape, f32 and bf16 (two trees
    with equal digests on one card compute bitwise-equal forwards);
@@ -807,9 +822,10 @@ def sim_build(nports):
 @contextlib.contextmanager
 def timed_pass():
     """Within the block, the engine's epoch pass (numpy or torch) is timed
-    on the host clock; yields a list whose one item sums the seconds."""
+    on the host clock and its calls counted; yields a list of the seconds
+    summed and the calls."""
     from repro_torch.core import fastpath
-    spent = [0.0]
+    spent = [0.0, 0]
     make, numpy_pass = fastpath.make_pass, fastpath.epoch_pass_np
 
     def timed(fn):
@@ -817,6 +833,7 @@ def timed_pass():
             t0 = time.perf_counter()
             out = fn(*args)
             spent[0] += time.perf_counter() - t0
+            spent[1] += 1
             return out
         return call
 
@@ -909,6 +926,144 @@ def run_simulate(dev, card):
                  f"(launches must equal n_epochs, plain calls 0): {out}")
         launches[f"simulate {name}"] = runs["cuda"][0][4]
     return launches
+
+
+# --------------------------------------------------------------------------
+# the experiment layer: the paper's figures through repro_torch.exp
+# --------------------------------------------------------------------------
+
+# benchmarks/common.py's msb search: trial length, first rate, bisection steps
+EXP_MSB = dict(trial_s=0.004, start_gbps=0.1, refine_iters=4)
+# Fig. 3a's port axis, and one point of its cores x queues axis
+FIG3A = {"1port": dict(nports=1), "4port": dict(nports=4),
+         "4core_4q": dict(n_queues=4, n_lcores=4)}
+# Fig. 3b's cumulative steps (benchmarks/fig3b_sensitivity.py): name ->
+# (CostConfig changes from 2 GHz, ring, burst, sockbuf budget)
+FIG3B = {"base_2ghz": ({}, 1024, 64, 16),
+         "3ghz_cpu": ({"cpu_ghz": 3.0}, 1024, 64, 16),
+         "low_lat_pcie": ({"cpu_ghz": 3.0, "interrupt_cycles": 4000}, 1024, 64, 16),
+         "2x_sockbuf": ({"cpu_ghz": 3.0, "interrupt_cycles": 4000}, 1024, 64, 32),
+         "2x_ring": ({"cpu_ghz": 3.0, "interrupt_cycles": 4000}, 2048, 64, 32),
+         "2x_burst": ({"cpu_ghz": 3.0, "interrupt_cycles": 4000}, 2048, 128, 32)}
+FIG4_BURSTS = (1, 32, 1024)  # benchmarks/fig4_dca_burst.py, 0.004 s of 10 Gbit/s
+EXP_LABEL = "experiment"
+
+
+def experiment_on_fast_path(label):
+    """The searches whose trials take the epoch fast path, so that the pass
+    runs: the bypass stack's, but for Fig. 3b's 2x_burst step, whose burst
+    of 128 exceeds the load generator's TX burst of 64. The kernel stack and
+    Fig. 4's DCA timers run the event loop under every engine."""
+    return label.startswith(("fig3a bypass", "fig3b bypass")) and not label.endswith("2x_burst")
+
+
+def experiment_config(stack, nports=1, ring=1024, burst=64, cost=None, sockbuf_budget=16,
+                      n_queues=1, n_lcores=None, traffic=None, name="bench"):
+    """benchmarks/common.py's experiment_config on the port's classes."""
+    from repro_torch.exp import (ExperimentConfig, PoolConfig, PortConfig, StackConfig,
+                                 TrafficConfig)
+    return ExperimentConfig(
+        name=name, pool=PoolConfig(n_slots=16384, slot_size=1518),
+        ports=tuple(PortConfig(n_queues=n_queues, ring_size=ring, writeback_threshold=32)
+                    for _ in range(nports)),
+        stack=StackConfig(kind=stack, burst_size=burst, n_lcores=n_lcores,
+                          sockbuf_budget=sockbuf_budget, cost=cost),
+        traffic=traffic if traffic is not None else TrafficConfig())
+
+
+def experiment_configs():
+    """label -> the port's ExperimentConfig, for Fig. 3a, 3b and 4."""
+    from repro_torch.exp import (CostConfig, DcaConfig, ExperimentConfig, PortConfig,
+                                 StackConfig, TrafficConfig)
+    msb = TrafficConfig(mode="msb", **EXP_MSB)
+    out = {}
+    for point, kw in FIG3A.items():
+        for stack in ("bypass", "kernel") if point != "4core_4q" else ("bypass",):
+            out[f"fig3a {stack} {point}"] = experiment_config(stack, traffic=msb, **kw)
+    for step, (cost, ring, burst, sockbuf) in FIG3B.items():
+        out[f"fig3b bypass {step}"] = experiment_config("bypass", ring=ring, burst=burst,
+                                                        traffic=msb)
+        out[f"fig3b kernel {step}"] = experiment_config(
+            "kernel", ring=ring, burst=burst, cost=CostConfig(**{"cpu_ghz": 2.0, **cost}),
+            sockbuf_budget=sockbuf, traffic=msb)
+    for burst in FIG4_BURSTS:
+        out[f"fig4 burst {burst}"] = ExperimentConfig(
+            name=f"fig4-burst-{burst}", ports=(PortConfig(n_queues=1, ring_size=2048),),
+            stack=StackConfig(kind="bypass", n_lcores=1),
+            traffic=TrafficConfig(mode="open_loop", rate_gbps=10.0, packet_size=1518,
+                                  duration_s=0.004, seed=3),
+            dca=DcaConfig(burst_size=burst, writeback_threshold=32,
+                          writeback_timeout_ns=200_000))
+    return out
+
+
+def experiment_run(cfg, engine):
+    """run_experiment under ``engine`` ("epoch": the numpy pass;
+    "epoch-torch": the kernel on "cuda"): the report as a dict, the wall
+    seconds, and the pass's seconds and calls."""
+    from repro_torch.exp import run_experiment
+    cfg = cfg.with_traffic(engine=engine)
+    with timed_pass() as spent:
+        t0 = time.perf_counter()
+        rep = run_experiment(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return rep.to_dict(), wall, spent[0], spent[1]
+
+
+def run_experiments(card):
+    """Each figure config through run_experiment once with the numpy pass
+    and once with the kernel, every count set to 0 just before the kernel
+    run and read just after: the reports (extras and msb_gbps included)
+    bit-equal, the kernel's launches equal to the numpy run's pass calls
+    (above 0 exactly where experiment_on_fast_path says), no plain call, no
+    other kernel. Returns the kernel runs' launches summed, by kernel."""
+    total = {}
+    reports, walls = {}, {"epoch": 0.0, "epoch-torch": 0.0}
+    bad = []
+    for label, cfg in experiment_configs().items():
+        want, np_wall, np_pass_s, np_calls = experiment_run(cfg, "epoch")
+        zero_counters()
+        got, cu_wall, cu_pass_s, cu_calls = experiment_run(cfg, "epoch-torch")
+        counts, plain = read_counters()
+        expect = {k: (np_calls if k == "epoch_pass" else 0) for k in counts}
+        ok = (got == want and counts == expect and plain == 0 and cu_calls == np_calls
+              and (np_calls > 0) == experiment_on_fast_path(label))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        walls["epoch"] += np_wall
+        walls["epoch-torch"] += cu_wall
+        reports[label] = want
+        emit("experiment", {"name": label, "msb_gbps": want["extras"].get("msb_gbps"),
+                            "received": want["received"], "dropped": want["dropped"],
+                            "equal": got == want, "numpy_pass_calls": np_calls,
+                            "launches": counts, "plain_calls": plain,
+                            "wall_s": {"epoch": np_wall, "epoch-torch": cu_wall},
+                            "pass_s": {"epoch": np_pass_s, "epoch-torch": cu_pass_s},
+                            "ok": ok, "card": card})
+        if not ok:
+            bad.append(label)
+    msb = {k: r["extras"]["msb_gbps"] for k, r in reports.items() if "msb_gbps" in r["extras"]}
+    summary = {
+        "fig3a_msb_gbps": {k[6:]: v for k, v in msb.items() if k.startswith("fig3a")},
+        "fig3a_bypass_over_kernel": {
+            p: msb[f"fig3a bypass {p}"] / msb[f"fig3a kernel {p}"] for p in ("1port", "4port")},
+        "fig3b_msb_gbps": {k[6:]: v for k, v in msb.items() if k.startswith("fig3b")},
+        "fig3b_delta_vs_base_pct": {
+            f"{stack} {step}": 100.0 * (msb[f"fig3b {stack} {step}"]
+                                        / msb[f"fig3b {stack} base_2ghz"] - 1)
+            for stack in ("bypass", "kernel") for step in FIG3B},
+        "fig4": {b: {"p50_us": reports[f"fig4 burst {b}"]["latency"]["median_ns"] / 1e3,
+                     "p99_us": reports[f"fig4 burst {b}"]["latency"]["p99_ns"] / 1e3,
+                     "writebacks": reports[f"fig4 burst {b}"]["extras"]["p0q0_writebacks"],
+                     "received": reports[f"fig4 burst {b}"]["received"],
+                     "sent": reports[f"fig4 burst {b}"]["sent"]} for b in FIG4_BURSTS},
+        "wall_s": walls, "torch_over_numpy_wall": walls["epoch-torch"] / walls["epoch"],
+        "launches": total, "card": card}
+    emit("experiment_summary", summary)
+    if bad:
+        fail(f"experiment: the numpy and card runs disagree or miscounted on {bad}")
+    return {EXP_LABEL: total}
 
 
 def bench_epoch(dev):
@@ -2227,6 +2382,7 @@ def main():
     launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
     errs[("epoch_pass", SIM_LABEL)] = run_epoch_checks(dev)
     launches.update(run_simulate(dev, card))
+    launches.update(run_experiments(card))
     errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})

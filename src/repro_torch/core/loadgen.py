@@ -11,7 +11,7 @@ increases the bandwidth to find the maximum sustainable bandwidth."
 
 This class implements all of the above against in-process servers
 (:class:`~repro_torch.core.pmd.BypassL2FwdServer` or
-:class:`~repro.core.kernel_stack.KernelStackServer`).  It plays the NIC role on
+:class:`~repro_torch.core.kernel_stack.KernelStackServer`).  It plays the NIC role on
 the wire side: it DMAs frames into RX descriptor rings and drains TX rings.
 Like its hardware counterpart, the generator itself never drops or delays
 packets — all loss is attributable to the system under test (ring overflow /
@@ -21,7 +21,7 @@ bandwidth" measures.
 Timing comes in two modes:
 
 * **Virtual time** (:meth:`LoadGen.run_sim`, the default through
-  :mod:`repro.exp`): packet emission times are computed *analytically* from
+  :mod:`repro_torch.exp`): packet emission times are computed *analytically* from
   the :class:`TrafficPattern` (uniform spacing, pre-drawn exponential
   inter-arrivals for Poisson, burst trains, trace replay) and a
   :class:`~repro_torch.core.simclock.SimClock` advances event-by-event — the
@@ -514,11 +514,11 @@ class LoadGen:
         return len(done)
 
     # -- fabric attachment (switch/topology mode) -----------------------------
-    # A generator attached to a :class:`~repro.core.switch.Switch` port does
+    # A generator attached to a :class:`~repro_torch.core.switch.Switch` port does
     # not own the far NIC: its frames leave as raw bytes on the fabric and
     # completions come back the same way.  These two primitives are the
     # switch-port counterparts of _send_one/_drain_port; the topology driver
-    # (:mod:`repro.exp.topology`) supplies the timing.
+    # (:mod:`repro_torch.exp.topology`) supplies the timing.
 
     def make_frame(self, pool: PacketPool, size: int, stamp_ns: int,
                    rng: Optional[np.random.Generator] = None,
@@ -633,7 +633,7 @@ class LoadGen:
         wires (recording RTT at return-arrival time).
 
         ``sched`` carries NIC-side timers (the DCA writeback-timeout events
-        armed via :meth:`~repro.core.ethdev.EthDev.attach_dca`); when not
+        armed via :meth:`~repro_torch.core.ethdev.EthDev.attach_dca`); when not
         passed explicitly it is discovered from the ports, so factory-built
         setups (MSB trials) keep their timers firing.
         """
@@ -921,7 +921,7 @@ def find_max_sustainable_bandwidth(
     uses a fresh server/rings via ``make_setup`` so state never leaks.
 
     ``sim_time``: True runs each trial in virtual time (deterministic,
-    host-independent — the default through :mod:`repro.exp`); False forces
+    host-independent — the default through :mod:`repro_torch.exp`); False forces
     wall-clock; None auto-detects (virtual when the factory's server carries
     an attached :class:`SimClock`).  ``engine`` selects the virtual-time
     execution engine per trial: ``"event"`` (the per-event loop),

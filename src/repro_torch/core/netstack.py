@@ -6,11 +6,11 @@ to queues, cores scale without sharing — the paper's Fig. 3(a) core axis.
 This module is the common machinery all three servers
 (:class:`~repro_torch.core.pmd.BypassL2FwdServer`,
 :class:`~repro_torch.core.pmd.PipelineServer`,
-:class:`~repro.core.kernel_stack.KernelStackServer`) now run on:
+:class:`~repro_torch.core.kernel_stack.KernelStackServer`) now run on:
 
 * :class:`Lcore` — one engine: an ordered list of (port, queue) assignments
   plus its processing burst size (per-lcore via
-  :class:`~repro.core.dca.BurstPlan`).
+  :class:`~repro_torch.core.dca.BurstPlan`).
 * :class:`NetworkStack` — owns the lcores and per-queue
   :class:`ServerStats`.  ``poll_once`` schedules the lcores **sequentially
   round-robin**, which is GIL-aware and deterministic: on a 1-core host it

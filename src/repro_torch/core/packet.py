@@ -3,7 +3,7 @@
 This is the DPDK ``rte_mbuf`` / hugepage-mempool analogue: all packet payloads
 live in one contiguous, pre-allocated numpy arena ("pinned hugepages"); a packet
 is just (slot index, length) plus zero-copy views into the arena.  The
-interrupt-driven baseline (:mod:`repro.core.kernel_stack`) deliberately does NOT
+interrupt-driven baseline (:mod:`repro_torch.core.kernel_stack`) deliberately does NOT
 use the pool — it allocates and copies per packet, like sk_buffs.
 
 Wire layout (offsets in bytes), loosely Ethernet-shaped:
@@ -232,7 +232,7 @@ def flow_bytes(buf: np.ndarray) -> np.ndarray:
 
 def read_dst_ip(buf: np.ndarray) -> int:
     """The frame's destination address (flow dst_ip, big endian) — the field
-    a :class:`~repro.core.switch.Switch` forwards on."""
+    a :class:`~repro_torch.core.switch.Switch` forwards on."""
     return int.from_bytes(bytes(buf[FLOW_OFFSET + 4 : FLOW_OFFSET + 8]), "big")
 
 

@@ -19,7 +19,7 @@ bandwidth scale with cores in the paper's Fig. 3(a).
 
 Zero-copy discipline: a packet never leaves its arena slot between RX and TX —
 processing operates on numpy views, and TX posts the same slot the NIC DMA'd
-into.  Compare :mod:`repro.core.kernel_stack`, which copies twice and allocates
+into.  Compare :mod:`repro_torch.core.kernel_stack`, which copies twice and allocates
 per packet.
 
 Own copy, in the PyTorch port, of ``src/repro/core/pmd.py``: the same numpy and plain
@@ -50,11 +50,11 @@ class Port:
     """One NIC port: ``n_queues`` RX/TX descriptor-ring pairs + RSS steering
     over a shared packet pool.
 
-    .. deprecated:: the public device API is :class:`repro.core.ethdev.EthDev`
+    .. deprecated:: the public device API is :class:`repro_torch.core.ethdev.EthDev`
        (the ``rte_ethdev``-faithful facade, which owns a ``Port`` as its
        internal engine).  Direct ``Port``/``Port.make`` construction remains
        supported for existing code and tests, but new scenarios should go
-       through ``EthDev`` / ``repro.exp.ExperimentConfig``.
+       through ``EthDev`` / ``repro_torch.exp.ExperimentConfig``.
     """
 
     def __init__(
@@ -231,7 +231,7 @@ class BypassL2FwdServer(NetworkStack):
     Each lcore quantum on a (port, queue) pair is one DPDK loop iteration:
     rx_burst → process in place → tx_burst on the same queue.  ``burst_size``
     is the DPDK burst knob the DCA use-case (paper §5.2) sweeps — pass a
-    :class:`~repro.core.dca.BurstPlan` for per-lcore bursts.  ``n_lcores``
+    :class:`~repro_torch.core.dca.BurstPlan` for per-lcore bursts.  ``n_lcores``
     defaults to one lcore per (port, queue) pair.
 
     **DCA accumulate mode** (:meth:`enable_dca_accumulate`, virtual time

@@ -982,3 +982,49 @@ def test_epoch_engine_on_the_card_matches_numpy_engine(dev):
     assert got[2].fastpath and got[2].engine == "epoch-torch" and got[2].pass_device == "cuda"
     assert got[:2] == want[:2]
     assert epoch_pass.launches - launches == got[2].n_epochs >= 20 and ref.calls == calls
+
+
+# -- the experiment layer: run_experiment with the pass on the card -----------
+
+def _experiment_on_card(cfg):
+    """run_experiment with the numpy pass, then with the kernel on "cuda":
+    both reports and the kernel's launches."""
+    from repro_torch.exp import run_experiment
+    from repro_torch.kernels import epoch_pass, ref
+    want = run_experiment(cfg.with_traffic(engine="epoch")).to_dict()
+    launches, calls = epoch_pass.launches, ref.calls
+    got = run_experiment(cfg.with_traffic(engine="epoch-torch"), device="cuda").to_dict()
+    assert ref.calls == calls
+    return want, got, epoch_pass.launches - launches
+
+
+def test_fig3a_search_on_the_card_matches_numpy(dev):
+    """Fig. 3a's bypass search at one port (benchmarks/common.py's msb):
+    24.8 Gbit/s under both engines, the kernel launched on the fast path."""
+    from repro_torch.exp import (ExperimentConfig, PoolConfig, PortConfig, StackConfig,
+                                 TrafficConfig)
+    cfg = ExperimentConfig(
+        name="bench", pool=PoolConfig(n_slots=16384, slot_size=1518),
+        ports=(PortConfig(n_queues=1, ring_size=1024, writeback_threshold=32),),
+        stack=StackConfig(kind="bypass", burst_size=64),
+        traffic=TrafficConfig(mode="msb", trial_s=0.004, start_gbps=0.1, refine_iters=4))
+    want, got, launched = _experiment_on_card(cfg)
+    assert got == want and want["extras"]["msb_gbps"] == 24.8
+    assert launched > 0
+
+
+def test_fig4_dca_on_the_card_matches_numpy(dev):
+    """Fig. 4's burst-1024 DCA config (benchmarks/fig4_dca_burst.py): the
+    writeback timers keep it on the event loop under both engines, with
+    equal reports and no launch."""
+    from repro_torch.exp import (DcaConfig, ExperimentConfig, PortConfig, StackConfig,
+                                 TrafficConfig)
+    cfg = ExperimentConfig(
+        name="fig4-burst-1024", ports=(PortConfig(n_queues=1, ring_size=2048),),
+        stack=StackConfig(kind="bypass", n_lcores=1),
+        traffic=TrafficConfig(mode="open_loop", rate_gbps=10.0, packet_size=1518,
+                              duration_s=0.004, seed=3),
+        dca=DcaConfig(burst_size=1024, writeback_threshold=32, writeback_timeout_ns=200_000))
+    want, got, launched = _experiment_on_card(cfg)
+    assert got == want and want["received"] == want["sent"] > 0
+    assert launched == 0

@@ -1,8 +1,11 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, no module reads the JAX
-package's implementation switch, and the attention entry points pick their
-path from the tensor's device only."""
+``chip_smoke.py`` imports JAX or the JAX package, or holds a string that
+names one of their modules (a module path handed to ``import_module`` by a
+variable, as the partitioned engine's worker builder is), no module reads
+the JAX package's implementation switch, and the attention entry points pick
+their path from the tensor's device only."""
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -37,6 +40,30 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
+MODULE_PATH = re.compile(r"[A-Za-z_]\w*(\.[A-Za-z_]\w*)*")
+
+
+def _docstring_nodes(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                yield first.value
+
+
+def _module_path_strings(path: Path):
+    """Every string constant, docstrings aside, that is a whole dotted
+    module path."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n) for n in _docstring_nodes(tree)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs and MODULE_PATH.fullmatch(node.value)):
+            yield node.value
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for need in ("chip_smoke.py", "src/repro_torch/kernels/ops.py",
@@ -57,6 +84,29 @@ def test_the_check_catches_forbidden_imports(tmp_path):
                    "import importlib\nimportlib.import_module('repro.kernels.ops')\n")
     assert [m for m in _imported_modules(src) if _forbidden(m)] == [
         "jax.numpy", "repro.models", "repro.kernels.ops"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_repro_module_path_strings(path):
+    bad = [m for m in _module_path_strings(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} names the modules {bad}"
+
+
+def test_the_check_catches_module_path_strings(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text('"""Copied from repro.exp.topology."""\n'
+                   'BUILDER = ("repro.exp.topology", "build")\n'
+                   'OK = ("repro_torch.exp.topology", "build")\n'
+                   'def f():\n    """jax.numpy"""\n    return ["jaxlib", "jax.lax", "a repro.x b"]\n')
+    assert [m for m in _module_path_strings(src) if _forbidden(m)] == [
+        "repro.exp.topology", "jaxlib", "jax.lax"]
+
+
+def test_partition_workers_import_the_port():
+    from repro_torch.exp import topology
+    assert topology.PARTITION_BUILDER == ("repro_torch.exp.topology",
+                                          "build_partition_domains_subset")
+    assert callable(getattr(topology, topology.PARTITION_BUILDER[1]))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
