@@ -6,7 +6,7 @@ Phases, each printed as one JSON object per line:
 
 1. device: name, capability, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build: the eight CUDA sources under src/repro_torch/kernels/csrc, one nvcc
+2. build: the nine CUDA sources under src/repro_torch/kernels/csrc, one nvcc
    per source, started together;
 3. checks: each kernel against its plain PyTorch version on the card, on the
    same inputs, in f32 (TF32 off) and bf16: flash and decode attention at
@@ -74,8 +74,11 @@ Phases, each printed as one JSON object per line:
    ref.mha_bwd on the same out and lse (f32 the same bound; bf16 each
    gradient within a relative RMS of 1e-2), two calls bitwise equal, on
    causal, window, GQA group 2 and 16, q_offset > 0, rows with no visible
-   key, Dh 80 and 96 (on the Dh 128 body), ragged Sq and Skv, and
-   qwen3-1.7b's train shape; the forward's logsumexp against
+   key, Dh 80 and 96 (on the Dh 128 body), Dh 160 and 192 (on the Dh 256
+   body), Dh 256 with ragged Sq and Skv under q_offset and with rows that see
+   no key, ragged Sq and Skv, recurrentgemma-9b's train shape (group 16 at
+   Dh 256, S 3072 under a 2048-key window) and qwen3-1.7b's train shape;
+   the forward's logsumexp against
    torch.logsumexp, and the rows of exp(s - lse) over the f32 scores the
    backward recomputes summing to 1 (the train shape's worst bf16 error on
    a line of its own);
@@ -89,6 +92,15 @@ Phases, each printed as one JSON object per line:
    shape, and adversarial magnitudes (A 4x as negative, dy scaled by 1e3 and
    by 1e-3; the kernels split the f32 operands of their tensor-core products
    into bf16 parts);
+   rglru_bwd: dx, da_log and dh0 of the RG-LRU scan's autograd.Function
+   against autograd through the plain ref.rglru_scan (f32: max abs <= 1e-4
+   (1 + max |ref|); bf16: relative RMS <= 2e-2), and of the backward kernels
+   alone against ref.rglru_scan_bwd on the same inputs and the forward's
+   saved workspace (f32 the same bound; bf16 within a relative RMS of 1e-2),
+   two calls bitwise equal, on recurrentgemma-9b's train shape, S not a
+   multiple of the 64-step chunk and S inside one chunk, W not a multiple of
+   the 128-channel block, h0 given and not, a cotangent on the final state
+   and none, rows of a_log = 0 (the clamp) and a_log very negative;
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, granite-8b,
    phi4-mini-3.8b, llama3.2-3b, mixtral-8x7b (16 of 32 layers) and
    llama4-maverick-400b-a17b (2 of 48 layers: one dense and one MoE layer),
@@ -118,18 +130,28 @@ Phases, each printed as one JSON object per line:
    device time, which must not read 0, the backward's also per kernel);
    the same for mamba2-1.3b, bypass feed only (exactly 768 ssd_scan and 384
    ssd_scan_bwd launches), profiled for the SSD forward's and backward's
-   device time and idle share; trace_train scales each counted kernel's mean
+   device time and idle share; and for recurrentgemma-9b, bypass feed only,
+   cut to 6 of its 38 layers (two (rglru, rglru, attn) units, 35.9 GB of
+   training state), 8 steps of 4 x 3072 tokens so that its 2048-key window
+   cuts keys (exactly 32 flash forwards, 16 flash backwards, 64 rglru_scan
+   and 32 rglru_scan_bwd launches), its peak memory, profiled for the four
+   kernels' device time; trace_train scales each counted kernel's mean
    event time by its launches in the step (the wrapper counters), as
    device_ms does, since the profiler drops events;
-   train_vs_plain, for each of the two archs: one step's loss and every
+   train_vs_plain, for each of the three archs: one step's loss and every
    gradient with the kernels against the plain versions, f32, full width,
-   4 layers;
+   4 layers (recurrentgemma-9b: one unit and the tail's RG-LRU layer, at S
+   3072), with non-zero gradients on the leaves that only the backward
+   kernels reach;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
-   gather's benchmark; CUDA events; the gather, decode, the SSD scan and
-   its backward also their device time from the profiler, decode, the SSD
-   scan and its backward per kernel, decode with the L2 flushed before each
+   gather's benchmark; the flash backward and the RG-LRU backward also at
+   recurrentgemma-9b's train shape, the flash backward's yardstick there
+   SDPA under the window mask; CUDA events; the gather, decode, the SSD
+   scan and its backward, the flash backward and the RG-LRU backward also
+   their device time from the profiler, decode, the SSD scan and its
+   backward and the RG-LRU backward per kernel, decode with the L2 flushed before each
    call too, SDPA's the same way; the SSD scan and its backward also their
    FMA floor, their FLOP over the 67 TFLOP/s of f32 FMAs, and the backward
    its design's floor, its bf16 mma FLOP (split terms counted) over the
@@ -138,8 +160,8 @@ Phases, each printed as one JSON object per line:
    computing the same function where there is one (checked against the
    kernel), and the bound;
    before them, one line with the flash forward's achieved TFLOP/s at its
-   three shapes beside the bound's, one with the backward's at the train
-   shape, and one (decode_rate) with decode's achieved GB/s over the valid
+   three shapes beside the bound's, one with the backward's at the two train
+   shapes, and one (decode_rate) with decode's achieved GB/s over the valid
    K and V bytes beside the HBM's 3.35 TB/s; gather_host: the host us per
    call of each stage of the gather's wrapper at the benchmark shape
    (time.perf_counter over 1000 calls), and the floors torch.empty and
@@ -202,7 +224,8 @@ FLASH_FWD_BF16_REL_RMS = 1e-2
 # wrong mask, split or combine moves the output by order 100%.
 DECODE_BF16_REL_RMS = 1e-2
 SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "flash_attention_bwd", "burst_gather", "ssd_scan_bwd", "epoch_pass"]
+           "flash_attention_bwd", "burst_gather", "ssd_scan_bwd", "epoch_pass",
+           "rglru_scan_bwd"]
 DECODE_KERNELS = "decode_attn_"  # the name part of decode's partial pass and combine
 SSD_KERNELS = "ssd_scan_"  # the name part of the SSD scan's four kernels
 SSD_PHASES = ("state", "scores", "pass", "out")  # their names after it, in launch order
@@ -219,6 +242,15 @@ SSD_BWD_F32_TOL, SSD_BWD_BF16_REL_RMS = 1e-4, 2e-2
 SSD_BWD_VS_PLAIN_BF16_REL_RMS = 1e-2
 RGLRU_KERNELS = "rglru_scan_"  # the name part of the RG-LRU scan's three kernels
 RGLRU_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
+RGLRU_BWD_KERNELS = "rglru_bwd_"  # the name part of the RG-LRU backward's three kernels
+RGLRU_BWD_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
+# the RG-LRU backward against autograd through the plain scan (f32 max abs
+# within 1e-4 (1 + max |ref|), bf16 relative RMS 2e-2: the plain forward
+# rounds only y and h_last, the kernels dx too) and, alone on the forward's
+# workspace, against ref.rglru_scan_bwd (bf16 1e-2: both compute in f32 and
+# round dx; the kernels reassociate only the carry into each chunk). A wrong
+# decay, carry or chunk edge moves a gradient by order 100%.
+RGLRU_BWD_F32_TOL, RGLRU_BWD_BF16_REL_RMS, RGLRU_BWD_VS_PLAIN_BF16_REL_RMS = 1e-4, 2e-2, 1e-2
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
 # mixtral-8x7b's prompt passes its 4096-token window, so prefill rotates the
 # ring cache and every decode step overwrites its oldest slot
@@ -354,11 +386,12 @@ def rel_rms(got, want):
 def kernel_modules():
     from repro_torch.kernels import (burst_gather, decode_attention, epoch_pass,
                                      flash_attention, flash_attention_bwd, rglru_scan,
-                                     ssd_scan, ssd_scan_bwd)
+                                     rglru_scan_bwd, ssd_scan, ssd_scan_bwd)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
             "flash_attention_bwd": flash_attention_bwd, "burst_gather": burst_gather,
-            "ssd_scan_bwd": ssd_scan_bwd, "epoch_pass": epoch_pass}
+            "ssd_scan_bwd": ssd_scan_bwd, "epoch_pass": epoch_pass,
+            "rglru_scan_bwd": rglru_scan_bwd}
 
 
 def zero_counters():
@@ -1100,9 +1133,16 @@ FLASH_BWD_CASES = [
     (1, 100, 100, 4, 2, 128, False, 0, 0),    # not causal, Dh 128
     (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80: the Dh 128 body, zero columns
     (1, 100, 161, 4, 2, 96, True, 0, 61),     # Dh 96, ragged Sq and Skv under q_offset
+    (1, 200, 200, 4, 1, 160, True, 0, 0),     # Dh 160 on the Dh 256 body, zero columns
+    (1, 130, 130, 2, 1, 192, False, 0, 0),    # Dh 192, not causal
+    (2, 100, 161, 16, 1, 256, True, 64, 61),  # Dh 256, ragged Sq and Skv under q_offset
+    (1, 64, 64, 4, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
+    # recurrentgemma-9b train, full width: group 16 at Dh 256, a window that cuts keys
+    (4, 3072, 3072, 16, 1, 256, True, 2048, 0),
     (4, 2048, 2048, 16, 8, 128, True, 0, 0),  # qwen3-1.7b train, full width
 ]
 FLASH_TRAIN = FLASH_BWD_CASES[-1]
+FLASH_TRAIN_RG = FLASH_BWD_CASES[-2]
 
 
 def flash_grads(fn, q, k, v, dout):
@@ -1125,8 +1165,9 @@ def plain_scores(q, k, *, causal, window, q_offset, scale):
 
 
 def run_flash_bwd_checks(dev):
-    """Returns the bf16 max abs errors at the train shape: of the forward
-    output and of the gradients (largest of dq, dk, dv)."""
+    """Returns the bf16 max abs errors at the train shapes, keyed by (kernel,
+    train label): of the forward output and of the gradients (largest of dq,
+    dk, dv)."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import ops, ref
@@ -1198,10 +1239,12 @@ def run_flash_bwd_checks(dev):
                         "empty_rows": int(empty.sum()), "empty_rows_dq_zero": ok_empty})
             _check("flash_attention_bwd", case, dtype, res,
                    ok and ok_out and ok_lse and ok_empty, "")
+            if case in (FLASH_TRAIN, FLASH_TRAIN_RG) and dtype == torch.bfloat16:
+                label = TRAIN_LABEL if case == FLASH_TRAIN else RG_TRAIN_LABEL
+                worst[("flash_attention", label)] = e_out
+                worst[("flash_attention_bwd", label)] = max(r["max_abs"] for r in
+                                                            (res["dq"], res["dk"], res["dv"]))
             if case == FLASH_TRAIN and dtype == torch.bfloat16:
-                worst["flash_attention"] = e_out
-                worst["flash_attention_bwd"] = max(r["max_abs"] for r in
-                                                   (res["dq"], res["dk"], res["dv"]))
                 emit("flash_train_softmax_row_sums", {
                     "shape": case, "dtype": "bfloat16", "max_abs_err": e_sum,
                     "what": "max |sum_k exp(s - lse) - 1| over rows with a visible key, "
@@ -1306,6 +1349,102 @@ def run_ssd_bwd_checks(dev):
             if case == SSD_TRAIN:
                 worst = max(v["max_abs"] for v in res["vs_ssd_scan_bwd"].values())
             del x, dy, Bm, Cm, gk, gk2, gm, ws
+            torch.cuda.empty_cache()
+    return worst
+
+
+# --------------------------------------------------------------------------
+# RG-LRU backward against autograd through the plain version
+# --------------------------------------------------------------------------
+
+RGLRU_BWD_CASES = [
+    # B, S, W, h0, a cotangent on the final state, a_log ("" drawn, "unit": 0 on
+    # every third step, the clamp; "negative": -30 on every seventh, a = 0)
+    (4, 3072, 4096, False, False, ""),       # recurrentgemma-9b train, full width
+    (3, 1001, 1000, True, True, ""),         # S not a multiple of the chunk, ragged W
+    (2, 50, 33, True, True, ""),             # S inside one chunk: the out kernel alone
+    (2, 197, 129, False, True, ""),          # W one past a block of 128, no h0
+    (2, 300, 256, True, False, ""),          # h0 and no final-state cotangent
+    (2, 300, 256, True, True, "unit"),       # rows of a_log = 0
+    (2, 300, 256, False, True, "negative"),  # a_log very negative
+]
+RGLRU_TRAIN = RGLRU_BWD_CASES[0]
+
+
+def rglru_bwd_inputs(case, dtype, dev, seed=0):
+    B, S, W, with_h0, with_dh, kind = case
+    x, a_log, h0 = rglru_inputs((B, S, W, with_h0), dtype, dev, seed=seed)
+    if kind == "unit":
+        a_log[:, ::3] = 0.0
+    elif kind == "negative":
+        a_log[:, ::7] = -30.0
+    gen = torch.Generator().manual_seed(seed + 1)
+    dy = randn(gen, (B, S, W), dtype, dev)
+    dh = randn(gen, (B, W), dtype, dev) if with_dh else None
+    return x, a_log, h0, dy, dh
+
+
+def rglru_grads(fn, x, a_log, h0, dy, dh):
+    """The gradients (dx, da_log[, dh0]) of <y, dy> + <h_last, dh> through
+    ``fn`` by autograd, on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a_log)]
+    h0l = h0.detach().clone().requires_grad_(True) if h0 is not None else None
+    y, hl = fn(*leaves, h0=h0l)
+    loss = (y.float() * dy.float()).sum() + ((hl.float() * dh.float()).sum()
+                                             if dh is not None else 0)
+    return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+
+
+def _rglru_grad_errs(got, want, dtype, rel_rms_bound):
+    res, ok = {}, True
+    for name, a, b in zip(("dx", "da_log", "dh0"), got, want):
+        if b is None:
+            ok = ok and a is None
+            continue
+        err = float((a.float() - b.float()).abs().max())
+        if dtype == torch.float32:
+            bound = RGLRU_BWD_F32_TOL * (1 + float(b.float().abs().max()))
+            res[name] = {"max_abs": err, "bound_max_abs": bound}
+            ok = ok and err <= bound
+        else:
+            rr = rel_rms(a, b)
+            res[name] = {"rel_rms": rr, "bound_rel_rms": rel_rms_bound, "max_abs": err}
+            ok = ok and rr <= rel_rms_bound
+        ok = ok and bool(torch.isfinite(a).all()) and a.dtype == b.dtype
+    return res, ok
+
+
+def run_rglru_bwd_checks(dev):
+    """Returns the bf16 max abs error of the backward kernels against
+    ref.rglru_scan_bwd at the train shape (largest over the gradients)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as krglru
+    from repro_torch.kernels import rglru_scan_bwd as kbwd
+    worst = None
+    for case in RGLRU_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a_log, h0, dy, dh = rglru_bwd_inputs(case, dtype, dev, seed=7)
+            g = rglru_grads(ops.rglru_scan, x, a_log, h0, dy, dh)
+            gp = rglru_grads(ref.rglru_scan, x, a_log, h0, dy, dh)
+            torch.cuda.synchronize()
+            res, ok = _rglru_grad_errs(g, gp, dtype, RGLRU_BWD_BF16_REL_RMS)
+            del g, gp
+            # the kernels alone, twice, against ref.rglru_scan_bwd on the forward's workspace
+            _, _, ws = krglru._forward(x, a_log, h0)
+            gk = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+            gk2 = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+            gm = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
+            torch.cuda.synchronize()
+            res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
+                                            if a is not None)
+            res["dh0_iff_h0"] = (gk[2] is None) == (h0 is None)
+            res["vs_rglru_scan_bwd"], ok_k = _rglru_grad_errs(gk, gm, dtype,
+                                                              RGLRU_BWD_VS_PLAIN_BF16_REL_RMS)
+            ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
+            _check("rglru_scan_bwd", case, dtype, res, ok, "")
+            if case == RGLRU_TRAIN and dtype == torch.bfloat16:
+                worst = max(v["max_abs"] for v in res["vs_rglru_scan_bwd"].values())
+            del x, a_log, dy, gk, gk2, gm, ws
             torch.cuda.empty_cache()
     return worst
 
@@ -1574,25 +1713,62 @@ def run_trace(cfg, params, dev, steps=8):
 TRAIN = dict(arch="qwen3-1.7b", seq_len=2048, global_batch=4, steps=8, seed=0)
 TRAIN_LABEL = "qwen3-1.7b train"
 SSM_TRAIN_LABEL = "mamba2-1.3b train"
-TRAIN_FEEDS = {"qwen3-1.7b": ("bypass", "kernel"), "mamba2-1.3b": ("bypass",)}
+RG_TRAIN_LABEL = "recurrentgemma-9b train"
+TRAIN_FEEDS = {"qwen3-1.7b": ("bypass", "kernel"), "mamba2-1.3b": ("bypass",),
+               "recurrentgemma-9b": ("bypass",)}
+# per arch where it differs from TRAIN: recurrentgemma-9b at S 3072, past its
+# 2048-key window, so that the window cuts keys, as in its serve prefill; its
+# training state is 138 GB at 38 layers (16 B a param), so it keeps two
+# whole (rglru, rglru, attn) units, 6 layers: 35.9 GB of state
+TRAIN_SHAPE = {"recurrentgemma-9b": dict(seq_len=3072, global_batch=4, n_layers=6)}
 TRAIN_LOSS_REL, TRAIN_GRAD_OF_MAX, RESTART_TOL = 1e-5, 1e-4, 1e-4
 # the kernels of each family's train step: (name part of their kernels,
-# counter of their wrapper); each kernel name launches once a wrapper call
+# counter of their wrapper, the kind of layer that calls it, whether it is a
+# backward); each kernel name launches once a wrapper call
 TRAIN_KERNELS = {
-    "dense": {"flash_fwd": ("flash_fwd_", "flash_attention"),
-              "flash_bwd": ("flash_bwd_", "flash_attention_bwd")},
-    "ssm": {"ssd_fwd": (SSD_KERNELS, "ssd_scan"), "ssd_bwd": (SSD_BWD_KERNELS, "ssd_scan_bwd")},
+    "dense": {"flash_fwd": ("flash_fwd_", "flash_attention", "attn", False),
+              "flash_bwd": ("flash_bwd_", "flash_attention_bwd", "attn", True)},
+    "ssm": {"ssd_fwd": (SSD_KERNELS, "ssd_scan", "ssd", False),
+            "ssd_bwd": (SSD_BWD_KERNELS, "ssd_scan_bwd", "ssd", True)},
+    "hybrid": {"flash_fwd": ("flash_fwd_", "flash_attention", "attn", False),
+               "flash_bwd": ("flash_bwd_", "flash_attention_bwd", "attn", True),
+               "rglru_fwd": (RGLRU_KERNELS, "rglru_scan", "rglru", False),
+               "rglru_bwd": (RGLRU_BWD_KERNELS, "rglru_scan_bwd", "rglru", True)},
 }
-# leaves whose gradient only the family's backward kernel gives
-KERNEL_GRAD_LEAVES = {"dense": ("wq", "wk", "wv"), "ssm": ("a_log", "dt_bias")}
+# leaves whose gradient only the family's backward kernels give
+KERNEL_GRAD_LEAVES = {"dense": ("wq", "wk", "wv"), "ssm": ("a_log", "dt_bias"),
+                      "hybrid": ("lam", "wq", "wk", "wv")}
+
+
+def train_config(arch, **kw):
+    """``arch``'s full-width config, cut in depth where TRAIN_SHAPE says."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    if "n_layers" in TRAIN_SHAPE.get(arch, {}):
+        cfg = cfg.replace(n_layers=TRAIN_SHAPE[arch]["n_layers"])
+    return cfg.replace(**kw)
+
+
+def train_shape(arch):
+    """(seq_len, global_batch) of ``arch``'s train runs."""
+    shape = {**TRAIN, **TRAIN_SHAPE.get(arch, {})}
+    return shape["seq_len"], shape["global_batch"]
+
+
+def layer_kinds(cfg):
+    """The kind of each layer, in order: what calls which kernel."""
+    if cfg.family == "hybrid":
+        return [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    return [{"dense": "attn", "ssm": "ssd"}[cfg.family]] * cfg.n_layers
 
 
 def train_expected(cfg, steps):
     """Launches of ``steps`` train steps: per layer, the forward and its
     recompute under torch.utils.checkpoint, then one backward, of the
-    family's kernel (flash attention, or the SSD scan)."""
-    fwd, bwd = [counter for _, counter in TRAIN_KERNELS[cfg.family].values()]
-    return {fwd: 2 * cfg.n_layers * steps, bwd: cfg.n_layers * steps}
+    kernels its kind calls (flash attention, the SSD scan, the RG-LRU scan)."""
+    kinds = layer_kinds(cfg)
+    return {counter: (1 if bwd else 2) * kinds.count(kind) * steps
+            for _, counter, kind, bwd in TRAIN_KERNELS[cfg.family].values()}
 
 
 def _pct(xs, q):
@@ -1646,7 +1822,7 @@ def trace_train(cfg, rt, state, dev):
         if e.device_type == DeviceType.CUDA:
             events.setdefault(e.name, []).append(e.time_range.elapsed_us())
     lost_us, counted = 0.0, {}
-    for fam, (part, counter) in TRAIN_KERNELS[cfg.family].items():
+    for fam, (part, counter, _, _) in TRAIN_KERNELS[cfg.family].items():
         n = launches[counter]
         names = [k for k in events if part in k and (fam != "ssd_fwd" or SSD_BWD_KERNELS not in k)]
         mean = {k: sum(events[k]) / len(events[k]) for k in names}
@@ -1667,16 +1843,15 @@ def trace_train(cfg, rt, state, dev):
 
 
 def run_train(dev, card, arch):
-    """``arch`` at full width, bf16, 8 steps with each of its feeds
-    (TRAIN_FEEDS) on the same batches. Returns the bypass run's launch
-    counts."""
+    """``arch`` at full width (depth cut where TRAIN_SHAPE says), bf16, 8
+    steps with each of its feeds (TRAIN_FEEDS) on the same batches. Returns
+    the bypass run's launch counts."""
     import contextlib
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.models.registry import get_config
     from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
-    cfg = get_config(arch)
-    dcfg = DataConfig(seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"],
-                      seed=TRAIN["seed"])
+    cfg = train_config(arch)
+    seq_len, global_batch = train_shape(arch)
+    dcfg = DataConfig(seq_len=seq_len, global_batch=global_batch, seed=TRAIN["seed"])
     emit("train_checkpointing", f"{arch}: off at full width: params, gradients, f32 master "
          f"copy and AdamW moments are {16 * cfg.param_count() / 1e9:.1f} GB to hash and "
          "write; the restart phase drives checkpoints at the smoke config")
@@ -1695,10 +1870,12 @@ def run_train(dev, card, arch):
         want = {name: expected.get(name, 0) for name in launches}
         losses = [m["loss"] for m in rt.metrics_log]
         st = rt.feed.stats
-        tokens = TRAIN["steps"] * TRAIN["global_batch"] * TRAIN["seq_len"]
+        tokens = TRAIN["steps"] * global_batch * seq_len
         out = {
             "card": card, "arch": cfg.arch_id, "feed": feed, "params": cfg.param_count(),
-            "dtype": cfg.param_dtype, **{k: TRAIN[k] for k in ("seq_len", "global_batch", "steps")},
+            "n_layers": cfg.n_layers, "training_state_gb": 16 * cfg.param_count() / 1e9,
+            "dtype": cfg.param_dtype, "seq_len": seq_len, "global_batch": global_batch,
+            "steps": TRAIN["steps"],
             "losses": losses, "grad_norms": [m["grad_norm"] for m in rt.metrics_log],
             "step_ms": [t * 1e3 for t in rt.step_times_s],
             "step_ms_median": _pct(rt.step_times_s, 50) * 1e3,
@@ -1740,16 +1917,17 @@ def run_train(dev, card, arch):
 
 def run_train_vs_plain(dev, arch):
     """One step's loss and every gradient, kernels against plain versions:
-    f32, full width, 4 layers."""
+    f32, full width, 4 layers (for recurrentgemma-9b one pattern unit and
+    the tail's first RG-LRU layer), at the arch's train shape."""
     from repro_torch import tree
     from repro_torch.data.pipeline import DataConfig, synth_tokens
     from repro_torch.launch import serve
-    from repro_torch.models.registry import get_config
     from repro_torch.runtime.steps import loss_and_grads
-    cfg = get_config(arch).replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    cfg = train_config(arch, n_layers=4, param_dtype="float32", compute_dtype="float32")
     params = serve.init_params(cfg, 0, dev)
-    host = synth_tokens(cfg, DataConfig(seq_len=TRAIN["seq_len"],
-                                        global_batch=TRAIN["global_batch"], seed=1), 0, 1, 0)
+    seq_len, global_batch = train_shape(arch)
+    host = synth_tokens(cfg, DataConfig(seq_len=seq_len, global_batch=global_batch, seed=1),
+                        0, 1, 0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     zero_counters()
     loss_k, _, gk = loss_and_grads(cfg, params, batch)
@@ -1769,7 +1947,8 @@ def run_train_vs_plain(dev, arch):
     loss_ok = abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
     leaves = KERNEL_GRAD_LEAVES[cfg.family]
-    out = {"arch": arch, "n_layers": cfg.n_layers, "dtype": "float32", "loss_kernels": lk,
+    out = {"arch": arch, "n_layers": cfg.n_layers, "seq_len": seq_len,
+           "global_batch": global_batch, "dtype": "float32", "loss_kernels": lk,
            "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
            "bound_loss_rel": TRAIN_LOSS_REL, "grad_leaves": len(gp),
            "worst_grad_err_of_max": top, "bound_grad_err_of_max": TRAIN_GRAD_OF_MAX,
@@ -1840,6 +2019,8 @@ def _row(name, arch, launches, errs, card, **kw):
            "burst_gather": ("burst_gather.cu", "burst_gather.py:34"),
            # the gradient of the Pallas forward, which JAX takes through its chunked path
            "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan.py:66"),
+           # the gradient of the Pallas forward, which JAX takes through its associative scan
+           "rglru_scan_bwd": ("rglru_scan_bwd.cu", "rglru_scan.py:46"),
            # jitted XLA (the scan and gather of get_epoch_pass_jax), not Pallas
            "epoch_pass": ("epoch_pass.cu", "epoch_fastpath.py:108")}[name]
     return {"name": f"{name} ({arch})", "route": "cuda",
@@ -1890,50 +2071,59 @@ def time_flash(arch, launches, errs, card, dev):
                        "lse": with_lse})
 
 
-def time_flash_bwd(launches, errs, card, dev):
+def time_flash_bwd(case, label, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import ref
-    B, S, _, H, Hkv, Dh = FLASH_TRAIN[:6]
+    B, S, _, H, Hkv, Dh, _, window, _ = case
     scale = Dh ** -0.5
-    mask = dict(causal=True, window=0, q_offset=0)
-    q, k, v = flash_inputs(FLASH_TRAIN, torch.bfloat16, dev, seed=3)
+    mask = dict(causal=True, window=window, q_offset=0)
+    q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
     dout = randn(torch.Generator().manual_seed(9), q.shape, torch.bfloat16, dev)
     out, lse = kflash._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
-    pairs = S * (S + 1) // 2
+    # visible (q, k) pairs per (b, h) under the causal and window masks
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     # read q, o, dO and k, v once, write dq, dk, dv; 5 products of 2*Dh FLOP per
     # visible pair and head: the scores again, dP, dV, dK and dQ
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, 10 * Dh * pairs * B * H)
     kern = lambda: kbwd.flash_attention_bwd_cuda(  # noqa: E731
         q, k, v, out, lse, dout, softmax_scale=scale, **mask)
-    # plain: autograd's backward through ref.mha, its graph built outside the timing
+    # plain: autograd's backward through ref.mha (in blocks of query rows where
+    # its scores would not fit), its graph built outside the timing
     qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
-    out_p = ref.mha(qp, kp, vp, softmax_scale=scale, **mask)
+    out_p = plain_mha(qp, kp, vp, softmax_scale=scale, **mask)
     plain_ms = time_ms(lambda: torch.autograd.grad(out_p, (qp, kp, vp), dout,
                                                    retain_graph=True), iters=3, warmup=1)
     del out_p, qp, kp, vp
     torch.cuda.empty_cache()
-    # library: SDPA's forward + backward minus its forward (the port never calls it)
+    # library: SDPA's forward + backward minus its forward (the port never calls it);
+    # SDPA takes a window only as a mask, built outside the timing
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     dout_t = dout.transpose(1, 2).contiguous()
+    attn_mask = (ref.attention_mask(S, S, causal=True, window=window, device=dev)
+                 if window else None)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        qt, kt, vt, attn_mask=attn_mask, is_causal=attn_mask is None, scale=scale,
+        enable_gqa=True)
     sdpa_fb = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dout_t)  # noqa: E731
     lib_ms = time_ms(sdpa_fb, iters=20) - time_ms(sdpa, iters=20)
     got = kern()
     rr = max(rel_rms(a, b.transpose(1, 2)) for a, b in zip(got, sdpa_fb()))
     flops = 10 * Dh * pairs * B * H
     ms = time_ms(kern, iters=10)
-    return _row("flash_attention_bwd", TRAIN_LABEL, launches, errs, card,
+    return _row("flash_attention_bwd", label, launches, errs, card,
                 ms=ms, flops=flops, tflop_per_s=flops / ms / 1e9, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms(kern, "flash_bwd_", iters=10),
                 library_ms=lib_ms,
-                library="scaled_dot_product_attention forward+backward minus its forward",
+                library="scaled_dot_product_attention forward+backward minus its forward"
+                        + (", window mask" if window else ""),
                 library_vs_kernel_rel_rms=(rr, rr <= FLASH_BWD_BF16_REL_RMS),
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
-                       "causal": True, "dtype": "bfloat16", "bytes": nbytes})
+                       "causal": True, "window": window, "dtype": "bfloat16",
+                       "bytes": nbytes})
 
 
 GATHER_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)  # the paper's DPDK bursts, the ring
@@ -2273,6 +2463,50 @@ def time_rglru(launches, errs, card, dev):
                        "plan": p._asdict()})
 
 
+def time_rglru_bwd(launches, errs, card, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krglru
+    from repro_torch.kernels import rglru_scan_bwd as kbwd
+    B, S, W = RGLRU_TRAIN[:3]
+    x, a_log, _, dy, _ = rglru_bwd_inputs(RGLRU_TRAIN, torch.bfloat16, dev, seed=6)
+    # read x, a_log and dy once, write dx and da_log: 14 bytes an element
+    nbytes = x.numel() * (2 + 4 + 2 + 2 + 4)
+    # per element: exp, a*a, 1 - a^2, max, sqrt, the carry's add and product,
+    # s g, a x / s, the difference, two products, and the forward step's three
+    flops = 16 * x.numel()
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    p = kbwd.plan(B, S, W)
+    # what this design moves, were none of it held in the L2: dy and a_log read
+    # by the chunk kernel (all chunks but the first), x and a_log by the out
+    # kernel's forward walk, x, a_log and dy again by its reverse walk, dx and
+    # da_log written; the forward's entering states read, and this call's f32
+    # workspace (P and E written, read by the pass, E rewritten, then read)
+    slots = B * (p.n_chunks - 1) * W
+    design_bytes = (slots * p.chunk * 6 + x.numel() * (6 + 8 + 6)
+                    + slots * (4 + 8 + 8 + 4 + 4))
+    _, _, ws = krglru._forward(x, a_log, None)
+    kern = lambda: kbwd.rglru_scan_bwd_cuda(  # noqa: E731
+        x, a_log, None, dy, None, fwd_workspace=ws)
+    # plain: autograd's backward through ref.rglru_scan, its graph built outside the timing
+    leaves = [t.clone().requires_grad_(True) for t in (x, a_log)]
+    y_p, _ = ref.rglru_scan(*leaves)
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_p, leaves, dy, retain_graph=True),
+                       iters=2, warmup=1)
+    del y_p, leaves
+    torch.cuda.empty_cache()
+    return _row("rglru_scan_bwd", RG_TRAIN_LABEL, launches, errs, card,
+                ms=time_ms(kern, iters=20),
+                device_ms=device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
+                device_ms_per_kernel={ph: device_ms(kern, RGLRU_BWD_KERNELS + ph, iters=20)
+                                      for ph in RGLRU_BWD_PHASES},
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                design_floor_ms=design_bytes / HBM_BYTES_PER_S * 1e3, library_ms=None,
+                library="none: no single PyTorch call computes an RG-LRU gradient",
+                shape={"B": B, "S": S, "W": W, "x": "bfloat16", "a_log": "float32",
+                       "dy": "bfloat16", "bytes": nbytes, "design_bytes": design_bytes,
+                       "plan": p._asdict()})
+
+
 def run_times(launches, errs, card, dev):
     rows = [time_flash("qwen3-1.7b", launches, errs, card, dev),
             time_decode("qwen3-1.7b", launches, errs, card, dev),
@@ -2284,8 +2518,10 @@ def run_times(launches, errs, card, dev):
             time_decode("phi4-mini-3.8b", launches, errs, card, dev),
             time_decode("llama4-maverick-400b-a17b", launches, errs, card, dev),
             time_flash(TRAIN_LABEL, launches, errs, card, dev),
-            time_flash_bwd(launches, errs, card, dev),
+            time_flash_bwd(FLASH_TRAIN, TRAIN_LABEL, launches, errs, card, dev),
             time_ssd_bwd(launches, errs, card, dev),
+            time_flash_bwd(FLASH_TRAIN_RG, RG_TRAIN_LABEL, launches, errs, card, dev),
+            time_rglru_bwd(launches, errs, card, dev),
             time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"]),
             time_epoch_pass(launches, errs, card, dev)]
     gather_sweep(dev, card)
@@ -2299,7 +2535,8 @@ def run_times(launches, errs, card, dev):
          "flops": r["flops"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "bound_tflop_per_s": r["flops"] / r["bound_ms"] / 1e9,
          "what": "10 Dh FLOP per visible (query, key) pair and head: the 5 products "
-                 "a fused backward needs; the kernels do 7", "card": r["card"]}
+                 "a fused backward needs; the kernels do 7 (11 at Dh 256, where two "
+                 "blocks share each tile)", "card": r["card"]}
         for r in rows if r["name"].startswith("flash_attention_bwd")])
     emit("decode_rate", [
         {"name": r["name"], "kv_bytes": r["kv_bytes"], "device_ms": r["device_ms"],
@@ -2383,8 +2620,9 @@ def main():
     errs[("epoch_pass", SIM_LABEL)] = run_epoch_checks(dev)
     launches.update(run_simulate(dev, card))
     launches.update(run_experiments(card))
-    errs.update({(name, TRAIN_LABEL): e for name, e in run_flash_bwd_checks(dev).items()})
+    errs.update(run_flash_bwd_checks(dev))
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
+    errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
     for arch in TRAIN_FEEDS:
         launches[f"{arch} train"] = run_train(dev, card, arch)

@@ -101,8 +101,8 @@ def refuse_grad(name: str, *tensors) -> None:
     The wrappers fill their outputs through ctypes, so the outputs carry no
     ``grad_fn``: under grad mode, an input that requires grad would silently
     get no gradient through the kernel. Wrappers of kernels without a
-    backward (``rglru_scan_cuda``, ``decode_attention_cuda``) call this before
-    launching; ``None`` entries are skipped."""
+    backward (``decode_attention_cuda``) call this before launching; ``None``
+    entries are skipped."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} has no backward kernel yet (see ROADMAP.md), and its output "

@@ -62,22 +62,32 @@
 // operands; the sums are f32. The recomputed scores are the forward's bf16
 // products (exact in f32) summed in another order, so the rows of
 // exp(s - lse) sum to 1 within rounding (chip_smoke.py holds them there).
-// Instantiated for Dh 32, 64 and 128; another multiple of 16 runs on the
-// next instantiation with its extra columns zero and skipped. The inputs
-// must start on 16-byte boundaries (the wrapper checks). A failed launch
-// returns its error: there is no other bf16 path.
+// Instantiated for Dh 32, 64, 128 and 256; another multiple of 16 runs on
+// the next instantiation with its extra columns zero and skipped. At Dh 256
+// each tile has two blocks, each owning one half of the output columns (see
+// Head dims). The inputs must start on 16-byte boundaries (the wrapper
+// checks). A failed launch returns its error: there is no other bf16 path.
 //
 // f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): the same two kernels
 // with f32 FMAs on the CUDA cores (the tensor cores would round f32 to TF32,
 // and train_vs_plain, restart and every f32 check hold the f32 gradient to
 // 1e-4). A block of 256 threads recomputes 64 x 64 tiles of S and dP, each
 // thread 4 rows x 4 columns, from f32 tiles in shared memory (padded pitch
-// Dh + 1); in f32 the scores are the forward's own order.
+// Dh + 1); in f32 the scores are the forward's own order. At Dh 256 the
+// tiles are 32 x 32, each thread 2 x 2: four 64-row tiles at pitch 257 would
+// take 263 KB of shared memory, four of 32 rows take 132 KB.
 //
-// Head dims: a multiple of 16 up to 128 (qwen3's 128 included). A warp's dK
-// and dV accumulators (16 keys x Dh) take 128 registers a thread at Dh 128,
-// the f32 body's 64; at Dh 256 neither fits beside the score tiles, so the
-// wrapper refuses larger head dims (ROADMAP.md lists the redesign).
+// Head dims: a multiple of 16 up to 256 (qwen3's 128 and recurrentgemma's
+// 256 included). A warp's dK and dV accumulators (16 keys x Dh) take 128
+// registers a thread at Dh 128; at Dh 256 they would not fit beside the
+// score tiles, so there the bf16 body splits the output columns over the
+// grid: two blocks share each kv tile (and each query tile of kernel 3), one
+// per half of Dh. Each recomputes S and dP over the whole Dh from its own
+// shared-memory tiles and accumulates, then writes, its 128 columns only: the
+// accumulators of Dh 128, at twice the score products. Every output element
+// is still summed in one block in a fixed order. The f32 body keeps its
+// accumulators whole: 32-key tiles at Dh 256 hold as many (2 keys x 16
+// columns a thread) as 64-key tiles at Dh 128.
 //
 // What bounds it on the H100. At qwen3-1.7b's train shape (B 4, S 2048, H 16,
 // Hkv 8, Dh 128, causal, bf16) the gradient needs 5 products of 2 * Dh FLOP
@@ -89,8 +99,14 @@
 // goes through ldmatrix from shared memory, and kernel 2's accumulators (dK
 // and dV over the whole Dh) leave room for two blocks of 4 warps an SM. One
 // fused pass (dQ summed across blocks in a deterministic second pass) and
-// wgmma tiles fed by TMA are the way further down. PERF.md holds the
-// measured times beside the bound.
+// wgmma tiles fed by TMA are the way further down. At recurrentgemma-9b's
+// train shape (B 4, S 3072, H 16, Hkv 1, Dh 256, a 2048-key window, bf16)
+// the same count is 687 GFLOP over 4.2 M visible pairs per (b, h): 0.70 ms at
+// 989 TFLOP/s, above the 0.13 ms of its 428 MB of reads and writes. There
+// the column split does the score and dP products twice (11 products a pair
+// where a fused kernel would need 5), and the dK/dV blocks (199 KB of shared
+// memory) run one to an SM. PERF.md holds the measured times beside the
+// bound.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -99,9 +115,7 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads: 16 x 16, each 4 rows x 4 columns of a score tile
+constexpr int NT = 256;  // f32 body threads: 16 x 16, each owning a square of a score tile
 
 // D[b,h,s] = sum_d dO[b,s,h,d] * O[b,s,h,d]: one warp per (b, s, h) row.
 template <typename T>
@@ -137,9 +151,13 @@ cudaError_t launch_dot(const void* dout, const void* o, float* D, int B, int Sq,
 // f32 body: FMAs on the CUDA cores
 // --------------------------------------------------------------------------
 
-__host__ __device__ constexpr size_t smem_floats(int dh) {
-  // four (64 x (dh+1)) row tiles, two (64 x 65) score tiles, lse and D
-  return 4 * (size_t)64 * (dh + 1) + 2 * (size_t)BQ * (BK + 1) + 2 * (size_t)BQ;
+// Tiles of TT query rows and TT keys (64 up to Dh 128, 32 at Dh 256, where
+// four 64-row tiles at pitch Dh + 1 would not fit a block's shared memory);
+// thread (ty, tx) of the 16 x 16 owns rows ty + 16 i and columns tx + 16 j,
+// i, j < TT / 16, of a score tile.
+__host__ __device__ constexpr size_t smem_floats(int dh, int tt) {
+  // four (tt x (dh+1)) row tiles, two (tt x (tt+1)) score tiles, lse and D
+  return 4 * (size_t)tt * (dh + 1) + 2 * (size_t)tt * (tt + 1) + 2 * (size_t)tt;
 }
 
 // Load `n` rows (of `rows` in the tile) of a head's Dh columns, padded
@@ -153,48 +171,50 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long row
   }
 }
 
-// The 64 x 64 tiles of P and dS for query rows q0.. (nq valid) against keys
+// The TT x TT tiles of P and dS for query rows q0.. (nq valid) against keys
 // k0.. (nk valid), from Qs, dOs, Ks, Vs, Ls, Ds in shared memory. Thread
 // (ty, tx) owns rows ty + 16 i and columns tx + 16 j. Writes Ps and dSs.
+template <int TT>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs, const float* Ks,
                                             const float* Vs, const float* Ls, const float* Ds,
                                             float* Ps, float* dSs, int q0, int nq, int k0,
                                             int nk, int Dh, int causal, int window,
                                             int q_offset, float scale) {
-  const int qp = Dh + 1, pp = BK + 1;
+  constexpr int R = TT / 16;
+  const int qp = Dh + 1, pp = TT + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < Dh; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    float qv[R], ov[R], kv[R], vv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       qv[i] = Qs[(ty + 16 * i) * qp + d];
       ov[i] = dOs[(ty + 16 * i) * qp + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       kv[j] = Ks[(tx + 16 * j) * qp + d];
       vv[j] = Vs[(tx + 16 * j) * qp + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const int qpos = q0 + r + q_offset;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j, kpos = k0 + c;
       bool ok = r < nq && c < nk;
       if (causal) ok = ok && kpos <= qpos;
@@ -207,12 +227,13 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs, c
 }
 
 // dK and dV for one (kv tile, kv head, batch row).
-template <int NC>
+template <int NC, int TT>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ D,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H, int Hkv, int Dh,
     int causal, int window, int q_offset, float scale) {
+  constexpr int BQ = TT, BK = TT, R = TT / 16;
   extern __shared__ float smem[];
   const int qp = Dh + 1, pp = BK + 1;
   float* Ks = smem;             // BK x qp
@@ -240,9 +261,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   if (causal) q_lo = max(0, k0 - q_offset);
   if (window > 0) q_hi = max(0, min(Sq, k0 + nk - 1 + window - q_offset));
 
-  float dk_acc[4][NC], dv_acc[4][NC];
+  float dk_acc[R][NC], dv_acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
@@ -261,14 +282,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
         Ds[tid] = tid < nq ? D_h[q0 + tid] : 0.f;
       }
       __syncthreads();
-      score_tiles(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, nq, k0, nk, Dh, causal, window,
-                  q_offset, scale);
+      score_tiles<TT>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, nq, k0, nk, Dh, causal, window,
+                      q_offset, scale);
       __syncthreads();
       // dV[c] += sum_r P[r][c] dO[r];  dK[c] += sum_r dS[r][c] Q[r]
       for (int r = 0; r < nq; ++r) {
-        float p[4], ds[4];
+        float p[R], ds[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           p[i] = Ps[r * pp + ty + 16 * i];
           ds[i] = dSs[r * pp + ty + 16 * i];
         }
@@ -277,7 +298,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
           if (c < nc) {
             const float ov = dOs[r * qp + tx + 16 * c], qv = Qs[r * qp + tx + 16 * c];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < R; ++i) {
               dv_acc[i][c] = fmaf(p[i], ov, dv_acc[i][c]);
               dk_acc[i][c] = fmaf(ds[i], qv, dk_acc[i][c]);
             }
@@ -288,7 +309,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int c = ty + 16 * i;
     if (c < nk) {
 #pragma unroll
@@ -303,12 +324,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 }
 
 // dQ for one (query tile, head, batch row).
-template <int NC>
+template <int NC, int TT>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ D,
     float* __restrict__ dq, int Sq, int Skv, int H, int Hkv, int Dh, int causal, int window,
     int q_offset, float scale) {
+  constexpr int BQ = TT, BK = TT, R = TT / 16;
   extern __shared__ float smem[];
   const int qp = Dh + 1, pp = BK + 1;
   float* Qs = smem;             // BQ x qp
@@ -342,9 +364,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   if (causal) kv_hi = max(0, min(Skv, qpos_hi + 1));
   if (window > 0) kv_lo = max(0, qpos_lo - window + 1);
 
-  float acc[4][NC];
+  float acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
@@ -355,27 +377,27 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     load_tile(Ks, k + kv_off, kv_row, nk, BK, Dh);
     load_tile(Vs, v + kv_off, kv_row, nk, BK, Dh);
     __syncthreads();
-    score_tiles(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, nq, k0, nk, Dh, causal, window,
-                q_offset, scale);
+    score_tiles<TT>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, nq, k0, nk, Dh, causal, window,
+                    q_offset, scale);
     __syncthreads();
     // dQ[r] += sum_c dS[r][c] K[c]
     for (int c = 0; c < nk; ++c) {
-      float ds[4];
+      float ds[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * pp + c];
+      for (int i = 0; i < R; ++i) ds[i] = dSs[(ty + 16 * i) * pp + c];
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         if (cc < nc) {
           const float kv = Ks[c * qp + tx + 16 * cc];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(ds[i], kv, acc[i][cc]);
+          for (int i = 0; i < R; ++i) acc[i][cc] = fmaf(ds[i], kv, acc[i][cc]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     if (r < nq) {
 #pragma unroll
@@ -385,30 +407,30 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 }
 
-template <int NC>
+template <int NC, int TT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* D, void* dq, void* dk,
                    void* dv, int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
                    int window, int q_offset, float scale, cudaStream_t st) {
   // one opt-in per instantiation and device, for the instantiation's largest Dh
   static std::atomic<bool> dkdv_set[repro::kMaxDevices], dq_set[repro::kMaxDevices];
-  const int max_bytes = (int)(smem_floats(16 * NC) * sizeof(float));
-  cudaError_t e = repro::opt_in_smem(flash_bwd_dkdv_kernel<NC>, max_bytes, dkdv_set);
+  const int max_bytes = (int)(smem_floats(16 * NC, TT) * sizeof(float));
+  cudaError_t e = repro::opt_in_smem(flash_bwd_dkdv_kernel<NC, TT>, max_bytes, dkdv_set);
   if (e != cudaSuccess) return e;
-  e = repro::opt_in_smem(flash_bwd_dq_kernel<NC>, max_bytes, dq_set);
+  e = repro::opt_in_smem(flash_bwd_dq_kernel<NC, TT>, max_bytes, dq_set);
   if (e != cudaSuccess) return e;
-  const size_t bytes = smem_floats(Dh) * sizeof(float);
+  const size_t bytes = smem_floats(Dh, TT) * sizeof(float);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
 
   if ((e = launch_dot<float>(dout, o, D, B, Sq, H, Dh, st)) != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<NC><<<dim3((Skv + BK - 1) / BK, Hkv, B), NT, bytes, st>>>(
+  flash_bwd_dkdv_kernel<NC, TT><<<dim3((Skv + TT - 1) / TT, Hkv, B), NT, bytes, st>>>(
       qt, kt, vt, dot, lse, D, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, H,
       Hkv, Dh, causal, window, q_offset, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  flash_bwd_dq_kernel<NC><<<dim3((Sq + BQ - 1) / BQ, H, B), NT, bytes, st>>>(
+  flash_bwd_dq_kernel<NC, TT><<<dim3((Sq + TT - 1) / TT, H, B), NT, bytes, st>>>(
       qt, kt, vt, dot, lse, D, static_cast<float*>(dq), Sq, Skv, H, Hkv, Dh, causal, window,
       q_offset, scale);
   return cudaGetLastError();
@@ -419,13 +441,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      void* dv, int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
                      int window, int q_offset, float scale, cudaStream_t st) {
   if (Dh <= 32)
-    return launch<2>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
-                     window, q_offset, scale, st);
+    return launch<2, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+                         window, q_offset, scale, st);
   if (Dh <= 64)
-    return launch<4>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
-                     window, q_offset, scale, st);
-  return launch<8>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
-                   window, q_offset, scale, st);
+    return launch<4, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+                         window, q_offset, scale, st);
+  if (Dh <= 128)
+    return launch<8, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+                         window, q_offset, scale, st);
+  return launch<16, 32>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+                        window, q_offset, scale, st);
 }
 
 // --------------------------------------------------------------------------
@@ -445,6 +470,15 @@ using namespace repro::mma;
 // tile. At Dh 64, ptxas spills a few registers of the dK/dV kernel with 64-query steps (at
 // 168 registers) and none with 32-query steps; at Dh 32 and 128 the 64-query
 // steps spill nothing and were the faster on the card.
+// At DH 256 a block owns DC = 128 of the output columns (dK and dV, or dQ),
+// so its accumulators are those of DH 128; SPLIT = 2 blocks share each tile,
+// each recomputing S and dP over the whole head dim from its shared-memory
+// tiles. Its dQ steps take 32 keys: 64 would leave the Q fragments (DH / 16
+// of them, kept in registers) no room beside the score tiles, and the K and
+// V stages no room in shared memory (dK/dV 199 KB, dQ 132 KB). ptxas gives
+// the DH 256 dK/dV kernel 250 registers and no spill, its dQ kernel 255
+// registers and 16 bytes of spill (the f32 body's Dh 256 dQ kernel 64
+// registers and 20 bytes).
 template <int DH>
 struct Tile {
   static constexpr int WARPS = 4;
@@ -452,7 +486,9 @@ struct Tile {
   static constexpr int BKV = 16 * WARPS;       // keys of a dK/dV block
   static constexpr int BQ = DH == 64 ? 32 : 64;  // queries of a dK/dV step
   static constexpr int BM = 16 * WARPS;   // query rows of a dQ block
-  static constexpr int BK = 64;           // keys of a dQ step
+  static constexpr int BK = DH > 128 ? 32 : 64;  // keys of a dQ step
+  static constexpr int DC = DH > 128 ? 128 : DH;  // output columns a block owns
+  static constexpr int SPLIT = DH / DC;           // blocks of one tile, one per column slice
   static constexpr int P = DH + 8;
   static constexpr size_t SMEM_DKDV =
       (size_t)(2 * BKV + 4 * BQ) * P * sizeof(bf16) + 4 * BQ * sizeof(float);
@@ -470,7 +506,7 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
     int Skv, int H, int Hkv, int Dh, int causal, int window, int q_offset, float scale,
     float scale_log2) {
   using T = Tile<DH>;
-  constexpr int NT = T::NT, BKV = T::BKV, BQ = T::BQ, P = T::P;
+  constexpr int NT = T::NT, BKV = T::BKV, BQ = T::BQ, P = T::P, DC = T::DC;
   constexpr int CH = DH / 8;  // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // BKV x P
@@ -478,7 +514,9 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
   bf16* QdO = Vs + BKV * P;  // stage s: Q at QdO + 2 s BQ P, dO BQ P after it
   float* LD = reinterpret_cast<float*>(QdO + 4 * BQ * P);  // stage s: lse, D at LD + 2 s BQ
 
-  const int hb = blockIdx.x % (Hkv * B), kt = blockIdx.x / (Hkv * B);
+  const int tile = blockIdx.x / T::SPLIT;
+  const int c0 = (blockIdx.x % T::SPLIT) * DC;  // the first of the block's output columns
+  const int hb = tile % (Hkv * B), kt = tile / (Hkv * B);
   const int kvh = hb % Hkv, b = hb / Hkv;
   const int k0 = kt * BKV;  // under causal, tile 0 sees the most queries: heaviest first
   const int nk = min(BKV, Skv - k0);
@@ -535,9 +573,9 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
   const uint32_t v_addr = smem_u32(Vs + wrow * P + a_off<P>(lane));
   const int qb_off = b_off<P>(lane), qt_off = bt_off<P>(lane);
 
-  float acc_dk[DH / 8][4], acc_dv[DH / 8][4];
+  float acc_dk[DC / 8][4], acc_dv[DC / 8][4];  // columns c0 .. c0 + DC - 1
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
 
@@ -614,10 +652,10 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
         uint32_t a[4];
         pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
-          if (dp * 16 < Dh) {
+        for (int dp = 0; dp < DC / 16; ++dp) {
+          if (c0 + dp * 16 < Dh) {
             uint32_t bo[4];
-            ldmatrix_x4_trans(bo, dot + (kk * 16 * P + dp * 16) * 2);
+            ldmatrix_x4_trans(bo, dot + (kk * 16 * P + c0 + dp * 16) * 2);
             mma_bf16(acc_dv[2 * dp], a, bo[0], bo[1]);
             mma_bf16(acc_dv[2 * dp + 1], a, bo[2], bo[3]);
           }
@@ -663,10 +701,10 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
         uint32_t a[4];
         pack_a(a, ds[2 * kk], ds[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
-          if (dp * 16 < Dh) {
+        for (int dp = 0; dp < DC / 16; ++dp) {
+          if (c0 + dp * 16 < Dh) {
             uint32_t bq[4];
-            ldmatrix_x4_trans(bq, qt + (kk * 16 * P + dp * 16) * 2);
+            ldmatrix_x4_trans(bq, qt + (kk * 16 * P + c0 + dp * 16) * 2);
             mma_bf16(acc_dk[2 * dp], a, bq[0], bq[1]);
             mma_bf16(acc_dk[2 * dp + 1], a, bq[2], bq[3]);
           }
@@ -678,12 +716,12 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
   cp_async_wait<0>();  // with no step, K and V may still be in flight
   __syncthreads();
 
-  // epilogue: dK (scaled) and dV staged in the warp's own K and V rows,
-  // stored as 16-byte rows
+  // epilogue: dK (scaled) and dV of the block's columns staged in the warp's
+  // own K and V rows, stored as 16-byte rows
   bf16* dKs = Ks + wrow * P;
   bf16* dVs = Vs + wrow * P;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int o = (g + 8 * i) * P + j * 8 + 2 * cq;
@@ -692,10 +730,10 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dkdv_mma_kernel(
       *reinterpret_cast<uint32_t*>(dVs + o) = pack_bf16(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
     }
   __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i % CH, row = wrow + r;
-    if (row < nk && c < dch) {
-      const long off = kv_off + (long)row * kv_row + c * 8;
+  for (int i = lane; i < 16 * (DC / 8); i += 32) {
+    const int r = i / (DC / 8), c = i % (DC / 8), row = wrow + r;
+    if (row < nk && c0 + c * 8 < Dh) {
+      const long off = kv_off + (long)row * kv_row + c0 + c * 8;
       *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(dKs + r * P + c * 8);
       *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(dVs + r * P + c * 8);
     }
@@ -710,7 +748,7 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dq_mma_kernel(
     const float* __restrict__ D, bf16* __restrict__ dq, int B, int Sq, int Skv, int H,
     int Hkv, int Dh, int causal, int window, int q_offset, float scale, float scale_log2) {
   using T = Tile<DH>;
-  constexpr int NT = T::NT, BM = T::BM, BK = T::BK, P = T::P;
+  constexpr int NT = T::NT, BM = T::BM, BK = T::BK, P = T::P, DC = T::DC;
   constexpr int CH = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BM x P
@@ -718,7 +756,9 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dq_mma_kernel(
   bf16* KVs = dOs + BM * P;  // stage s: K at KVs + 2 s BK P, V BK P after it
 
   const int n_qt = (Sq + BM - 1) / BM;
-  const int hb = blockIdx.x % (H * B), qt_lin = blockIdx.x / (H * B);
+  const int tile = blockIdx.x / T::SPLIT;
+  const int c0 = (blockIdx.x % T::SPLIT) * DC;  // the first of the block's output columns
+  const int hb = tile % (H * B), qt_lin = tile / (H * B);
   const int h = hb % H, b = hb / H;
   const int q0 = (causal ? n_qt - 1 - qt_lin : qt_lin) * BM;  // heaviest first
   const int nq = min(BM, Sq - q0);
@@ -787,9 +827,9 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dq_mma_kernel(
   for (int kk = 0; kk < DH / 16; ++kk)
     if (kk * 16 < Dh) ldmatrix_x4(qa[kk], q_addr + kk * 32);
 
-  float acc[DH / 8][4];
+  float acc[DC / 8][4];  // columns c0 .. c0 + DC - 1
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -885,10 +925,10 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dq_mma_kernel(
         uint32_t a[4];
         pack_a(a, ds[2 * kk], ds[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
-          if (dp * 16 < Dh) {
+        for (int dp = 0; dp < DC / 16; ++dp) {
+          if (c0 + dp * 16 < Dh) {
             uint32_t bk[4];
-            ldmatrix_x4_trans(bk, kt_addr + (kk * 16 * P + dp * 16) * 2);
+            ldmatrix_x4_trans(bk, kt_addr + (kk * 16 * P + c0 + dp * 16) * 2);
             mma_bf16(acc[2 * dp], a, bk[0], bk[1]);
             mma_bf16(acc[2 * dp + 1], a, bk[2], bk[3]);
           }
@@ -900,19 +940,20 @@ __global__ void __launch_bounds__(Tile<DH>::NT) flash_bwd_dq_mma_kernel(
   cp_async_wait<0>();  // with no kv tile, Q and dO may still be in flight
   __syncthreads();
 
-  // epilogue: dQ (scaled) staged in the warp's own Q rows, stored as 16-byte rows
+  // epilogue: dQ (scaled) of the block's columns staged in the warp's own Q
+  // rows, stored as 16-byte rows
   bf16* dQs = Qs + wrow * P;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       *reinterpret_cast<uint32_t*>(dQs + (g + 8 * i) * P + j * 8 + 2 * cq) =
           pack_bf16(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i % CH, row = wrow + r;
-    if (row < nq && c < dch)
-      *reinterpret_cast<uint4*>(dq + q_off + (long)row * q_row + c * 8) =
+  for (int i = lane; i < 16 * (DC / 8); i += 32) {
+    const int r = i / (DC / 8), c = i % (DC / 8), row = wrow + r;
+    if (row < nq && c0 + c * 8 < Dh)
+      *reinterpret_cast<uint4*>(dq + q_off + (long)row * q_row + c0 + c * 8) =
           *reinterpret_cast<const uint4*>(dQs + r * P + c * 8);
   }
 }
@@ -929,8 +970,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return e;
   e = repro::opt_in_smem(flash_bwd_dq_mma_kernel<DH>, (int)T::SMEM_DQ, dq_set);
   if (e != cudaSuccess) return e;
-  const long dkdv_blocks = (long)((Skv + T::BKV - 1) / T::BKV) * Hkv * B;
-  const long dq_blocks = (long)((Sq + T::BM - 1) / T::BM) * H * B;
+  const long dkdv_blocks = (long)((Skv + T::BKV - 1) / T::BKV) * Hkv * B * T::SPLIT;
+  const long dq_blocks = (long)((Sq + T::BM - 1) / T::BM) * H * B * T::SPLIT;
   if (dkdv_blocks > 0x7fffffffL || dq_blocks > 0x7fffffffL)
     return cudaErrorInvalidConfiguration;
   const bf16* qt = static_cast<const bf16*>(q);
@@ -960,7 +1001,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   if (Dh <= 64)
     return launch<64>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
                       window, q_offset, scale, st);
-  return launch<128>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+  if (Dh <= 128)
+    return launch<128>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
+                       window, q_offset, scale, st);
+  return launch<256>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
                      window, q_offset, scale, st);
 }
 
@@ -973,14 +1017,14 @@ REPRO_ERROR_STRING_FN(flash_attention_bwd)
 // q, o, dout, dq (B,Sq,H,Dh); k, v, dk, dv (B,Skv,Hkv,Dh); all contiguous and
 // of one dtype (repro::kF32 or repro::kBF16; bf16 ones starting on 16-byte
 // boundaries); lse (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32
-// scratch. Dh a multiple of 16, at most 128. Launches three kernels on
+// scratch. Dh a multiple of 16, at most 256. Launches three kernels on
 // `stream`; returns the first cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                                    int Skv, int H, int Hkv, int Dh, int causal, int window,
                                    int q_offset, float scale, int dtype, void* stream) {
-  if (Dh <= 0 || Dh % 16 != 0 || Dh > 128 || Hkv <= 0 || H % Hkv != 0 || B > 65535 ||
+  if (Dh <= 0 || Dh % 16 != 0 || Dh > 256 || Hkv <= 0 || H % Hkv != 0 || B > 65535 ||
       H > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -27,7 +27,7 @@
 //      memory once per kPassUnroll chunks.
 //   3. rglru_scan_out, one thread per (b, chunk, w): starts from the state
 //      entering its chunk (h0 or 0 for the first) and walks its steps with
-//      the same per-step arithmetic as a sequential scan (step() below, in
+//      the same per-step arithmetic as a sequential scan (rglru_step.cuh, in
 //      every kernel), writing y; the last chunk's thread writes h_last from
 //      its own h, so h_last is y's last row to the bit, as in the
 //      sequential scan.
@@ -57,6 +57,7 @@
 // C item 4); it needs a look-back over several chunks in flight.
 
 #include "common.cuh"
+#include "rglru_step.cuh"
 
 #include <math.h>
 
@@ -73,12 +74,6 @@ struct Dims {
   int nc;  // chunks of a row
 };
 
-// One step of the recurrence from a = exp(a_log), the same instructions in
-// every kernel: no contraction or fast-math variant can differ between them.
-__device__ __forceinline__ float step(float h, float a, float x) {
-  const float g = sqrtf(fmaxf(fmaf(-a, a, 1.f), 1e-12f));
-  return fmaf(a, h, __fmul_rn(g, x));
-}
 
 // Walks n steps of one channel from element index i (stride W), calling
 // f(t, a_t, x_t) in step order with a_t = expf(a_log_t); the loads of U
@@ -114,7 +109,7 @@ __global__ void __launch_bounds__(NT) rglru_scan_chunk(
   float h = 0.f, p = 1.f;
   walk(x, a_log, ((long)b * d.S + (long)c * d.L) * d.W + w, d.L, d.W,
        [&](int, float a, float xv) {
-         h = step(h, a, xv);
+         h = repro::rglru_step(h, a, xv);
          p *= a;
        });
   const long slot = ((long)b * (d.nc - 1) + c) * d.W + w;
@@ -161,7 +156,7 @@ __global__ void __launch_bounds__(NT) rglru_scan_out(
                   : (h0 != nullptr ? h0[(long)b * d.W + w] : 0.f);
   const long i = ((long)b * d.S + (long)c * d.L) * d.W + w;
   walk(x, a_log, i, min(d.L, d.S - c * d.L), d.W, [&](int t, float a, float xv) {
-    h = step(h, a, xv);
+    h = repro::rglru_step(h, a, xv);
     y[i + (long)t * d.W] = repro::from_f32<T>(h);
   });
   if (c == d.nc - 1) h_last[(long)b * d.W + w] = repro::from_f32<T>(h);

@@ -54,9 +54,7 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if Dh % 16 or not 16 <= Dh <= max_head_dim:
         raise ValueError(f"{name} takes head_dim a multiple of 16 in [16, "
-                         f"{max_head_dim}], got {Dh}"
-                         + ("" if max_head_dim >= 256 else
-                            " (larger head dims need the redesign ROADMAP.md lists)"))
+                         f"{max_head_dim}], got {Dh}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} needs contiguous q, k, v")
 

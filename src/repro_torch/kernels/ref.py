@@ -7,8 +7,10 @@ the forward's saved output and logsumexp, as the backward kernel takes them
 (the JAX package differentiates its chunked path instead). ``ssd_scan`` is
 the JAX package's chunked form (``repro.kernels.ops.ssd_scan``),
 ``ssd_sequential`` its sequential oracle, ``rglru_scan`` a sequential f32
-loop, and ``burst_gather`` copies ``repro.kernels.ref.burst_gather`` with the
-index semantics of JAX's ``arena[slots]``, and ``epoch_pass`` is
+loop and ``rglru_scan_bwd`` its gradient in closed form (the JAX package
+differentiates its associative scan instead), ``burst_gather`` copies
+``repro.kernels.ref.burst_gather`` with the index semantics of JAX's
+``arena[slots]``, and ``epoch_pass`` is
 ``epoch_pass_np`` (``kernels/epoch_pass.py``) in torch. The CPU takes them in ``ops``; on
 the card they are what ``chip_smoke.py`` holds each CUDA kernel against.
 ``calls`` counts every call so a run can show that serving did not use them.
@@ -367,6 +369,47 @@ def rglru_scan(x: torch.Tensor, a_log: torch.Tensor, *,
         h = a[:, t] * h + g[:, t]
         ys.append(h)
     return torch.stack(ys, 1).to(x.dtype), h.to(x.dtype)
+
+
+def rglru_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch.Tensor],
+                   dy: Optional[torch.Tensor], dh_last: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The gradient of ``rglru_scan`` as its closed form, in f32, with the
+    backward kernel's signature: x, a_log (B,S,W), h0 (B,W) or None, dy
+    (B,S,W) or None and dh_last (B,W) or None (no gradient on the outputs or
+    on the final state) → (dx in x's dtype, da_log f32, dh0 f32 or None when
+    h0 is None).
+
+    With a_t = exp(a_log_t), s_t = √max(1 − a_t², 1e-12), h_{t−1} the f32
+    state entering step t (h0 or 0 first) and g_t = dy_t + a_{t+1} g_{t+1}
+    in reverse time, dh_last added to g's last row:
+    dx_t = s_t g_t, da_log_t = a_t g_t (h_{t−1} − a_t x_t / s_t), the √ term
+    dropped where 1 − a_t² < 1e-12 (the clamp's constant side), and dh0 =
+    a_0 g_0."""
+    global calls
+    calls += 1
+    B, S, W = x.shape
+    a = torch.exp(a_log.float())
+    u = 1.0 - a * a
+    s = torch.sqrt(torch.clamp_min(u, 1e-12))
+    xf = x.float()
+    zeros = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+    h = h0.float() if h0 is not None else zeros
+    h_prev = []
+    for t in range(S):
+        h_prev.append(h)
+        h = a[:, t] * h + s[:, t] * xf[:, t]
+    h_prev = torch.stack(h_prev, 1)
+    dyf = dy.float() if dy is not None else torch.zeros_like(xf)
+    carry = dh_last.float() if dh_last is not None else zeros
+    g = [None] * S
+    for t in reversed(range(S)):
+        g[t] = dyf[:, t] + carry
+        carry = a[:, t] * g[t]
+    g = torch.stack(g, 1)
+    ds_da = torch.where(u >= 1e-12, -a / s, torch.zeros_like(a))
+    da_log = a * g * (h_prev + ds_da * xf)
+    return (s * g).to(x.dtype), da_log, carry if h0 is not None else None
 
 
 def burst_gather(arena: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor,

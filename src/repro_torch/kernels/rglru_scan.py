@@ -7,7 +7,12 @@ the current stream (the chunks' decay products and end states, the pass
 over the chunks, the outputs from the carried state), or the output kernel
 alone where S is one chunk; ``plan`` works out the chunk length, the grids
 and the f32 workspace here on the host, from the shapes alone. ``launches``
-counts calls of the wrapper (up to three kernels each).
+counts forward calls (up to three kernels each).
+
+When autograd needs a gradient (grad mode on and an input that requires
+grad), the call goes through ``RGLRUScan``, an ``autograd.Function`` whose
+backward is the CUDA backward (``rglru_scan_bwd.py``). Otherwise the forward
+runs alone and its workspace is freed.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -73,11 +79,10 @@ def _fn():
     return lib, fn
 
 
-def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
-                    h0: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,W) f32 or bf16, a_log (B,S,W) f32, h0 (B,W) f32 or None, on one
-    CUDA device → (y (B,S,W), h_last (B,W)) in x's dtype."""
+def _forward(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, h_last, the f32 workspace after the call: the decay products, then
+    the states entering chunks 1 .. n_chunks - 1, as ``plan`` lays them out)."""
     global launches
     ts = (x, a_log) + ((h0,) if h0 is not None else ())
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
@@ -97,11 +102,10 @@ def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
     if S == 0 or B > MAX_GRID_YZ:
         raise ValueError(f"rglru_scan_cuda takes 1 or more steps and at most "
                          f"{MAX_GRID_YZ} batch rows, got S {S}, B {B}")
-    _build.refuse_grad("rglru_scan_cuda", *ts)
     y = torch.empty_like(x)
     h_last = torch.empty((B, W), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
-        return y, h_last
+        return y, h_last, torch.empty(0, dtype=torch.float32, device=x.device)
     p = plan(B, S, W)
     lib, fn = _fn()
     with torch.cuda.device(x.device):
@@ -113,4 +117,38 @@ def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
                  B, S, W, p.chunk, _build.DTYPE_CODES[x.dtype], stream)
     launches += 1
     _build.check(lib, "rglru_scan", err)
-    return y, h_last
+    return y, h_last, ws
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan with the CUDA backward kernels as its gradient. The
+    forward keeps its f32 workspace (the states entering each chunk) for the
+    backward, which recomputes the states inside each chunk from it."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, h0):
+        y, h_last, ws = _forward(x, a_log, h0)
+        ctx.save_for_backward(x, a_log, h0, ws)
+        ctx.set_materialize_grads(False)  # no gradient on an output: no zeros made
+        return y, h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_last):
+        from .rglru_scan_bwd import rglru_scan_bwd_cuda
+        x, a_log, h0, ws = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh_last = None if dh_last is None else dh_last.contiguous()
+        return rglru_scan_bwd_cuda(x, a_log, h0, dy, dh_last, fwd_workspace=ws)
+
+
+def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
+                    h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,W) f32 or bf16, a_log (B,S,W) f32, h0 (B,W) f32 or None, on one
+    CUDA device → (y (B,S,W), h_last (B,W)) in x's dtype, differentiable
+    through the backward kernels."""
+    ts = (x, a_log) + ((h0,) if h0 is not None else ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return RGLRUScan.apply(x, a_log, h0)
+    return _forward(x, a_log, h0)[:2]

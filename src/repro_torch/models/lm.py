@@ -1,8 +1,8 @@
 """LM facade, ``tokens`` frontend: serving over the dense, moe, hybrid and
-ssm families, training over the dense and ssm families.
+ssm families, training over the dense, hybrid and ssm families.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
-* ``train_loss(cfg, params, batch)`` — scalar loss + metrics (dense and ssm)
+* ``train_loss(cfg, params, batch)`` — scalar loss + metrics (dense, hybrid, ssm)
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving
 
 Init draws from the same distributions as the JAX init (normal·0.02, and
@@ -63,14 +63,14 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy of ``batch`` {"tokens", "labels"} (B,S)
     (labels -100 ignored), with per-layer recompute. Returns (loss, {loss,
-    xent, aux, tokens}), f32 scalars. The dense and ssm families train: the
-    hybrid family needs a backward kernel for its RG-LRU scan, moe training
-    is a later slice, and encoder and vlm are not ported (ROADMAP.md)."""
+    xent, aux, tokens}), f32 scalars. The dense, hybrid and ssm families
+    train; moe training is a later slice, and encoder and vlm are not ported
+    (ROADMAP.md)."""
     _check_frontend(cfg)
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.arch_id}: training the {cfg.family!r} family is not ported yet; "
-            "repro_torch trains the dense and ssm families (ROADMAP.md)")
+            "repro_torch trains the dense, hybrid and ssm families (ROADMAP.md)")
     tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)

@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from .config import ModelConfig
@@ -176,16 +177,29 @@ def _mlp_residual(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["mlp_norm"], x))
 
 
+def _layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    h_in = apply_norm(cfg, p["mix_norm"], x)
+    if kind == "attn":
+        h = apply_attention(cfg, p["attn"], h_in, positions, window_override=cfg.window)
+    else:
+        h = apply_rglru_block(cfg, p["rglru"], h_in)
+    return _mlp_residual(cfg, p, x + h)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run all layers over the sequence (no cache). Returns (hidden, aux 0)."""
+    """Run all layers over the sequence (no cache). Returns (hidden, aux 0).
+
+    Each layer runs under ``torch.utils.checkpoint``: only its input is kept,
+    and the backward runs the layer again (its RG-LRU scan or attention
+    forward kernel included) to rebuild what it needs. The JAX package remats
+    per pattern unit (``repro.models.rglru.forward_hidden``); the
+    granularity changes what is kept, not a value."""
     for kind, p, _ in _layers(cfg, params):
-        h_in = apply_norm(cfg, p["mix_norm"], x)
-        if kind == "attn":
-            h = apply_attention(cfg, p["attn"], h_in, positions, window_override=cfg.window)
-        else:
-            h = apply_rglru_block(cfg, p["rglru"], h_in)
-        x = _mlp_residual(cfg, p, x + h)
+        # the layers draw no random numbers: no RNG state to replay
+        x = torch.utils.checkpoint.checkpoint(_layer, cfg, kind, p, x, positions,
+                                              use_reentrant=False, preserve_rng_state=False)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -9,7 +9,7 @@ Tolerances as on the CPU: attention 2e-5 for f32 (TF32 off), 2e-2 for bf16
 (its gradient 1e-4 and a relative RMS of 2e-2 against autograd through the
 plain forward, 1e-2 against the plain backward, see below); the RG-LRU scan
 1e-4 / 3e-2 (its kernels reassociate only the state entering each chunk, about
-L ulp); the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
+L ulp), its gradient as attention's; the SSD scan 5e-4 against the sequential oracle (2e-2 on bf16 y,
 which the oracle rounds only at its output) and, at the prefill shape in bf16,
 a relative RMS of 1e-2 against the chunked plain version; the burst gather
 exactly.
@@ -593,6 +593,10 @@ BWD_CASES = [
     (1, 384, 384, 2, 1, 16, True, 128, 0),    # Dh 16 (the Dh 32 body), a window over tiles
     (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80 on the Dh 128 body, zero columns
     (1, 200, 200, 4, 1, 96, False, 0, 0),     # Dh 96, not causal
+    (1, 200, 200, 16, 1, 256, True, 64, 0),   # Dh 256, group 16, a window that cuts keys
+    (1, 130, 130, 2, 1, 160, True, 0, 0),     # Dh 160 on the Dh 256 body, zero columns
+    (2, 100, 161, 4, 2, 192, True, 0, 61),    # Dh 192, ragged Sq and Skv under q_offset
+    (1, 64, 64, 2, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
     (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 
@@ -668,7 +672,7 @@ def test_flash_bwd_vs_plain_bwd(dev, case, dtype):
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[2], BWD_CASES[-1]],
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[2], BWD_CASES[8], BWD_CASES[-1]],
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_bf16_calls_are_bitwise_repeatable(dev, case):
     """No atomics and a fixed summation order: two bf16 backward calls on the
@@ -684,30 +688,142 @@ def test_flash_bwd_bf16_calls_are_bitwise_repeatable(dev, case):
         assert torch.equal(x, y)
 
 
-def test_flash_backward_refuses_head_dims_past_128(dev):
-    from repro_torch.kernels import ops
+def test_flash_backward_refuses_head_dims_past_256(dev):
+    """Dh 256 trains (recurrentgemma-9b's); past it the backward refuses, as
+    the forward does."""
+    from repro_torch.kernels import flash_attention_bwd, ops
     q = torch.zeros(1, 16, 2, 256, device=dev, requires_grad=True)
     k = torch.zeros(1, 16, 1, 256, device=dev, requires_grad=True)
-    out = ops.flash_attention(q, k, k)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        out.sum().backward()
+    ops.flash_attention(q, k, k).sum().backward()
+    assert q.grad is not None and k.grad is not None
+    q, k = torch.zeros(1, 16, 2, 272, device=dev), torch.zeros(1, 16, 1, 272, device=dev)
+    lse = torch.zeros(1, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        flash_attention_bwd.flash_attention_bwd_cuda(q, k, k, q, lse, q, causal=True,
+                                                     window=0, q_offset=0,
+                                                     softmax_scale=272 ** -0.5)
 
 
 def test_wrappers_without_a_backward_raise_under_autograd(dev):
-    """decode and RG-LRU have no backward kernel: under grad mode an input
-    that requires grad must raise, not yield an output without grad."""
+    """decode has no backward kernel: under grad mode an input that requires
+    grad must raise, not yield an output without grad."""
     from repro_torch.kernels import ops
     q = torch.zeros(1, 2, 16, device=dev, requires_grad=True)
     kc = torch.zeros(1, 8, 1, 16, device=dev)
     cl = torch.ones(1, dtype=torch.int32, device=dev)
-    xr = torch.zeros(1, 8, 16, device=dev, requires_grad=True)
-    calls = [lambda: ops.decode_attention(q, kc, kc, cl),
-             lambda: ops.rglru_scan(xr, torch.zeros(1, 8, 16, device=dev))]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="ROADMAP.md"):
-            call()
-        with torch.no_grad():
-            call()
+    with pytest.raises(RuntimeError, match="ROADMAP.md"):
+        ops.decode_attention(q, kc, kc, cl)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, kc, cl)
+
+
+# B, S, W, h0, a cotangent on the final state; the plan's chunk is 64
+RGLRU_BWD_CASES = [
+    (2, 197, 33, True, True),     # 4 chunks, the last of 5 steps; W under one block
+    (2, 63, 33, False, True),     # one chunk: the out kernel alone
+    (3, 1001, 1000, True, False),  # ragged S and W, no final-state cotangent
+    (1, 65, 129, False, False),   # a last chunk of one step, W one past a block
+]
+
+
+def _rglru_bwd_inputs(dev, case, dtype, seed=9):
+    B, S, W, with_h0, with_dh = case
+    x, a_log, h0 = _rglru_inputs(dev, B, S, W, with_h0, dtype, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    dy = _randn(gen, (B, S, W), dtype, dev)
+    dh = _randn(gen, (B, W), dtype, dev) if with_dh else None
+    return x, a_log, h0, dy, dh
+
+
+def _rglru_grads(fn, x, a_log, h0, dy, dh):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a_log)]
+    h0l = h0.detach().clone().requires_grad_(True) if h0 is not None else None
+    y, hl = fn(*leaves, h0=h0l)
+    loss = (y.float() * dy.float()).sum() + ((hl.float() * dh.float()).sum()
+                                             if dh is not None else 0)
+    return torch.autograd.grad(loss, leaves + ([h0l] if h0l is not None else []))
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_vs_autograd_through_the_plain_version(dev, case, dtype):
+    """dx, da_log and dh0 of RGLRUScan against autograd through ref.rglru_scan:
+    f32 within 1e-4 (1 + max |ref|), bf16 within a relative RMS of 2e-2 (the
+    plain forward rounds only y and h_last, the kernels also dx)."""
+    from repro_torch.kernels import ops, ref, rglru_scan, rglru_scan_bwd
+    x, a_log, h0, dy, dh = _rglru_bwd_inputs(dev, case, dtype)
+    before = (rglru_scan.launches, rglru_scan_bwd.launches, ref.calls)
+    got = _rglru_grads(ops.rglru_scan, x, a_log, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert (rglru_scan.launches, rglru_scan_bwd.launches, ref.calls) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = _rglru_grads(ref.rglru_scan, x, a_log, h0, dy, dh)
+    assert len(got) == len(want) == (3 if h0 is not None else 2)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+        else:
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_bwd_kernel_vs_the_plain_backward(dev, case, dtype):
+    """The backward kernels alone, on the forward's own workspace, against
+    ref.rglru_scan_bwd: f32 within 1e-4 (1 + max |ref|), bf16 within a
+    relative RMS of 1e-2 (both compute in f32; the kernels reassociate only
+    the carry into each chunk); two calls bitwise equal."""
+    from repro_torch.kernels import ref, rglru_scan, rglru_scan_bwd
+    x, a_log, h0, dy, dh = _rglru_bwd_inputs(dev, case, dtype, seed=11)
+    _, _, ws = rglru_scan._forward(x, a_log, h0)
+    got = rglru_scan_bwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    again = rglru_scan_bwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    want = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert (a is None) == (b is None)
+        if b is None:
+            continue
+        assert torch.equal(a, a2) and a.dtype == b.dtype
+        if dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+        else:
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
+
+
+def test_rglru_bwd_kernel_with_unit_decay(dev):
+    """a_log 0 on some steps (a = 1, under the clamp) and very negative on
+    others (a = 0): f32 within 1e-4 (1 + max |ref|) of ref.rglru_scan_bwd."""
+    from repro_torch.kernels import ref, rglru_scan, rglru_scan_bwd
+    x, a_log, h0, dy, dh = _rglru_bwd_inputs(dev, (2, 197, 33, True, True), torch.float32)
+    a_log[:, ::3] = 0.0
+    a_log[:, 1::7] = -30.0
+    _, _, ws = rglru_scan._forward(x, a_log, h0)
+    got = rglru_scan_bwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    want = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+
+
+def test_rglru_gradient_flows_through_the_backward_kernels(dev):
+    """The RG-LRU scan under autograd gives x, a_log and h0 a gradient through
+    its backward kernels, and none of the plain versions runs; without grad
+    the forward runs alone."""
+    from repro_torch.kernels import ops, ref, rglru_scan, rglru_scan_bwd
+    x, a_log, h0 = _rglru_inputs(dev, 2, 130, 40, True, torch.float32)
+    leaves = [t.requires_grad_(True) for t in (x, a_log, h0)]
+    fwd, bwd, plain = rglru_scan.launches, rglru_scan_bwd.launches, ref.calls
+    y, hl = ops.rglru_scan(leaves[0], leaves[1], h0=leaves[2])
+    assert y.grad_fn is not None and hl.grad_fn is not None
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (rglru_scan.launches, rglru_scan_bwd.launches, ref.calls) == (fwd + 1, bwd + 1,
+                                                                         plain)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
+    with torch.no_grad():
+        y, _ = ops.rglru_scan(leaves[0], leaves[1], h0=leaves[2])
+    assert y.grad_fn is None and rglru_scan.launches == fwd + 2
 
 
 def test_ssd_gradient_flows_through_the_backward_kernels(dev):
@@ -862,6 +978,24 @@ def test_smoke_train_goes_through_the_kernels(dev):
     rt = train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "2", "--seq-len", "32",
                      "--global-batch", "2", "--log-every", "1"])
     assert (flash_attention.launches, flash_attention_bwd.launches) == (16, 8)
+    assert ref.calls == 0
+    assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN
+
+
+def test_smoke_train_of_recurrentgemma_goes_through_the_kernels(dev):
+    """Two recurrentgemma-9b smoke train steps (4 RG-LRU layers and 1
+    attention layer): per step each layer's forward and its recompute, and
+    one backward; no plain call."""
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd, ref, rglru_scan,
+                                     rglru_scan_bwd)
+    from repro_torch.launch import train
+    mods = (flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd)
+    for m in mods:
+        m.launches = 0
+    ref.calls = 0
+    rt = train.main(["--arch", "recurrentgemma-9b", "--smoke", "--steps", "2", "--seq-len",
+                     "40", "--global-batch", "2", "--log-every", "1"])
+    assert tuple(m.launches for m in mods) == (4, 2, 16, 8)
     assert ref.calls == 0
     assert all(m["loss"] == m["loss"] for m in rt.metrics_log)  # finite, not NaN
 

@@ -39,6 +39,7 @@ CASES = [
     (1, 25, 41, 2, 1, 16, True, 0, 16),       # ragged Sq and Skv under q_offset
     (1, 48, 48, 2, 1, 80, True, 0, 0),        # Dh 80
     (1, 36, 52, 4, 2, 32, False, 0, 0),       # not causal
+    (1, 48, 48, 16, 1, 256, True, 20, 0),     # Dh 256, group 16, a window that cuts keys
 ]
 
 

@@ -1,0 +1,364 @@
+"""The RG-LRU scan's gradient on the CPU: the plain backward, a mirror of the
+backward kernels' three phases, their plan, and the autograd.Function.
+
+* ``ref.rglru_scan_bwd`` (the closed form the CUDA backward computes) against
+  ``jax.vjp`` of the JAX package's associative scan
+  (``repro.kernels.ops.rglru_scan(..., impl="chunked")``, whose final state
+  is its output's last row) with random cotangents on y and on the final
+  state, and against ``torch.autograd`` through the port's sequential
+  ``ref.rglru_scan``. Inputs from numpy with a seed, f32. The three compute
+  the same function in another order of f32 operations: each gradient within
+  1e-5 of its largest magnitude. JAX runs op by op here, as the port does:
+  near a = 1, 1 - a^2 cancels, and where XLA fuses it into one jitted
+  computation its rounding moves da_log by about 1e-4 of its largest. Cases: ragged S, h0 and the final-state
+  cotangent each given and not, and rows of a_log = 0, where a = 1 and
+  1 - a^2 falls under the clamp's 1e-12, so the gradient takes the clamp's
+  constant side.
+* A plain f32 mirror of the kernels' chunk -> pass -> out (written in this
+  file and on no path of the port), on the plan's chunks and the forward's
+  entering states, held against ``ref.rglru_scan_bwd`` within 1e-5 of each
+  gradient's largest: it checks the order of the reverse scan the kernels
+  run (each chunk's reverse decay product and local carry, the carries folded
+  right to left, each chunk's states recomputed from the state entering it).
+* ``rglru_scan_bwd.plan``: grids and workspace worked out by hand from the
+  note at the top of ``csrc/rglru_scan_bwd.cu``, at the train shape and at
+  the grid edges, and its refusals.
+* ``rglru_scan.RGLRUScan`` with its two kernel calls replaced by the plain
+  versions: what it saves, what it hands the backward and what it returns.
+  The kernels themselves run on the card only (``tests/test_torch_cuda.py``,
+  ``chip_smoke.py``).
+"""
+import ast
+import inspect
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as trglru
+from repro_torch.kernels import rglru_scan_bwd as tbwd
+from repro_torch.models.registry import get_config
+
+GRAD_OF_MAX = 1e-5
+NAMES = ("dx", "da_log", "dh0")
+
+# B, S, W, h0, a cotangent on the final state, rows of a_log = 0
+CASES = [
+    (2, 37, 33, True, True, False),     # ragged S and W
+    (2, 64, 16, False, True, False),    # no h0
+    (1, 50, 24, True, False, False),    # no final-state cotangent
+    (2, 1, 8, True, True, False),       # S 1
+    (1, 130, 20, False, False, False),  # neither: only y has a cotangent
+    (2, 45, 16, True, True, True),      # a_log = 0 on some rows: the clamp
+]
+
+
+def _inputs(case, seed=0):
+    B, S, W, with_h0, with_dh, zero_rows = case
+    rng = np.random.default_rng(seed)
+    a = dict(x=rng.standard_normal((B, S, W), dtype=np.float32),
+             a_log=(-np.abs(rng.standard_normal((B, S, W))) * 0.5).astype(np.float32),
+             dy=rng.standard_normal((B, S, W), dtype=np.float32))
+    if zero_rows:
+        a["a_log"][:, ::3] = 0.0  # every third step of every channel: a = 1
+    a["h0"] = rng.standard_normal((B, W), dtype=np.float32) if with_h0 else None
+    a["dh"] = rng.standard_normal((B, W), dtype=np.float32) if with_dh else None
+    return a
+
+
+def _torch(a):
+    return {k: (torch.from_numpy(v) if v is not None else None) for k, v in a.items()}
+
+
+def _plain_bwd(a):
+    t = _torch(a)
+    return ref.rglru_scan_bwd(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"])
+
+
+def _assert_close(name, got, want):
+    want = np.asarray(want, np.float32)
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    bound = GRAD_OF_MAX * max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= bound, f"{name}: max abs diff {err} > {bound}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_backward_matches_jax_vjp_of_the_associative_scan(case):
+    a = _inputs(case)
+    x, a_log = jnp.asarray(a["x"]), jnp.asarray(a["a_log"])
+    dh = a["dh"] if a["dh"] is not None else np.zeros_like(a["x"][:, 0])
+    if a["h0"] is not None:
+        _, vjp = jax.vjp(lambda x, al, h0: jops.rglru_scan(x, al, h0=h0, impl="chunked"),
+                         x, a_log, jnp.asarray(a["h0"]))
+    else:
+        _, vjp = jax.vjp(lambda x, al: jops.rglru_scan(x, al, impl="chunked"), x, a_log)
+    want = vjp((jnp.asarray(a["dy"]), jnp.asarray(dh)))
+    got = _plain_bwd(a)
+    assert (got[2] is None) == (a["h0"] is None)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_close(name, g, w)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_backward_matches_autograd_through_the_plain_forward(case):
+    a = _inputs(case, seed=1)
+    t = _torch(a)
+    leaves = [t["x"].clone().requires_grad_(True), t["a_log"].clone().requires_grad_(True)]
+    h0 = t["h0"].clone().requires_grad_(True) if t["h0"] is not None else None
+    y, hl = ref.rglru_scan(*leaves, h0=h0)
+    loss = (y * t["dy"]).sum() + ((hl * t["dh"]).sum() if t["dh"] is not None else 0)
+    want = torch.autograd.grad(loss, leaves + ([h0] if h0 is not None else []))
+    got = _plain_bwd(a)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_close(name, g, w.numpy())
+
+
+def test_plain_backward_at_a_log_zero_takes_the_clamps_constant_side():
+    """Where a = 1 the gate is the constant 1e-6: dx = 1e-6 g, and da_log =
+    g h_{t-1}, with no term from the gate."""
+    a = _inputs((1, 6, 4, True, False, False), seed=2)
+    a["a_log"][:] = 0.0
+    t = _torch(a)
+    dx, da_log, dh0 = ref.rglru_scan_bwd(t["x"], t["a_log"], t["h0"], t["dy"], None)
+    g = t["dy"].flip(1).cumsum(1).flip(1)  # a = 1: g_t = sum of dy from t on
+    h_prev = torch.cat([t["h0"][:, None], (t["h0"][:, None]
+                                           + 1e-6 * t["x"].cumsum(1))[:, :-1]], 1)
+    torch.testing.assert_close(dx, 1e-6 * g, rtol=1e-5, atol=0)
+    torch.testing.assert_close(da_log, g * h_prev, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dh0, g[:, 0])
+
+
+def test_plain_backward_rounds_dx_to_the_input_dtype():
+    a = _torch(_inputs(CASES[0], seed=3))
+    x = a["x"].to(torch.bfloat16)
+    dx, da_log, dh0 = ref.rglru_scan_bwd(x, a["a_log"], a["h0"], a["dy"].to(torch.bfloat16),
+                                         a["dh"].to(torch.bfloat16))
+    assert (dx.dtype, da_log.dtype, dh0.dtype) == (torch.bfloat16, torch.float32,
+                                                   torch.float32)
+
+
+# --------------------------------------------------------------------------
+# the mirror of the three backward kernels
+# --------------------------------------------------------------------------
+
+def mirror(x, a_log, h0, dy, dh, L):
+    """chunk -> pass -> out in f32 over chunks of L steps (the last may be
+    shorter), as csrc/rglru_scan_bwd.cu runs them; the forward's entering
+    states as its workspace holds them. Returns (dx, da_log, dh0)."""
+    B, S, W = x.shape
+    nc = -(-S // L)
+    a = torch.exp(a_log)
+    u = 1.0 - a * a
+    s = torch.sqrt(torch.clamp_min(u, 1e-12))
+    zeros = torch.zeros((B, W))
+    bounds = [(c * L, min((c + 1) * L, S)) for c in range(nc)]
+    # the forward's states entering each chunk (its workspace after its pass)
+    h = h0 if h0 is not None else zeros
+    enter = []
+    for lo, hi in bounds:
+        enter.append(h)
+        for t in range(lo, hi):
+            h = a[:, t] * h + s[:, t] * x[:, t]
+    # 1. every chunk but the first, from carry 0: reverse decay product and carry
+    prod, local = [None] * nc, [None] * nc
+    for c in range(1, nc):
+        G, p = zeros, torch.ones((B, W))
+        for t in reversed(range(*bounds[c])):
+            G = a[:, t] * (dy[:, t] + G)
+            p = p * a[:, t]
+        prod[c], local[c] = p, G
+    # 2. the carries into each chunk from its right, folded right to left
+    carry = [None] * nc
+    carry[nc - 1] = dh if dh is not None else zeros
+    for c in range(nc - 1, 0, -1):
+        carry[c - 1] = prod[c] * carry[c] + local[c]
+    # 3. each chunk's states forward from the state entering it, then its steps in reverse
+    dx, da_log = torch.empty_like(x), torch.empty_like(x)
+    for c, (lo, hi) in enumerate(bounds):
+        h, h_prev = enter[c], {}
+        for t in range(lo, hi):
+            h_prev[t] = h
+            h = a[:, t] * h + s[:, t] * x[:, t]
+        G = carry[c]
+        for t in reversed(range(lo, hi)):
+            g = dy[:, t] + G
+            dh_da = torch.where(u[:, t] >= 1e-12, h_prev[t] - a[:, t] * x[:, t] / s[:, t],
+                                h_prev[t])
+            dx[:, t] = s[:, t] * g
+            da_log[:, t] = a[:, t] * g * dh_da
+            G = a[:, t] * g
+        if c == 0:
+            dh0 = G  # the first chunk's thread writes dh0 from the carry it ends with
+    return dx, da_log, dh0 if h0 is not None else None
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("L", [None, 7, 16])  # the plan's chunk, and shorter ones
+def test_mirror_of_the_kernels_matches_the_plain_backward(case, L):
+    a = _inputs(case, seed=4)
+    t = _torch(a)
+    B, S, W = case[:3]
+    chunk = tbwd.plan(B, S, W).chunk if L is None else min(L, S)
+    got = mirror(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"], chunk)
+    want = _plain_bwd(a)
+    assert (got[2] is None) == (want[2] is None)
+    for name, g, w in zip(NAMES, got, want):
+        if w is not None:
+            _assert_close(name, g, w.numpy())
+
+
+# --------------------------------------------------------------------------
+# the plan
+# --------------------------------------------------------------------------
+
+# (B, S, W) -> (L, chunks, chunk grid, pass grid, out grid, workspace floats)
+PLANS = {
+    # recurrentgemma-9b train: 4 rows of 3072, 6144 out blocks, 6016 chunk blocks
+    (4, 3072, 4096): (64, 48, (32, 47, 4), (32, 4, 1), (32, 48, 4), 1540096),
+    (3, 1001, 1000): (64, 16, (8, 15, 3), (8, 3, 1), (8, 16, 3), 90000),  # last chunk 41
+    (2, 7, 33): (7, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),        # S < L: one chunk
+    (2, 1, 33): (1, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),        # S 1
+    (2, 63, 33): (63, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),      # S = L - 1
+    (2, 64, 33): (64, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),      # S = L
+    (2, 65, 33): (64, 2, (1, 1, 2), (1, 2, 1), (1, 2, 2), 132),    # S = L + 1
+    (2, 197, 129): (64, 4, (2, 3, 2), (2, 2, 1), (2, 4, 2), 1548),  # W one past a block
+    (65535, 64, 128): (64, 1, (1, 0, 65535), (1, 65535, 1), (1, 1, 65535), 0),  # most rows
+    # 65535 chunks of 64 fill a grid dimension: the longest S the backward takes
+    (1, 64 * 65535, 1): (64, 65535, (1, 65534, 1), (1, 1, 1), (1, 65535, 1), 131068),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS), ids=lambda s: "-".join(map(str, s)))
+def test_backward_plan_grids_and_workspace(shape):
+    p = tbwd.plan(*shape)
+    assert tuple(p) == PLANS[shape]
+    B, S, W = shape
+    fp = trglru.plan(B, S, W)
+    assert (p.chunk, p.n_chunks) == (fp.chunk, fp.n_chunks)  # the forward's chunks
+    assert p.workspace_floats == fp.workspace_floats == 2 * B * (p.n_chunks - 1) * W
+    assert max(p.chunk_grid[1:] + p.out_grid[1:] + p.pass_grid[1:]) <= trglru.MAX_GRID_YZ
+
+
+def test_backward_plan_at_the_train_shape_follows_the_config():
+    cfg = get_config("recurrentgemma-9b")
+    p = tbwd.plan(4, 3072, cfg.lru_width or cfg.d_model)
+    assert tuple(p) == PLANS[(4, 3072, 4096)]
+    assert p.chunk <= tbwd.MAX_CHUNK
+
+
+@pytest.mark.parametrize("shape", [(0, 8, 8), (1, 0, 8), (1, 8, 0), (65536, 8, 8),
+                                   (1, 64 * 65535 + 1, 1)])
+def test_backward_plan_refuses_what_the_kernels_cannot_take(shape):
+    """The grids' bounds, and S past 64 * 65535 steps, where the forward's
+    chunk grows past the 64 steps whose states the out kernel keeps."""
+    with pytest.raises(ValueError, match="rglru_scan"):
+        tbwd.plan(*shape)
+
+
+def test_backward_argtypes_match_the_c_entry():
+    src = (Path(tbwd.__file__).parent / "csrc" / "rglru_scan_bwd.cu").read_text()
+    params = re.search(r'extern "C" int rglru_scan_bwd\(([^)]*)\)', src).group(1).split(",")
+    kinds = []
+    for param in params:
+        param = " ".join(param.split())
+        kinds.append("c_void_p" if "*" in param else {"int": "c_int"}[param.rsplit(" ", 1)[0]])
+    assert kinds == [t.__name__ for t in tbwd.ARGTYPES]
+    assert f"constexpr int kMaxL = {tbwd.MAX_CHUNK};" in src
+
+
+def test_the_backward_wrapper_never_syncs_with_the_host():
+    tree = ast.parse(inspect.getsource(tbwd))
+    called = {n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    assert not called & {"item", "synchronize", "tolist", "cpu", "numpy"}
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    t = _torch(_inputs(CASES[0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbwd.rglru_scan_bwd_cuda(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"],
+                                 fwd_workspace=torch.zeros(0))
+
+
+# --------------------------------------------------------------------------
+# the autograd.Function, its kernels replaced by the plain versions
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def plain_kernels(monkeypatch):
+    """RGLRUScan with ``_forward`` and ``rglru_scan_bwd_cuda`` on the plain
+    versions; records what the backward was handed."""
+    seen = {}
+
+    def forward(x, a_log, h0):
+        y, hl = ref.rglru_scan(x, a_log, h0=h0)
+        return y, hl, torch.full((3,), 7.0)  # a workspace the backward must be handed
+
+    def backward(x, a_log, h0, dy, dh_last, *, fwd_workspace):
+        seen.update(ws=fwd_workspace, dh_last=dh_last, dy=dy)
+        return ref.rglru_scan_bwd(x, a_log, h0, dy, dh_last)
+    monkeypatch.setattr(trglru, "_forward", forward)
+    monkeypatch.setattr(tbwd, "rglru_scan_bwd_cuda", backward)
+    return seen
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[1]], ids=["h0", "no-h0"])
+def test_rglru_scan_function_gradients_and_saved_workspace(plain_kernels, case):
+    a = _torch(_inputs(case, seed=5))
+    leaves = [a["x"].clone().requires_grad_(True), a["a_log"].clone().requires_grad_(True)]
+    h0 = a["h0"].clone().requires_grad_(True) if a["h0"] is not None else None
+    want_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    want_h0 = h0.detach().clone().requires_grad_(True) if h0 is not None else None
+    y, hl = trglru.RGLRUScan.apply(*leaves, h0)
+    got = torch.autograd.grad((y * a["dy"]).sum() + (hl * a["dh"]).sum(),
+                              leaves + ([h0] if h0 is not None else []))
+    yw, hw = ref.rglru_scan(*want_leaves, h0=want_h0)
+    want = torch.autograd.grad((yw * a["dy"]).sum() + (hw * a["dh"]).sum(),
+                               want_leaves + ([want_h0] if want_h0 is not None else []))
+    assert torch.equal(plain_kernels["ws"], torch.full((3,), 7.0))
+    assert torch.equal(plain_kernels["dh_last"], a["dh"])
+    assert len(got) == len(want) == (3 if h0 is not None else 2)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_close(name, g, w.numpy())
+
+
+def test_rglru_scan_function_makes_no_zeros_for_an_unused_final_state(plain_kernels):
+    a = _torch(_inputs(CASES[1], seed=6))
+    x = a["x"].requires_grad_(True)
+    y, _ = trglru.RGLRUScan.apply(x, a["a_log"], None)
+    (dx,) = torch.autograd.grad(y.sum(), [x])
+    assert plain_kernels["dh_last"] is None  # training's case: the final state unused
+    want = ref.rglru_scan_bwd(x.detach(), a["a_log"], None, torch.ones_like(x), None)[0]
+    assert torch.equal(dx, want)
+
+
+def test_rglru_scan_function_takes_a_final_state_cotangent_alone(plain_kernels):
+    """Only h_last used: dy is handed over as zeros."""
+    a = _torch(_inputs(CASES[0], seed=7))
+    x = a["x"].requires_grad_(True)
+    _, hl = trglru.RGLRUScan.apply(x, a["a_log"], a["h0"])
+    (dx,) = torch.autograd.grad((hl * a["dh"]).sum(), [x])
+    assert torch.count_nonzero(plain_kernels["dy"]) == 0
+    want = ref.rglru_scan_bwd(x.detach(), a["a_log"], a["h0"], torch.zeros_like(x),
+                              a["dh"])[0]
+    assert torch.equal(dx, want)
+
+
+def test_rglru_scan_cuda_takes_the_function_only_under_autograd(plain_kernels, monkeypatch):
+    calls = []
+    monkeypatch.setattr(trglru.RGLRUScan, "apply",
+                        staticmethod(lambda *a: calls.append(a) or ("y", "h")))
+    a = _torch(_inputs(CASES[0]))
+    x = a["x"].requires_grad_(True)
+    assert trglru.rglru_scan_cuda(x, a["a_log"], h0=a["h0"]) == ("y", "h")
+    with torch.no_grad():
+        y, _ = trglru.rglru_scan_cuda(x, a["a_log"], h0=a["h0"])
+    assert len(calls) == 1 and y.shape == x.shape and y.grad_fn is None

@@ -140,14 +140,6 @@ def test_train_loss_and_every_gradient_match_jax():
     assert not any(p.requires_grad for p in tree.leaf_paths(tp).values())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_train_loss_of_families_without_backward_kernels_raises(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.train_loss(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                                "labels": torch.zeros(1, 4, dtype=torch.int32)})
-
-
 @pytest.mark.parametrize("over", [dict(family="moe", n_experts=4, experts_per_token=2),
                                   dict(family="encoder", frontend="audio_frames"),
                                   dict(family="vlm", frontend="vision_patches")])
