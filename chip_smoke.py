@@ -76,7 +76,9 @@ Phases, each printed as one JSON object per line:
    causal, window, GQA group 2 and 16, q_offset > 0, rows with no visible
    key, Dh 80 and 96 (on the Dh 128 body), Dh 160 and 192 (on the Dh 256
    body), Dh 256 with ragged Sq and Skv under q_offset and with rows that see
-   no key, ragged Sq and Skv, recurrentgemma-9b's train shape (group 16 at
+   no key, Dh 256 with enough kv tiles for one head subset a tile, Dh 160
+   with group 3 in subsets of 1 and 2 heads, ragged Sq and Skv,
+   recurrentgemma-9b's train shape (group 16 at
    Dh 256, S 3072 under a 2048-key window) and qwen3-1.7b's train shape;
    the forward's logsumexp against
    torch.logsumexp, and the rows of exp(s - lse) over the f32 scores the
@@ -151,7 +153,10 @@ Phases, each printed as one JSON object per line:
    SDPA under the window mask; CUDA events; the gather, decode, the SSD
    scan and its backward, the flash backward and the RG-LRU backward also
    their device time from the profiler, decode, the SSD scan and its
-   backward and the RG-LRU backward per kernel, decode with the L2 flushed before each
+   backward, the flash backward (row dots, dK/dV, the head subsets' sum
+   where it runs, dQ) and the RG-LRU backward per kernel, the flash
+   backward's SDPA yardstick also the SDPA backend that ran it (named from
+   its kernels in a trace), decode with the L2 flushed before each
    call too, SDPA's the same way; the SSD scan and its backward also their
    FMA floor, their FLOP over the 67 TFLOP/s of f32 FMAs, and the backward
    its design's floor, its bf16 mma FLOP (split terms counted) over the
@@ -1137,6 +1142,8 @@ FLASH_BWD_CASES = [
     (1, 130, 130, 2, 1, 192, False, 0, 0),    # Dh 192, not causal
     (2, 100, 161, 16, 1, 256, True, 64, 61),  # Dh 256, ragged Sq and Skv under q_offset
     (1, 64, 64, 4, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
+    (4, 1100, 1100, 16, 4, 256, True, 0, 0),  # Dh 256, 288 kv tiles: one head subset
+    (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
     # recurrentgemma-9b train, full width: group 16 at Dh 256, a window that cuts keys
     (4, 3072, 3072, 16, 1, 256, True, 2048, 0),
     (4, 2048, 2048, 16, 8, 128, True, 0, 0),  # qwen3-1.7b train, full width
@@ -2113,17 +2120,43 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
     rr = max(rel_rms(a, b.transpose(1, 2)) for a, b in zip(got, sdpa_fb()))
     flops = 10 * Dh * pairs * B * H
     ms = time_ms(kern, iters=10)
+    p = kbwd.plan(B, S, S, H, Hkv, Dh, torch.bfloat16)
+    # the call's kernels by name part: the row dots, dK/dV, the sum of its head
+    # subsets' partials (where the plan has more than one), dQ
+    parts = {"dots": "flash_bwd_dot", "dkdv": f"flash_bwd_dkdv_{p.body}",
+             "dq": f"flash_bwd_dq_{p.body}"}
+    if len(p.head_subsets) > 1:
+        parts["sum"] = "flash_bwd_dkdv_sum"
     return _row("flash_attention_bwd", label, launches, errs, card,
                 ms=ms, flops=flops, tflop_per_s=flops / ms / 1e9, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by,
                 device_ms=device_ms(kern, "flash_bwd_", iters=10),
+                device_ms_per_kernel={k: device_ms(kern, part, iters=10)
+                                      for k, part in parts.items()},
                 library_ms=lib_ms,
                 library="scaled_dot_product_attention forward+backward minus its forward"
                         + (", window mask" if window else ""),
+                library_backend=sdpa_backend(sdpa_fb),
                 library_vs_kernel_rel_rms=(rr, rr <= FLASH_BWD_BF16_REL_RMS),
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
                        "causal": True, "window": window, "dtype": "bfloat16",
-                       "bytes": nbytes})
+                       "bytes": nbytes, "plan": p._asdict()})
+
+
+def sdpa_backend(fn, calls=5):
+    """Which of SDPA's backends ran ``fn``, named from the device kernels of
+    a trace of ``calls`` calls: cuDNN, flash, memory-efficient (CUTLASS fmha)
+    or math (no fused attention kernel, the products and softmax as separate
+    kernels); with the four kernels that took the most time."""
+    by = {}
+    for e in _cuda_events(lambda: [fn() for _ in range(calls)]):
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
+    names = " ".join(by).lower()
+    backend = ("cudnn" if "cudnn" in names else "flash" if "flash" in names else
+               "efficient" if "fmha" in names or "mem_eff" in names else "math")
+    return {"backend": backend, "kernel_events": len(by),
+            "top_kernels_us": [[k[:100], v] for k, v in
+                               sorted(by.items(), key=lambda kv: -kv[1])[:4]]}
 
 
 GATHER_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)  # the paper's DPDK bursts, the ring
@@ -2535,8 +2568,8 @@ def run_times(launches, errs, card, dev):
          "flops": r["flops"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "bound_tflop_per_s": r["flops"] / r["bound_ms"] / 1e9,
          "what": "10 Dh FLOP per visible (query, key) pair and head: the 5 products "
-                 "a fused backward needs; the kernels do 7 (11 at Dh 256, where two "
-                 "blocks share each tile)", "card": r["card"]}
+                 "a fused backward needs; the kernels do 7 at every head dim (the scores "
+                 "and dP once in each of the dK/dV and the dQ kernel)", "card": r["card"]}
         for r in rows if r["name"].startswith("flash_attention_bwd")])
     emit("decode_rate", [
         {"name": r["name"], "kv_bytes": r["kv_bytes"], "device_ms": r["device_ms"],

@@ -85,6 +85,21 @@ def build_all(names: List[str]) -> Dict[str, float]:
     return seconds
 
 
+def ptxas_report(name: str) -> str:
+    """What ptxas says of each kernel of ``csrc/<name>.cu`` (registers,
+    spills, shared memory), from an nvcc run with NVCC_FLAGS and
+    ``-Xptxas -v`` whose library is thrown away."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", str(Path(tmp) / f"lib{name}.so"), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
     lib = _loaded.get(name)
@@ -118,3 +133,11 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({fn(err).decode()})")
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels._build NAME...: ptxas's report of each
+    # named source (on a machine with nvcc)
+    import sys
+    for arg in sys.argv[1:]:
+        print(f"== {arg}.cu\n{ptxas_report(arg)}")

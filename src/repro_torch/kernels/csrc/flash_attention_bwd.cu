@@ -19,25 +19,26 @@
 // 0 and it contributes nothing and gets dQ = 0, as autograd through ref.mha
 // gives.
 //
-// No floating-point atomics, in either body, so a step is bit-stable from
-// run to run: every output element is summed in one block in a fixed order
-// and written once. Kernel 2 owns one (kv tile, kv head, batch row) and sums
-// over the GQA group's query heads and, for each, the query tiles that can
-// see the tile (the causal and window limits bound that range up front), so
-// the group's sum happens inside the block. Kernel 3 owns one (query tile,
-// head, batch row) and loops over the kv tiles its rows can see, as the
-// forward does. Both recompute the scores and dP: 7 products a visible
-// (query, key) pair where one fused kernel would need 5, the price of having
-// no atomics.
+// No floating-point atomics, in any body, so a step is bit-stable from run
+// to run: every output element is summed in one block in a fixed order and
+// written once, or, where the wide body spreads a GQA group over several
+// blocks (below), summed from their f32 partials by a second kernel in a
+// fixed order. Kernel 2 owns one (kv tile, kv head, batch row) and sums over
+// the GQA group's query heads (or a subset of them) and, for each, the query
+// tiles that can see the tile (the causal and window limits bound that range
+// up front). Kernel 3 owns one (query tile, head, batch row) and loops over
+// the kv tiles its rows can see, as the forward does. Both recompute the
+// scores and dP: 7 products a visible (query, key) pair where one fused
+// kernel would need 5, the price of having no atomics.
 //
-// Two bodies, and the dtype picks one: each dtype has exactly one kernel.
+// Three bodies; the dtype and Dh pick one.
 //
-// bf16 (namespace mma: flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel).
-// mma.sync m16n8k16 bf16 products with f32 accumulation, operands by
-// ldmatrix from rows padded by 16 bytes, tiles moved by cp.async of 16
-// bytes a thread with rows past Sq or Skv and columns past Dh zero-filled;
-// the helpers are the forward's (mma.cuh). Each warp owns 16 rows of its
-// block's tile.
+// bf16 up to Dh 128 (namespace mma: flash_bwd_dkdv_mma_kernel,
+// flash_bwd_dq_mma_kernel). mma.sync m16n8k16 bf16 products with f32
+// accumulation, operands by ldmatrix from rows padded by 16 bytes, tiles
+// moved by cp.async of 16 bytes a thread with rows past Sq or Skv and columns
+// past Dh zero-filled; the helpers are the forward's (mma.cuh). Each warp
+// owns 16 rows of its block's tile.
 // - Kernel 2 takes keys as the M dimension: each warp computes S^T = K.Q^T
 //   and dP^T = V.dO^T for its 16 keys against a tile of BQ queries, so that
 //   the accumulators of P^T = exp2(S^T scale log2 e - lse log2 e) (the lse
@@ -62,11 +63,15 @@
 // operands; the sums are f32. The recomputed scores are the forward's bf16
 // products (exact in f32) summed in another order, so the rows of
 // exp(s - lse) sum to 1 within rounding (chip_smoke.py holds them there).
-// Instantiated for Dh 32, 64, 128 and 256; another multiple of 16 runs on
-// the next instantiation with its extra columns zero and skipped. At Dh 256
-// each tile has two blocks, each owning one half of the output columns (see
-// Head dims). The inputs must start on 16-byte boundaries (the wrapper
-// checks). A failed launch returns its error: there is no other bf16 path.
+// Instantiated for Dh 32, 64 and 128; another multiple of 16 runs on the
+// next instantiation with its extra columns zero and skipped. The inputs
+// must start on 16-byte boundaries (the wrapper checks). A failed launch
+// returns its error: there is no other bf16 path.
+//
+// bf16 from Dh 144 to 256 (the wide body: flash_bwd_dkdv_wide_kernel,
+// flash_bwd_dq_wide_kernel, flash_bwd_dkdv_sum_kernel), the same two kernels
+// on the same helpers, laid out for a head dim whose accumulators do not fit
+// one warp (see Head dims).
 //
 // f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): the same two kernels
 // with f32 FMAs on the CUDA cores (the tensor cores would round f32 to TF32,
@@ -79,34 +84,53 @@
 //
 // Head dims: a multiple of 16 up to 256 (qwen3's 128 and recurrentgemma's
 // 256 included). A warp's dK and dV accumulators (16 keys x Dh) take 128
-// registers a thread at Dh 128; at Dh 256 they would not fit beside the
-// score tiles, so there the bf16 body splits the output columns over the
-// grid: two blocks share each kv tile (and each query tile of kernel 3), one
-// per half of Dh. Each recomputes S and dP over the whole Dh from its own
-// shared-memory tiles and accumulates, then writes, its 128 columns only: the
-// accumulators of Dh 128, at twice the score products. Every output element
-// is still summed in one block in a fixed order. The f32 body keeps its
-// accumulators whole: 32-key tiles at Dh 256 hold as many (2 keys x 16
-// columns a thread) as 64-key tiles at Dh 128.
+// registers a thread at Dh 128; at Dh 256 they would take 256, more than a
+// thread has beside the score tiles. So past 128 the bf16 body gives each
+// 16 rows (keys in kernel 2, query rows in kernel 3) a pair of warps, warp w
+// and warp w + 4 of a block of 8 (two warpgroups), which split the output
+// columns: the first 16 * ceil(Dh / 32) to warp w, the rest to warp w + 4
+// (128 and 128 at Dh 256). The pair computes S and dP once, each over the
+// whole Dh: warp w the scores and P, warp w + 4 dP. Warp w puts P (f32) in
+// the pair's exchange buffer in shared memory; warp w + 4 takes it, forms
+// dS = P * (dP - D) and puts dS back as the bf16 A operands both multiply
+// with; a named barrier of the two warps orders each hand-over. Then each
+// warp multiplies P and dS into its own columns: S, dP, dV and dK in kernel
+// 2, S, dP and dQ in kernel 3, 7 products a pair as below Dh 128. The two
+// warps of a pair run on one of the SM's four schedulers (warp w and
+// w + 4), so while one waits at the barrier the other keeps that scheduler's
+// tensor core fed. Both kernels take 64-row tiles and steps of 64 (queries in
+// kernel 2, keys in kernel 3), double-buffered by cp.async. Kernel 2's
+// shared memory (228 352 bytes: K, V, two Q / dO stages, 24 KB of exchange)
+// and kernel 3's (227 328) hold one 8-warp block an SM, two warps a
+// scheduler. In kernel 2 the 64 keys of a tile see up to 33 query tiles of
+// each of the group's heads, and at Hkv 1 the kv tiles alone give few blocks
+// (192 at recurrentgemma-9b's train shape, 1.45 waves on 132 SMs). So where
+// they give fewer than two waves, the host plan (flash_attention_bwd.py)
+// splits each GQA group into contiguous head subsets, one block each (two at
+// that shape: 384 blocks). Such a block writes its f32 sums of dK
+// (unscaled) and dV to a workspace; flash_bwd_dkdv_sum_kernel then adds the
+// subsets in order, scales dK and writes both in bf16. With one subset the
+// block writes dk and dv itself. The f32 body keeps its accumulators whole:
+// 32-key tiles at Dh 256 hold as many (2 keys x 16 columns a thread) as
+// 64-key tiles at Dh 128.
 //
 // What bounds it on the H100. At qwen3-1.7b's train shape (B 4, S 2048, H 16,
 // Hkv 8, Dh 128, causal, bf16) the gradient needs 5 products of 2 * Dh FLOP
 // per visible (query, key) pair and head (the scores recomputed, dP, dV, dK,
 // dQ): 172 GFLOP, 0.17 ms at the tensor cores' 989 TFLOP/s, above the 0.04 ms
-// of reading q, k, v, o, dO and writing dq, dk, dv. The bf16 body does 7 such
-// products on mma.sync, which reaches only part of Hopper's rate (the
-// forward, on the same helpers, reaches about a fifth of 989); every operand
-// goes through ldmatrix from shared memory, and kernel 2's accumulators (dK
-// and dV over the whole Dh) leave room for two blocks of 4 warps an SM. One
-// fused pass (dQ summed across blocks in a deterministic second pass) and
-// wgmma tiles fed by TMA are the way further down. At recurrentgemma-9b's
+// of reading q, k, v, o, dO and writing dq, dk, dv. At recurrentgemma-9b's
 // train shape (B 4, S 3072, H 16, Hkv 1, Dh 256, a 2048-key window, bf16)
-// the same count is 687 GFLOP over 4.2 M visible pairs per (b, h): 0.70 ms at
-// 989 TFLOP/s, above the 0.13 ms of its 428 MB of reads and writes. There
-// the column split does the score and dP products twice (11 products a pair
-// where a fused kernel would need 5), and the dK/dV blocks (199 KB of shared
-// memory) run one to an SM. PERF.md holds the measured times beside the
-// bound.
+// the same count is 687 GFLOP over 4.2 M visible pairs per (b, h): 0.70 ms,
+// above the 0.13 ms of its 428 MB of reads and writes. Both bf16 bodies do 7
+// such products on mma.sync, which reaches only part of Hopper's rate: every
+// B operand goes through ldmatrix from shared memory, and one ldmatrix of a
+// 16 x 16 fragment (512 bytes, 4 clocks of an SM's 128 bytes a clock) feeds
+// two m16n8k16 products (2 clocks of the SM's tensor cores at 989 TFLOP/s),
+// so shared memory caps them near half that rate. Below Dh 128 kernel 2's
+// accumulators leave room for two blocks of 4 warps an SM, past it one block
+// of 8. One fused pass (dQ summed across blocks in a deterministic second
+// pass) and wgmma tiles fed by TMA are the way further down. PERF.md holds
+// the measured times beside the bound.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -470,15 +494,8 @@ using namespace repro::mma;
 // tile. At Dh 64, ptxas spills a few registers of the dK/dV kernel with 64-query steps (at
 // 168 registers) and none with 32-query steps; at Dh 32 and 128 the 64-query
 // steps spill nothing and were the faster on the card.
-// At DH 256 a block owns DC = 128 of the output columns (dK and dV, or dQ),
-// so its accumulators are those of DH 128; SPLIT = 2 blocks share each tile,
-// each recomputing S and dP over the whole head dim from its shared-memory
-// tiles. Its dQ steps take 32 keys: 64 would leave the Q fragments (DH / 16
-// of them, kept in registers) no room beside the score tiles, and the K and
-// V stages no room in shared memory (dK/dV 199 KB, dQ 132 KB). ptxas gives
-// the DH 256 dK/dV kernel 250 registers and no spill, its dQ kernel 255
-// registers and 16 bytes of spill (the f32 body's Dh 256 dQ kernel 64
-// registers and 20 bytes).
+// Instantiated at DH 32, 64 and 128 only, where a block owns all DC = DH
+// output columns and SPLIT is 1: past Dh 128 the wide body below runs.
 template <int DH>
 struct Tile {
   static constexpr int WARPS = 4;
@@ -991,10 +1008,574 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// bf16 body past Dh 128: a pair of warps for each 16 rows
+// --------------------------------------------------------------------------
+
+// The tiles of the wide body (Head dims, at the top). 8 warps; warp w and
+// warp w + PAIRS are the pair that owns rows 16 w .. 16 w + 15 of the
+// block's tile: 64 keys of a dK/dV block, stepping over BQ queries; 64 query
+// rows of a dQ block, stepping over BK keys. Rows in shared memory hold 256
+// columns plus 16 bytes of padding. Shared memory: dK/dV K and V, two stages
+// of a Q tile, a dO tile and their lse and D, then the pairs' exchange
+// buffers; dQ Q and dO, two stages of a K and a V tile, then the exchange
+// buffers. Both kernels read every A operand from shared memory (the dQ
+// kernel keeps no Q fragments in registers). ptxas gives the dK/dV kernel
+// 252 registers, the dQ kernel 192 and the sum kernel 32, none spilling (the
+// f32 body's Dh 256 dQ kernel: 64 registers, 20 bytes of spill).
+struct Wide {
+  static constexpr int DH = 256;
+  static constexpr int PAIRS = 4;
+  static constexpr int NT = 64 * PAIRS;   // threads: two warps a pair
+  static constexpr int BKV = 16 * PAIRS;  // keys of a dK/dV block
+  static constexpr int BQ = 64;           // queries of a dK/dV step
+  static constexpr int BM = 16 * PAIRS;   // query rows of a dQ block
+  static constexpr int BK = 64;           // keys of a dQ step
+  static constexpr int DC = DH / 2;       // output columns a warp owns, at most
+  static constexpr int P = DH + 8;
+  // a pair's exchange: P (16 x BQ, f32) and dS (16 x BQ, bf16), each in the
+  // layout of a warp's registers
+  static constexpr int XCH = 16 * BQ * (4 + 2);
+  static constexpr size_t SMEM_DKDV = (size_t)(2 * BKV + 4 * BQ) * P * sizeof(bf16) +
+                                      4 * BQ * sizeof(float) + PAIRS * XCH;
+  static constexpr size_t SMEM_DQ = (size_t)(2 * BM + 4 * BK) * P * sizeof(bf16) + PAIRS * XCH;
+};
+static_assert(Wide::BQ == Wide::BK, "both kernels share the exchange layout");
+static_assert(Wide::SMEM_DKDV <= 232448 && Wide::SMEM_DQ <= 232448,
+              "a block's shared memory on the H100");
+
+// The two warps of pair `pair` wait for each other: named barrier 1 + pair (0
+// is __syncthreads'), 64 threads. It orders their shared-memory accesses.
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// x (the warp's 16 rows x W columns) += A . B^T over the first Dh columns: A
+// the warp's 16 rows, B W rows, both in shared memory at this lane's
+// ldmatrix addresses (a_off, b_off included).
+template <int W>
+__device__ __forceinline__ void mma_scores(float (&x)[W / 8][4], uint32_t a_addr,
+                                           uint32_t b_addr, int Dh) {
+  constexpr int P = Wide::P;
+#pragma unroll
+  for (int kk = 0; kk < Wide::DH / 16; ++kk) {
+    if (kk * 16 < Dh) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < W / 16; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_addr + (np * 16 * P + kk * 16) * 2);
+        mma_bf16(x[2 * np], a, b[0], b[1]);
+        mma_bf16(x[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc (the warp's 16 rows x its columns c0 .. c0 + nc - 1) += a . T[:, c0 ..]:
+// a the warp's A operands over W rows of T, T in shared memory at this
+// lane's ldmatrix .trans address (bt_off included).
+template <int W>
+__device__ __forceinline__ void mma_cols(float (&acc)[Wide::DC / 8][4],
+                                         const uint32_t (&a)[W / 16][4], uint32_t t_addr,
+                                         int c0, int nc) {
+  constexpr int P = Wide::P;
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < Wide::DC / 16; ++dp)
+      if (dp * 16 < nc) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, t_addr + (kk * 16 * P + c0 + dp * 16) * 2);
+        mma_bf16(acc[2 * dp], a[kk], b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a[kk], b[2], b[3]);
+      }
+}
+
+// dK and dV for one (kv tile, kv head, batch row) over head subset `sub` of
+// n_sub, the contiguous heads [sub * group / n_sub, (sub + 1) * group /
+// n_sub) of the GQA group. With one subset (ws null) the block writes dk and
+// dv in bf16; else its f32 sums, dK unscaled, go to ws, laid out
+// [n_sub][dK, dV][B][Skv][Hkv][Dh], for flash_bwd_dkdv_sum_kernel.
+__global__ void __launch_bounds__(Wide::NT, 1) flash_bwd_dkdv_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ D, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ ws, int n_sub, int B, int Sq, int Skv, int H, int Hkv, int Dh,
+    int causal, int window, int q_offset, float scale, float scale_log2) {
+  using W = Wide;
+  constexpr int NT = W::NT, BKV = W::BKV, BQ = W::BQ, P = W::P, DC = W::DC;
+  constexpr int CH = W::DH / 8;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // BKV x P
+  bf16* Vs = Ks + BKV * P;                       // BKV x P
+  bf16* QdO = Vs + BKV * P;  // stage s: Q at QdO + 2 s BQ P, dO BQ P after it
+  float* LD = reinterpret_cast<float*>(QdO + 4 * BQ * P);  // stage s: lse, D at LD + 2 s BQ
+  unsigned char* X = reinterpret_cast<unsigned char*>(LD + 4 * BQ);  // PAIRS x XCH
+
+  const int hb = blockIdx.x % (Hkv * B), rest = blockIdx.x / (Hkv * B);
+  const int sub = rest % n_sub, kt = rest / n_sub;
+  const int kvh = hb % Hkv, b = hb / Hkv;
+  const int k0 = kt * BKV;  // under causal, tile 0 sees the most queries: heaviest first
+  const int nk = min(BKV, Skv - k0);
+  const int group = H / Hkv;
+  const int g_lo = sub * group / n_sub;  // the subset's first head of the group
+  const int n_heads = (sub + 1) * group / n_sub - g_lo;
+  const int dch = Dh / 8;  // chunks that hold data
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pair = warp % W::PAIRS, role = warp / W::PAIRS;  // role 0: S and P; 1: dP and dS
+  const int wrow = pair * 16;  // the pair's first key in the tile
+  const int half = 16 * ((Dh / 16 + 1) / 2);
+  const int c0 = role ? half : 0, nc = role ? Dh - half : half;  // the warp's output columns
+
+  const long q_row = (long)H * Dh, kv_row = (long)Hkv * Dh;
+  const long kv_off = ((long)b * Skv + k0) * kv_row + (long)kvh * Dh;
+
+  // the query rows that can see a key of this tile, in tiles of BQ from the first
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = max(0, k0 - q_offset);
+  if (window > 0) q_hi = max(0, min(Sq, k0 + nk - 1 + window - q_offset));
+  const int n_qt = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  const int n_steps = n_heads * n_qt;  // (head of the subset, query tile)
+
+  for (int i = tid; i < BKV * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool in = r < nk && c < dch;
+    const long off = kv_off + (long)r * kv_row + c * 8;
+    cp_async16(Ks + r * P + c * 8, in ? k + off : k, in);
+    cp_async16(Vs + r * P + c * 8, in ? v + off : v, in);
+  }
+  auto load_q = [&](int t, int stage) {
+    const int h = kvh * group + g_lo + t / n_qt, q0 = q_lo + (t % n_qt) * BQ;
+    const long q_off = ((long)b * Sq + q0) * q_row + (long)h * Dh;
+    bf16* Qs = QdO + stage * 2 * BQ * P;
+    bf16* dOs = Qs + BQ * P;
+    for (int i = tid; i < BQ * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      const bool in = q0 + r < Sq && c < dch;
+      const long off = q_off + (long)r * q_row + c * 8;
+      cp_async16(Qs + r * P + c * 8, in ? q + off : q, in);
+      cp_async16(dOs + r * P + c * 8, in ? dout + off : dout, in);
+    }
+    float* Ls = LD + stage * 2 * BQ;
+    const long l_off = ((long)b * H + h) * Sq + q0;
+    for (int i = tid; i < BQ; i += NT) {
+      const bool in = q0 + i < Sq;
+      cp_async4(Ls + i, in ? lse + l_off + i : lse, in);
+      cp_async4(Ls + BQ + i, in ? D + l_off + i : D, in);
+    }
+  };
+  if (n_steps > 0) load_q(0, 0);
+  cp_async_commit();  // K, V and the first step (K and V alone when there is none)
+
+  const int g = lane >> 2, cq = lane & 3;
+  // ldmatrix row addresses of this lane: the A fragments of the pair's 16
+  // keys of K (role 0) or V (role 1); Q's and dO's B fragments as Q^T, dO^T
+  // and, with .trans, as Q, dO
+  const uint32_t a_addr = smem_u32((role ? Vs : Ks) + wrow * P + a_off<P>(lane));
+  const int qb_off = b_off<P>(lane), qt_off = bt_off<P>(lane);
+  // the pair's exchange: P^T as f32 accumulator tiles (tile j of lane l at
+  // j * 32 + l), dS^T as bf16 A operands (16 columns kk of lane l at kk * 32 + l)
+  float4* xp = reinterpret_cast<float4*>(X + pair * W::XCH);
+  uint4* xds = reinterpret_cast<uint4*>(xp + BQ / 8 * 32);
+
+  float acc_dk[DC / 8][4], acc_dv[DC / 8][4];  // columns c0 .. c0 + nc - 1
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_steps) {
+      load_q(t + 1, stage ^ 1);  // its stage was last read in step t - 1
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step t (and K, V) visible to every warp
+    const int q0 = q_lo + (t % n_qt) * BQ;
+    const bf16* Qs = QdO + stage * 2 * BQ * P;
+    const bf16* dOs = Qs + BQ * P;
+    const float* Ls = LD + stage * 2 * BQ;
+    const float* Ds = Ls + BQ;
+
+    // role 0: S^T = K . Q^T; role 1: dP^T = V . dO^T (the pair's 16 keys x BQ queries)
+    float x[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    mma_scores<BQ>(x, a_addr, smem_u32((role ? dOs : Qs) + qb_off), Dh);
+
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T and dS^T as A operands
+    if (role == 0) {
+      // P^T = exp2(S^T scale log2 e - lse log2 e) of each query column; 0 off
+      // the mask (only where the tile crosses the diagonal or the window
+      // edge; keys past Skv are never stored, and query rows past Sq are zero
+      // in Q and dO, so they add nothing)
+      const bool need_mask = (causal && k0 + BKV - 1 > q0 + q_offset) ||
+                             (window > 0 && k0 <= q0 + BQ - 1 + q_offset - window);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(Ls + j * 8 + 2 * cq);
+        const float nl0 = -l.x * kLog2e, nl1 = -l.y * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(x[j][e], scale_log2, (e & 1) ? nl1 : nl0));
+          if (need_mask) {
+            const int kpos = k0 + wrow + g + (e >> 1) * 8;
+            const int qpos = q0 + j * 8 + 2 * cq + (e & 1) + q_offset;
+            bool ok = true;
+            if (causal) ok = kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) p = 0.f;
+          }
+          x[j][e] = p;
+        }
+        xp[j * 32 + lane] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) pack_a(pa[kk], x[2 * kk], x[2 * kk + 1]);
+    }
+    pair_sync(pair);  // P^T in the exchange
+    if (role == 1) {
+      // dS^T = P^T * (dP^T - D), with role 0's P^T; both as bf16 A operands
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int j = 2 * kk + i;
+          const float4 f = xp[j * 32 + lane];
+          p[i][0] = f.x, p[i][1] = f.y, p[i][2] = f.z, p[i][3] = f.w;
+          const float2 d = *reinterpret_cast<const float2*>(Ds + j * 8 + 2 * cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[j][e] = p[i][e] * (x[j][e] - ((e & 1) ? d.y : d.x));
+        }
+        pack_a(pa[kk], p[0], p[1]);
+        pack_a(da[kk], x[2 * kk], x[2 * kk + 1]);
+        xds[kk * 32 + lane] = make_uint4(da[kk][0], da[kk][1], da[kk][2], da[kk][3]);
+      }
+    } else {
+      mma_cols<BQ>(acc_dv, pa, smem_u32(dOs + qt_off), c0, nc);  // dV += P^T . dO
+    }
+    pair_sync(pair);  // dS^T in the exchange
+    if (role == 0) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint4 u = xds[kk * 32 + lane];
+        da[kk][0] = u.x, da[kk][1] = u.y, da[kk][2] = u.z, da[kk][3] = u.w;
+      }
+    } else {
+      mma_cols<BQ>(acc_dv, pa, smem_u32(dOs + qt_off), c0, nc);  // dV += P^T . dO
+    }
+    mma_cols<BQ>(acc_dk, da, smem_u32(Qs + qt_off), c0, nc);  // dK += dS^T . Q
+    __syncthreads();  // every warp done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // with no step, K and V may still be in flight
+  __syncthreads();
+
+  if (ws == nullptr) {
+    // dK (scaled) and dV of the warp's columns staged in the pair's own K and
+    // V rows, stored as 16-byte rows
+    bf16* dKs = Ks + wrow * P;
+    bf16* dVs = Vs + wrow * P;
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+      if (j * 8 < nc)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int o = (g + 8 * i) * P + c0 + j * 8 + 2 * cq;
+          *reinterpret_cast<uint32_t*>(dKs + o) =
+              pack_bf16(acc_dk[j][2 * i] * scale, acc_dk[j][2 * i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dVs + o) =
+              pack_bf16(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+        }
+    __syncwarp();
+    for (int i = lane; i < 16 * (DC / 8); i += 32) {
+      const int r = i / (DC / 8), c = c0 + (i % (DC / 8)) * 8, row = wrow + r;
+      if (row < nk && c < c0 + nc) {
+        const long off = kv_off + (long)row * kv_row + c;
+        *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(dKs + r * P + c);
+        *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(dVs + r * P + c);
+      }
+    }
+  } else {
+    // the subset's f32 sums of the warp's columns
+    const long E = (long)B * Skv * Hkv * Dh;
+    float* wk = ws + (long)sub * 2 * E;
+    float* wv = wk + E;
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+      if (j * 8 < nc)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = wrow + g + 8 * i;
+          if (row < nk) {
+            const long off = kv_off + (long)row * kv_row + c0 + j * 8 + 2 * cq;
+            *reinterpret_cast<float2*>(wk + off) =
+                make_float2(acc_dk[j][2 * i], acc_dk[j][2 * i + 1]);
+            *reinterpret_cast<float2*>(wv + off) =
+                make_float2(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
+          }
+        }
+  }
+}
+
+// dk = scale * (sum of the subsets' dK) and dv = sum of their dV, the subsets
+// added in order 0, 1, ...: four elements a thread, dk's E elements first.
+__global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(const float* __restrict__ ws,
+                                                                 bf16* __restrict__ dk,
+                                                                 bf16* __restrict__ dv, long E,
+                                                                 int n_sub, float scale) {
+  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * E) return;
+  const long which = i >= E;  // 0 dK, 1 dV; E is a multiple of 16, so no four straddle
+  const long e = i - which * E;
+  float4 acc = *reinterpret_cast<const float4*>(ws + which * E + e);
+  for (int s = 1; s < n_sub; ++s) {
+    const float4 t = *reinterpret_cast<const float4*>(ws + (2 * s + which) * E + e);
+    acc.x += t.x, acc.y += t.y, acc.z += t.z, acc.w += t.w;
+  }
+  const float m = which ? 1.f : scale;
+  *reinterpret_cast<uint2*>((which ? dv : dk) + e) =
+      make_uint2(pack_bf16(acc.x * m, acc.y * m), pack_bf16(acc.z * m, acc.w * m));
+}
+
+// dQ for one (query tile, head, batch row).
+__global__ void __launch_bounds__(Wide::NT, 1) flash_bwd_dq_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ D, bf16* __restrict__ dq, int B, int Sq, int Skv, int H,
+    int Hkv, int Dh, int causal, int window, int q_offset, float scale, float scale_log2) {
+  using W = Wide;
+  constexpr int NT = W::NT, BM = W::BM, BK = W::BK, P = W::P, DC = W::DC;
+  constexpr int CH = W::DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BM x P
+  bf16* dOs = Qs + BM * P;                       // BM x P
+  bf16* KVs = dOs + BM * P;  // stage s: K at KVs + 2 s BK P, V BK P after it
+  unsigned char* X = reinterpret_cast<unsigned char*>(KVs + 4 * BK * P);  // PAIRS x XCH
+
+  const int n_qt = (Sq + BM - 1) / BM;
+  const int hb = blockIdx.x % (H * B), qt_lin = blockIdx.x / (H * B);
+  const int h = hb % H, b = hb / H;
+  const int q0 = (causal ? n_qt - 1 - qt_lin : qt_lin) * BM;  // heaviest first
+  const int nq = min(BM, Sq - q0);
+  const int kvh = h / (H / Hkv);
+  const int dch = Dh / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pair = warp % W::PAIRS, role = warp / W::PAIRS;  // role 0: S and P; 1: dP and dS
+  const int wrow = pair * 16;  // the pair's first query row in the tile
+  const int half = 16 * ((Dh / 16 + 1) / 2);
+  const int c0 = role ? half : 0, nc = role ? Dh - half : half;  // the warp's output columns
+
+  const long q_row = (long)H * Dh, kv_row = (long)Hkv * Dh;
+  const long q_off = ((long)b * Sq + q0) * q_row + (long)h * Dh;
+  const bf16* kb = k + (long)b * Skv * kv_row + (long)kvh * Dh;
+  const bf16* vb = v + (long)b * Skv * kv_row + (long)kvh * Dh;
+
+  // the kv positions any row of this tile may see (as in the forward)
+  const int qpos_lo = q0 + q_offset, qpos_hi = q0 + nq - 1 + q_offset;
+  int kv_lo = 0, kv_hi = Skv;
+  if (causal) kv_hi = max(0, min(Skv, qpos_hi + 1));
+  if (window > 0) kv_lo = max(0, qpos_lo - window + 1);
+  const int n_kt = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
+
+  for (int i = tid; i < BM * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool in = r < nq && c < dch;
+    const long off = q_off + (long)r * q_row + c * 8;
+    cp_async16(Qs + r * P + c * 8, in ? q + off : q, in);
+    cp_async16(dOs + r * P + c * 8, in ? dout + off : dout, in);
+  }
+  cp_async_commit();  // Q and dO
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = kv_lo + t * BK;
+    bf16* Ks = KVs + stage * 2 * BK * P;
+    bf16* Vs = Ks + BK * P;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      const bool in = k0 + r < Skv && c < dch;
+      const long off = (long)(k0 + r) * kv_row + c * 8;
+      cp_async16(Ks + r * P + c * 8, in ? kb + off : kb, in);
+      cp_async16(Vs + r * P + c * 8, in ? vb + off : vb, in);
+    }
+  };
+  if (n_kt > 0) load_kv(0, 0);
+  cp_async_commit();  // the first kv tile (an empty group when there is none)
+
+  const int g = lane >> 2, cq = lane & 3;
+  // this lane's two rows: lse in log2 units (+inf past Sq, so P is 0) and D
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    const long at = ((long)b * H + h) * Sq + row;
+    lse2[i] = row < Sq ? lse[at] * kLog2e : INFINITY;
+    Dr[i] = row < Sq ? D[at] : 0.f;
+  }
+  // ldmatrix row addresses of this lane: the A fragments of the pair's 16
+  // rows of Q (role 0) or dO (role 1); K's and V's B fragments as K^T, V^T
+  // and, with .trans, K's as K
+  const uint32_t a_addr = smem_u32((role ? dOs : Qs) + wrow * P + a_off<P>(lane));
+  const int kb_off = b_off<P>(lane), kt_off = bt_off<P>(lane);
+  // the pair's exchange, laid out as kernel 2's
+  float4* xp = reinterpret_cast<float4*>(X + pair * W::XCH);
+  uint4* xds = reinterpret_cast<uint4*>(xp + BK / 8 * 32);
+
+  float acc[DC / 8][4];  // columns c0 .. c0 + nc - 1
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_kt) {
+      load_kv(t + 1, stage ^ 1);  // its stage was last read in tile t - 1
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and Q, dO) visible to every warp
+    const int k0 = kv_lo + t * BK;
+    const bf16* Ks = KVs + stage * 2 * BK * P;
+    const bf16* Vs = Ks + BK * P;
+
+    // role 0: S = Q . K^T; role 1: dP = dO . V^T (the pair's 16 rows x BK keys)
+    float x[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    mma_scores<BK>(x, a_addr, smem_u32((role ? Vs : Ks) + kb_off), Dh);
+
+    uint32_t da[BK / 16][4];  // dS as A operands
+    if (role == 0) {
+      // P = exp2(S scale log2 e - lse log2 e); 0 off the mask, which applies
+      // only where the tile crosses the causal diagonal, the window edge or Skv
+      const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > qpos_lo) ||
+                             (window > 0 && k0 <= qpos_hi - window);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(x[j][e], scale_log2, -lse2[e >> 1]));
+          if (need_mask) {
+            const int kpos = k0 + j * 8 + 2 * cq + (e & 1);
+            const int qpos = q0 + wrow + g + (e >> 1) * 8 + q_offset;
+            bool ok = kpos < Skv;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) p = 0.f;
+          }
+          x[j][e] = p;
+        }
+        xp[j * 32 + lane] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      }
+    }
+    pair_sync(pair);  // P in the exchange
+    if (role == 1) {
+      // dS = P * (dP - D), with role 0's P, as bf16 A operands
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int j = 2 * kk + i;
+          const float4 f = xp[j * 32 + lane];
+          x[j][0] = f.x * (x[j][0] - Dr[0]);
+          x[j][1] = f.y * (x[j][1] - Dr[0]);
+          x[j][2] = f.z * (x[j][2] - Dr[1]);
+          x[j][3] = f.w * (x[j][3] - Dr[1]);
+        }
+        pack_a(da[kk], x[2 * kk], x[2 * kk + 1]);
+        xds[kk * 32 + lane] = make_uint4(da[kk][0], da[kk][1], da[kk][2], da[kk][3]);
+      }
+    }
+    pair_sync(pair);  // dS in the exchange
+    if (role == 0) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint4 u = xds[kk * 32 + lane];
+        da[kk][0] = u.x, da[kk][1] = u.y, da[kk][2] = u.z, da[kk][3] = u.w;
+      }
+    }
+    mma_cols<BK>(acc, da, smem_u32(Ks + kt_off), c0, nc);  // dQ += dS . K (scaled at the store)
+    __syncthreads();  // every warp done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // with no kv tile, Q and dO may still be in flight
+  __syncthreads();
+
+  // epilogue: dQ (scaled) of the warp's columns staged in the pair's own Q
+  // rows, stored as 16-byte rows
+  bf16* dQs = Qs + wrow * P;
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+    if (j * 8 < nc)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(dQs + (g + 8 * i) * P + c0 + j * 8 + 2 * cq) =
+            pack_bf16(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  __syncwarp();
+  for (int i = lane; i < 16 * (DC / 8); i += 32) {
+    const int r = i / (DC / 8), c = c0 + (i % (DC / 8)) * 8, row = wrow + r;
+    if (row < nq && c < c0 + nc)
+      *reinterpret_cast<uint4*>(dq + q_off + (long)row * q_row + c) =
+          *reinterpret_cast<const uint4*>(dQs + r * P + c);
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* D, void* dq, void* dk,
+                        void* dv, float* ws, int n_sub, int B, int Sq, int Skv, int H, int Hkv,
+                        int Dh, int causal, int window, int q_offset, float scale,
+                        cudaStream_t st) {
+  using W = Wide;
+  static std::atomic<bool> dkdv_set[repro::kMaxDevices], dq_set[repro::kMaxDevices];
+  cudaError_t e = repro::opt_in_smem(flash_bwd_dkdv_wide_kernel, (int)W::SMEM_DKDV, dkdv_set);
+  if (e != cudaSuccess) return e;
+  e = repro::opt_in_smem(flash_bwd_dq_wide_kernel, (int)W::SMEM_DQ, dq_set);
+  if (e != cudaSuccess) return e;
+  const long dkdv_blocks = (long)((Skv + W::BKV - 1) / W::BKV) * Hkv * B * n_sub;
+  const long dq_blocks = (long)((Sq + W::BM - 1) / W::BM) * H * B;
+  const long E = (long)B * Skv * Hkv * Dh;
+  const long sum_blocks = (2 * E / 4 + 255) / 256;
+  if (dkdv_blocks > 0x7fffffffL || dq_blocks > 0x7fffffffL || sum_blocks > 0x7fffffffL)
+    return cudaErrorInvalidConfiguration;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  bf16* dkt = static_cast<bf16*>(dk);
+  bf16* dvt = static_cast<bf16*>(dv);
+  const float scale_log2 = scale * kLog2e;
+
+  if ((e = launch_dot<bf16>(dout, o, D, B, Sq, H, Dh, st)) != cudaSuccess) return e;
+  flash_bwd_dkdv_wide_kernel<<<(unsigned)dkdv_blocks, W::NT, W::SMEM_DKDV, st>>>(
+      qt, kt, vt, dot, lse, D, dkt, dvt, n_sub > 1 ? ws : nullptr, n_sub, B, Sq, Skv, H, Hkv,
+      Dh, causal, window, q_offset, scale, scale_log2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (n_sub > 1) {
+    flash_bwd_dkdv_sum_kernel<<<(unsigned)sum_blocks, 256, 0, st>>>(ws, dkt, dvt, E, n_sub,
+                                                                    scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  flash_bwd_dq_wide_kernel<<<(unsigned)dq_blocks, W::NT, W::SMEM_DQ, st>>>(
+      qt, kt, vt, dot, lse, D, static_cast<bf16*>(dq), B, Sq, Skv, H, Hkv, Dh, causal, window,
+      q_offset, scale, scale_log2);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* D, void* dq, void* dk,
-                     void* dv, int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                     int window, int q_offset, float scale, cudaStream_t st) {
+                     void* dv, float* ws, int n_sub, int B, int Sq, int Skv, int H, int Hkv,
+                     int Dh, int causal, int window, int q_offset, float scale,
+                     cudaStream_t st) {
   if (Dh <= 32)
     return launch<32>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
                       window, q_offset, scale, st);
@@ -1004,8 +1585,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   if (Dh <= 128)
     return launch<128>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
                        window, q_offset, scale, st);
-  return launch<256>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
-                     window, q_offset, scale, st);
+  return launch_wide(q, k, v, o, dout, lse, D, dq, dk, dv, ws, n_sub, B, Sq, Skv, H, Hkv, Dh,
+                     causal, window, q_offset, scale, st);
+}
+
+// The dynamic shared memory (bytes) of the dK/dV and the dQ kernel that
+// dispatch launches at head dim Dh.
+template <int DH>
+void tile_smem(int (&bytes)[2]) {
+  bytes[0] = (int)Tile<DH>::SMEM_DKDV;
+  bytes[1] = (int)Tile<DH>::SMEM_DQ;
+}
+void smem_bytes(int Dh, int (&bytes)[2]) {
+  if (Dh <= 32) return tile_smem<32>(bytes);
+  if (Dh <= 64) return tile_smem<64>(bytes);
+  if (Dh <= 128) return tile_smem<128>(bytes);
+  bytes[0] = (int)Wide::SMEM_DKDV;
+  bytes[1] = (int)Wide::SMEM_DQ;
 }
 
 }  // namespace mma
@@ -1017,15 +1613,22 @@ REPRO_ERROR_STRING_FN(flash_attention_bwd)
 // q, o, dout, dq (B,Sq,H,Dh); k, v, dk, dv (B,Skv,Hkv,Dh); all contiguous and
 // of one dtype (repro::kF32 or repro::kBF16; bf16 ones starting on 16-byte
 // boundaries); lse (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32
-// scratch. Dh a multiple of 16, at most 256. Launches three kernels on
-// `stream`; returns the first cudaGetLastError().
+// scratch. Dh a multiple of 16, at most 256. head_subsets: the blocks that
+// share each kv tile's GQA group (flash_attention_bwd.py's plan), 1 but for
+// bf16 past Dh 128; where it is more, workspace holds head_subsets x 2 x B x
+// Skv x Hkv x Dh f32 (else it is null). Launches three kernels on `stream`,
+// four with a workspace; returns the first cudaGetLastError().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
-                                   void* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                                   int Skv, int H, int Hkv, int Dh, int causal, int window,
-                                   int q_offset, float scale, int dtype, void* stream) {
+                                   void* delta, void* dq, void* dk, void* dv, void* workspace,
+                                   int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
+                                   int window, int q_offset, int head_subsets, float scale,
+                                   int dtype, void* stream) {
   if (Dh <= 0 || Dh % 16 != 0 || Dh > 256 || Hkv <= 0 || H % Hkv != 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || head_subsets < 1 || head_subsets > H / Hkv)
+    return cudaErrorInvalidValue;
+  const bool wide = dtype == repro::kBF16 && Dh > 128;
+  if ((head_subsets > 1) != (workspace != nullptr) || (head_subsets > 1 && !wide))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1034,7 +1637,26 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     return dispatch(q, k, v, o, dout, l, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal, window,
                     q_offset, scale, st);
   if (dtype == repro::kBF16)
-    return mma::dispatch(q, k, v, o, dout, l, D, dq, dk, dv, B, Sq, Skv, H, Hkv, Dh, causal,
-                         window, q_offset, scale, st);
+    return mma::dispatch(q, k, v, o, dout, l, D, dq, dk, dv, static_cast<float*>(workspace),
+                         head_subsets, B, Sq, Skv, H, Hkv, Dh, causal, window, q_offset, scale,
+                         st);
   return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory (bytes) that flash_attention_bwd launches its
+// dK/dV kernel (bytes[0]) and its dQ kernel (bytes[1]) with, for inputs of
+// `dtype` and head dim Dh; cudaErrorInvalidValue for what it refuses.
+extern "C" int flash_attention_bwd_smem(int dtype, int Dh, int* bytes) {
+  if (Dh <= 0 || Dh % 16 != 0 || Dh > 256) return cudaErrorInvalidValue;
+  int b[2];
+  if (dtype == repro::kF32) {
+    b[0] = b[1] = (int)(smem_floats(Dh, Dh > 128 ? 32 : 64) * sizeof(float));
+  } else if (dtype == repro::kBF16) {
+    mma::smem_bytes(Dh, b);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  bytes[0] = b[0];
+  bytes[1] = b[1];
+  return 0;
 }

@@ -597,6 +597,8 @@ BWD_CASES = [
     (1, 130, 130, 2, 1, 160, True, 0, 0),     # Dh 160 on the Dh 256 body, zero columns
     (2, 100, 161, 4, 2, 192, True, 0, 61),    # Dh 192, ragged Sq and Skv under q_offset
     (1, 64, 64, 2, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
+    (4, 1100, 1100, 16, 4, 256, True, 0, 0),  # Dh 256, 288 kv tiles: one head subset
+    (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
     (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 
@@ -672,7 +674,8 @@ def test_flash_bwd_vs_plain_bwd(dev, case, dtype):
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-2
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[2], BWD_CASES[8], BWD_CASES[-1]],
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[2], BWD_CASES[8], BWD_CASES[-1],
+                                  BWD_CASES[12], BWD_CASES[13]],
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_bf16_calls_are_bitwise_repeatable(dev, case):
     """No atomics and a fixed summation order: two bf16 backward calls on the
@@ -686,6 +689,25 @@ def test_flash_bwd_bf16_calls_are_bitwise_repeatable(dev, case):
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_flash_backward_plan_shared_memory_is_the_kernels(dev):
+    """flash_attention_bwd.plan's dynamic shared memory of the dK/dV and the
+    dQ kernel is what the library launches them with, at every head dim and
+    for both dtypes."""
+    import ctypes
+    from repro_torch.kernels import _build, flash_attention_bwd
+    lib, _ = flash_attention_bwd._fn()
+    fn = lib.flash_attention_bwd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        for Dh in range(16, 257, 16):
+            got = (ctypes.c_int * 2)()
+            assert fn(_build.DTYPE_CODES[dtype], Dh, got) == 0
+            p = flash_attention_bwd.plan(4, 3072, 3072, 16, 1, Dh, dtype)
+            assert tuple(got) == (p.dkdv_smem, p.dq_smem), (dtype, Dh)
+            assert max(got) <= 232448  # what a block may opt in to on the H100
 
 
 def test_flash_backward_refuses_head_dims_past_256(dev):
