@@ -96,13 +96,18 @@ Phases, each printed as one JSON object per line:
    into bf16 parts);
    rglru_bwd: dx, da_log and dh0 of the RG-LRU scan's autograd.Function
    against autograd through the plain ref.rglru_scan (f32: max abs <= 1e-4
-   (1 + max |ref|); bf16: relative RMS <= 2e-2), and of the backward kernels
+   (1 + max |ref|); bf16: relative RMS <= 2e-2), and of the backward kernel
    alone against ref.rglru_scan_bwd on the same inputs and the forward's
    saved workspace (f32 the same bound; bf16 within a relative RMS of 1e-2),
    two calls bitwise equal, on recurrentgemma-9b's train shape, S not a
    multiple of the 64-step chunk and S inside one chunk, W not a multiple of
-   the 128-channel block, h0 given and not, a cotangent on the final state
+   the 32-channel tile, h0 given and not, a cotangent on the final state
    and none, rows of a_log = 0 (the clamp) and a_log very negative;
+   rglru_bwd_digest: a sha256 over the backward kernel's dx, da_log and dh0
+   at those cases, f32 and bf16, and each case's own (two trees with equal
+   digests on one card compute bitwise-equal gradients; rglru_bwd_bits
+   prints it, the kernel's time and recurrentgemma-9b's train losses for a
+   tree named on PYTHONPATH, such as a git archive of the parent);
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, granite-8b,
    phi4-mini-3.8b, llama3.2-3b, mixtral-8x7b (16 of 32 layers) and
    llama4-maverick-400b-a17b (2 of 48 layers: one dense and one MoE layer),
@@ -196,7 +201,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# after PYTHONPATH, so that a tree named there (a git archive of the parent)
+# is the one imported: see rglru_bwd_bits
+sys.path.append(str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 L2_BYTES = 50 * 2 ** 20       # H100 SXM L2
@@ -247,13 +254,13 @@ SSD_BWD_F32_TOL, SSD_BWD_BF16_REL_RMS = 1e-4, 2e-2
 SSD_BWD_VS_PLAIN_BF16_REL_RMS = 1e-2
 RGLRU_KERNELS = "rglru_scan_"  # the name part of the RG-LRU scan's three kernels
 RGLRU_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
-RGLRU_BWD_KERNELS = "rglru_bwd_"  # the name part of the RG-LRU backward's three kernels
-RGLRU_BWD_PHASES = ("chunk", "pass", "out")  # their names after it, in launch order
+RGLRU_BWD_KERNELS = "rglru_bwd_"  # the name part of the RG-LRU backward's kernel
+RGLRU_BWD_PHASES = ("onepass",)  # its name after it
 # the RG-LRU backward against autograd through the plain scan (f32 max abs
 # within 1e-4 (1 + max |ref|), bf16 relative RMS 2e-2: the plain forward
 # rounds only y and h_last, the kernels dx too) and, alone on the forward's
 # workspace, against ref.rglru_scan_bwd (bf16 1e-2: both compute in f32 and
-# round dx; the kernels reassociate only the carry into each chunk). A wrong
+# round dx; the kernel reassociates only the carry into each chunk). A wrong
 # decay, carry or chunk edge moves a gradient by order 100%.
 RGLRU_BWD_F32_TOL, RGLRU_BWD_BF16_REL_RMS, RGLRU_BWD_VS_PLAIN_BF16_REL_RMS = 1e-4, 2e-2, 1e-2
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
@@ -1422,7 +1429,7 @@ def _rglru_grad_errs(got, want, dtype, rel_rms_bound):
 
 
 def run_rglru_bwd_checks(dev):
-    """Returns the bf16 max abs error of the backward kernels against
+    """Returns the bf16 max abs error of the backward kernel against
     ref.rglru_scan_bwd at the train shape (largest over the gradients)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as krglru
@@ -1436,7 +1443,7 @@ def run_rglru_bwd_checks(dev):
             torch.cuda.synchronize()
             res, ok = _rglru_grad_errs(g, gp, dtype, RGLRU_BWD_BF16_REL_RMS)
             del g, gp
-            # the kernels alone, twice, against ref.rglru_scan_bwd on the forward's workspace
+            # the kernel alone, twice, against ref.rglru_scan_bwd on the forward's workspace
             _, _, ws = krglru._forward(x, a_log, h0)
             gk = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
             gk2 = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
@@ -1454,6 +1461,34 @@ def run_rglru_bwd_checks(dev):
             del x, a_log, dy, gk, gk2, gm, ws
             torch.cuda.empty_cache()
     return worst
+
+
+def rglru_bwd_digest(dev):
+    """sha256 over the bytes of the RG-LRU backward kernel's dx, da_log and
+    dh0 (where h0 is given), f32 and bf16, at every RGLRU_BWD_CASES case (the
+    train shape first), each on the forward's workspace of its inputs: two
+    trees whose digests agree on one card compute bitwise-equal gradients.
+    Each case's own digest too (its first 16 hex digits), to name a case
+    where two trees differ."""
+    import hashlib
+    from repro_torch.kernels import rglru_scan as krglru
+    from repro_torch.kernels import rglru_scan_bwd as kbwd
+    h, per_case = hashlib.sha256(), []
+    for case in RGLRU_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, a_log, h0, dy, dh = rglru_bwd_inputs(case, dtype, dev, seed=7)
+            _, _, ws = krglru._forward(x, a_log, h0)
+            hc = hashlib.sha256()
+            for t in kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws):
+                if t is not None:
+                    raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                    h.update(raw)
+                    hc.update(raw)
+            per_case.append(hc.hexdigest()[:16])
+            del x, a_log, h0, dy, dh, ws
+            torch.cuda.empty_cache()
+    return {"cases": len(RGLRU_BWD_CASES), "dtypes": ["float32", "bfloat16"],
+            "sha256": h.hexdigest(), "per_case": per_case}
 
 
 # --------------------------------------------------------------------------
@@ -2496,12 +2531,23 @@ def time_rglru(launches, errs, card, dev):
                        "plan": p._asdict()})
 
 
-def time_rglru_bwd(launches, errs, card, dev):
-    from repro_torch.kernels import ref
+def rglru_bwd_train_call(dev):
+    """(x, a_log, dy, the backward kernel's call on them and the forward's
+    workspace) at recurrentgemma-9b's train shape, bf16, no h0 and no
+    final-state cotangent, as the train step calls it."""
     from repro_torch.kernels import rglru_scan as krglru
     from repro_torch.kernels import rglru_scan_bwd as kbwd
-    B, S, W = RGLRU_TRAIN[:3]
     x, a_log, _, dy, _ = rglru_bwd_inputs(RGLRU_TRAIN, torch.bfloat16, dev, seed=6)
+    _, _, ws = krglru._forward(x, a_log, None)
+    return x, a_log, dy, lambda: kbwd.rglru_scan_bwd_cuda(x, a_log, None, dy, None,
+                                                         fwd_workspace=ws)
+
+
+def time_rglru_bwd(launches, errs, card, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan_bwd as kbwd
+    B, S, W = RGLRU_TRAIN[:3]
+    x, a_log, dy, kern = rglru_bwd_train_call(dev)
     # read x, a_log and dy once, write dx and da_log: 14 bytes an element
     nbytes = x.numel() * (2 + 4 + 2 + 2 + 4)
     # per element: exp, a*a, 1 - a^2, max, sqrt, the carry's add and product,
@@ -2509,17 +2555,12 @@ def time_rglru_bwd(launches, errs, card, dev):
     flops = 16 * x.numel()
     b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
     p = kbwd.plan(B, S, W)
-    # what this design moves, were none of it held in the L2: dy and a_log read
-    # by the chunk kernel (all chunks but the first), x and a_log by the out
-    # kernel's forward walk, x, a_log and dy again by its reverse walk, dx and
-    # da_log written; the forward's entering states read, and this call's f32
-    # workspace (P and E written, read by the pass, E rewritten, then read)
+    # what this design moves, were none of it held in the L2: x, a_log and dy
+    # read once, dx and da_log written once; for each (b, chunk 1 .. nc - 1,
+    # w) the forward's entering state read, P and E written (f32), and the
+    # 8-byte carry out zeroed, written and read by the chunk to the left
     slots = B * (p.n_chunks - 1) * W
-    design_bytes = (slots * p.chunk * 6 + x.numel() * (6 + 8 + 6)
-                    + slots * (4 + 8 + 8 + 4 + 4))
-    _, _, ws = krglru._forward(x, a_log, None)
-    kern = lambda: kbwd.rglru_scan_bwd_cuda(  # noqa: E731
-        x, a_log, None, dy, None, fwd_workspace=ws)
+    design_bytes = x.numel() * (2 + 4 + 2 + 2 + 4) + slots * (4 + 8 + 8 + 8 + 8)
     # plain: autograd's backward through ref.rglru_scan, its graph built outside the timing
     leaves = [t.clone().requires_grad_(True) for t in (x, a_log)]
     y_p, _ = ref.rglru_scan(*leaves)
@@ -2624,6 +2665,36 @@ def run_arch(arch, dev, card):
     return served["launches"]
 
 
+def rglru_bwd_bits():
+    """The RG-LRU backward's bits and time in the tree whose repro_torch this
+    process imports, for two trees on one card: recurrentgemma-9b's 8 train
+    steps (run_train: its train line holds the losses; first, while the
+    allocator is fresh, since its peak is within 3 GB of the card's memory),
+    rglru_bwd_digest, and the kernel's wrapper and device ms a call at the
+    train shape (rglru_bwd_time). Run on a git archive of another tree as
+
+        PYTHONPATH=<archive>/src python3 -c 'import chip_smoke; chip_smoke.rglru_bwd_bits()'
+
+    from this tree's root: chip_smoke puts its own src after PYTHONPATH."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()  # the allocator's statistics, which run_train resets, need it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["rglru_scan", "rglru_scan_bwd", "flash_attention", "flash_attention_bwd"])
+    run_train(dev, card, "recurrentgemma-9b")
+    emit("rglru_bwd_digest", rglru_bwd_digest(dev))
+    kern = rglru_bwd_train_call(dev)[3]
+    emit("rglru_bwd_time", {"ms": time_ms(kern, iters=20),
+                            "device_ms": device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
+                            "card": card})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2656,6 +2727,7 @@ def main():
     errs.update(run_flash_bwd_checks(dev))
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)
+    emit("rglru_bwd_digest", rglru_bwd_digest(dev))
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
     for arch in TRAIN_FEEDS:
         launches[f"{arch} train"] = run_train(dev, card, arch)

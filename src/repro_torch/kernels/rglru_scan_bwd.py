@@ -1,16 +1,21 @@
-"""Wrapper of the CUDA RG-LRU scan backward kernels (``csrc/rglru_scan_bwd.cu``).
+"""Wrapper of the CUDA RG-LRU scan backward kernel (``csrc/rglru_scan_bwd.cu``).
 
 The gradient of ``src/repro/kernels/rglru_scan.py:46`` (``rglru_scan_pallas``),
 which the JAX package takes by differentiating its associative scan
-(``src/repro/kernels/ops.py:248-281``) instead of a kernel. What bounds the
-kernels on the H100 and what their design does about it is in the note at
-the top of the CUDA source. Each call runs three kernels on the current
-stream (each chunk's reverse decay product and local carry, the pass over
-the chunks right to left, then each chunk's states recomputed from the
-forward's workspace and its dx and da_log), or the last alone where S is
-one chunk; ``plan`` works out the grids and the f32 workspace here on the
-host, from the shapes alone, on the forward's chunks. ``launches`` counts
-calls of the wrapper (up to three kernels each).
+(``src/repro/kernels/ops.py:248-281``) instead of a kernel. Each call zeroes
+the chunks' flags and runs one kernel on the current stream, one block per
+(b, chunk, 32-channel tile) in one pass: the block takes its work from a
+ticket (``ticket_work``: every row's last chunk first), stages its chunk's
+inputs in shared memory once, publishes the chunk's reverse decay product and
+local carry, takes the carry into its chunk from the chunk to its right (or
+folds one from further right through the chunks between), publishes the
+carry it hands its left neighbour, and writes dx and da_log. Every carry is
+the same sequential fold of the chunks to its right, wherever the look-back
+stops, so the outputs do not depend on the order the blocks ran in and are
+bitwise those of the three kernels the pass replaced; what bounds the kernel
+on the H100 is in the note at the top of the CUDA source. ``plan`` works out
+the blocks, the workspace, the flags and the shared memory here on the host,
+from the shapes alone, on the forward's chunks. ``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -21,46 +26,78 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .rglru_scan import MAX_GRID_YZ, THREADS
+from .rglru_scan import MAX_GRID_YZ
 from .rglru_scan import plan as forward_plan
 
 launches = 0
 
-MAX_CHUNK = 64  # the out kernel holds a chunk's states in shared memory
+MAX_CHUNK = 64  # a block holds its chunk in shared memory
+MAX_BLOCKS = 2 ** 31 - 1  # CUDA's bound on a 1-D grid
+TILE = 32  # channels of a block
+BLOCK_THREADS = 128  # threads of a block, a fixed channel each
 
-# the C entry's arguments: x, a_log, h0, fwd_ws, dy, dh_last, dx, da_log, dh0, ws;
-# B, S, W, L, dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the C entry's arguments: x, a_log, h0, fwd_ws, dy, dh_last, dx, da_log, dh0, ws,
+# flags; B, S, W, L, dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
-    """Chunk length (the forward's), grids ((x, y, z) blocks of THREADS) and
-    f32 workspace of one call. The workspace holds the chunks' reverse decay
-    products (B, n_chunks - 1, W), then their local carries of the same
-    shape, which the pass overwrites with the carry into each chunk from its
-    right; it is empty for one chunk, where only the out kernel runs."""
-    chunk: int                          # L: steps of every chunk but the last
+    """Chunk length (the forward's), blocks (a 1-D grid of ``threads`` each,
+    a block per TILE-channel tile of a chunk), f32 workspace, flags and
+    shared memory of one call. The workspace holds, for chunks 1 ..
+    n_chunks - 1, their reverse decay products (B, n_chunks - 1, W) and their
+    local carries of that shape; it is empty for one chunk. The flags, which
+    the call zeroes, are the chunks' carries out, a 64-bit word (two uint32)
+    per (b, chunk 1 .. n_chunks - 1, w), then one aggregate flag per (b,
+    tile, chunk 1 .. n_chunks - 1), then the ticket counter."""
+    chunk: int             # L: steps of every chunk but the last
     n_chunks: int
-    chunk_grid: Tuple[int, int, int]    # one thread per (b, chunk, w), all chunks but the first
-    pass_grid: Tuple[int, int, int]     # one thread per (b, w)
-    out_grid: Tuple[int, int, int]      # one thread per (b, chunk, w)
+    tiles: int             # TILE-channel tiles of a row
+    blocks: int            # one per (b, chunk, tile)
+    threads: int           # of a block
     workspace_floats: int
+    flag_words: int
+    smem_f32: int          # dynamic shared memory of a block, f32 x
+    smem_bf16: int         # the same, bf16 x
+
+
+def smem_bytes(chunk: int, itemsize: int) -> int:
+    """A block's dynamic shared memory: its chunk's a and an f32
+    scratch row a step, and dy and x in their dtype, TILE channels each."""
+    return chunk * TILE * (2 * 4 + 2 * itemsize)
 
 
 @functools.lru_cache(maxsize=256)
 def plan(B: int, S: int, W: int) -> Plan:
     """The call's plan from its shapes (Python ints; nothing on the device is
     read), on the chunks of the forward's plan, whose workspace it reads.
-    Raises ValueError for shapes the grids cannot take, and where the
-    forward's chunk is longer than MAX_CHUNK (S past 64 * 65535 steps)."""
+    Raises ValueError for shapes the forward's plan refuses, where the
+    forward's chunk is longer than MAX_CHUNK (S past 64 * 65535 steps), and
+    past MAX_BLOCKS blocks."""
     fp = forward_plan(B, S, W)
     if fp.chunk > MAX_CHUNK:
         raise ValueError(f"rglru_scan_bwd_cuda takes chunks of at most {MAX_CHUNK} steps, "
                          f"so S at most {MAX_CHUNK * MAX_GRID_YZ}; got S {S} (chunk "
                          f"{fp.chunk})")
-    wb, nc = -(-W // THREADS), fp.n_chunks
-    return Plan(chunk=fp.chunk, n_chunks=nc, chunk_grid=(wb, nc - 1, B), pass_grid=(wb, B, 1),
-                out_grid=(wb, nc, B), workspace_floats=2 * B * (nc - 1) * W)
+    tiles, nc = -(-W // TILE), fp.n_chunks
+    if B * nc * tiles > MAX_BLOCKS:
+        raise ValueError(f"rglru_scan_bwd_cuda takes at most {MAX_BLOCKS} blocks, got "
+                         f"{B * nc * tiles} for B {B}, S {S}, W {W}")
+    return Plan(chunk=fp.chunk, n_chunks=nc, tiles=tiles, blocks=B * nc * tiles,
+                threads=BLOCK_THREADS, workspace_floats=2 * B * (nc - 1) * W,
+                flag_words=2 * B * (nc - 1) * W + B * tiles * (nc - 1) + 1,
+                smem_f32=smem_bytes(fp.chunk, 4),
+                smem_bf16=smem_bytes(fp.chunk, 2))
+
+
+def ticket_work(p: Plan, ticket: int) -> Tuple[int, int, int]:
+    """The (b, chunk, tile) of the block that draws ``ticket``, as the kernel
+    works it out: every row's (b, tile) chunk n_chunks - 1 first, then every
+    row's n_chunks - 2, and so on, so the chunks to a chunk's right hold lower
+    tickets."""
+    rows = p.blocks // p.n_chunks
+    step, r = divmod(ticket, rows)
+    return r // p.tiles, p.n_chunks - 1 - step, r % p.tiles
 
 
 def _fn():
@@ -114,14 +151,15 @@ def rglru_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch
                          f"plan {forward_plan(B, S, W).workspace_floats}")
     lib, fn = _fn()
     with torch.cuda.device(x.device):
-        # from the caching allocator on the current stream, which the kernels run on
+        # from the caching allocator on the current stream, which the kernel runs on
         ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
+        flags = torch.empty(p.flag_words, dtype=torch.int32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), a_log.data_ptr(), h0.data_ptr() if h0 is not None else None,
                  fwd_workspace.data_ptr(), dy.data_ptr(),
                  dh_last.data_ptr() if dh_last is not None else None, dx.data_ptr(),
                  da_log.data_ptr(), dh0.data_ptr() if dh0 is not None else None, ws.data_ptr(),
-                 B, S, W, p.chunk, _build.DTYPE_CODES[x.dtype], stream)
+                 flags.data_ptr(), B, S, W, p.chunk, _build.DTYPE_CODES[x.dtype], stream)
     launches += 1
     _build.check(lib, "rglru_scan_bwd", err)
     return dx, da_log, dh0

@@ -828,6 +828,60 @@ def test_rglru_bwd_kernel_with_unit_decay(dev):
         assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
 
 
+@pytest.mark.parametrize("W", [128, 129])
+def test_rglru_bwd_kernel_over_a_long_chain_on_a_side_stream(dev, W):
+    """300 chunks a row (S 64 x 300), so the look-back crosses many waves of
+    blocks; W 128 stages its rows by 16-byte copies, W 129 by plain loads.
+    On a side stream, against ref.rglru_scan_bwd in f32 (1e-4 (1 + max
+    |ref|)), and two calls bitwise equal."""
+    from repro_torch.kernels import ref, rglru_scan, rglru_scan_bwd
+    x, a_log, h0, dy, dh = _rglru_bwd_inputs(dev, (2, 64 * 300, W, True, True), torch.float32)
+    _, _, ws = rglru_scan._forward(x, a_log, h0)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = rglru_scan_bwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+        again = rglru_scan_bwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    want = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
+    torch.cuda.synchronize(dev)
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+
+
+def test_rglru_backward_plan_shared_memory_is_the_kernels(dev):
+    """rglru_scan_bwd.plan's dynamic shared memory per dtype is what the
+    library launches its kernel with, at every chunk length."""
+    import ctypes
+    from repro_torch.kernels import _build, rglru_scan_bwd
+    lib, _ = rglru_scan_bwd._fn()
+    fn = lib.rglru_scan_bwd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for L in range(1, rglru_scan_bwd.MAX_CHUNK + 1):
+        p = rglru_scan_bwd.plan(2, L, 129)
+        assert p.chunk == L
+        for dtype, want in ((torch.float32, p.smem_f32), (torch.bfloat16, p.smem_bf16)):
+            got = ctypes.c_int()
+            assert fn(_build.DTYPE_CODES[dtype], L, ctypes.byref(got)) == 0
+            assert got.value == want <= 232448, (L, dtype)
+
+
+def test_rglru_bwd_sqrt_is_bitwise_sqrtf_over_its_range(dev):
+    """The backward kernel's branch-free sqrt against sqrtf at every float in
+    [1e-12, 1], the range of max(1 - a^2, 1e-12) for any a: no bit differs."""
+    import ctypes
+    from repro_torch.kernels import rglru_scan_bwd
+    lib, _ = rglru_scan_bwd._fn()
+    fn = lib.rglru_scan_bwd_sqrt_check
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    bad = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    assert fn(bad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream) == 0
+    torch.cuda.synchronize(dev)
+    assert int(bad.item()) == 0
+
+
 def test_rglru_gradient_flows_through_the_backward_kernels(dev):
     """The RG-LRU scan under autograd gives x, a_log and h0 a gradient through
     its backward kernels, and none of the plain versions runs; without grad

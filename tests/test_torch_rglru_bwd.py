@@ -1,5 +1,6 @@
-"""The RG-LRU scan's gradient on the CPU: the plain backward, a mirror of the
-backward kernels' three phases, their plan, and the autograd.Function.
+"""The RG-LRU scan's gradient on the CPU: the plain backward, mirrors of the
+backward kernel's sequential fold and of its look-back, its plan and ticket
+order, and the autograd.Function.
 
 * ``ref.rglru_scan_bwd`` (the closed form the CUDA backward computes) against
   ``jax.vjp`` of the JAX package's associative scan
@@ -14,15 +15,23 @@ backward kernels' three phases, their plan, and the autograd.Function.
   cotangent each given and not, and rows of a_log = 0, where a = 1 and
   1 - a^2 falls under the clamp's 1e-12, so the gradient takes the clamp's
   constant side.
-* A plain f32 mirror of the kernels' chunk -> pass -> out (written in this
-  file and on no path of the port), on the plan's chunks and the forward's
-  entering states, held against ``ref.rglru_scan_bwd`` within 1e-5 of each
-  gradient's largest: it checks the order of the reverse scan the kernels
-  run (each chunk's reverse decay product and local carry, the carries folded
-  right to left, each chunk's states recomputed from the state entering it).
-* ``rglru_scan_bwd.plan``: grids and workspace worked out by hand from the
-  note at the top of ``csrc/rglru_scan_bwd.cu``, at the train shape and at
-  the grid edges, and its refusals.
+* A plain f32 mirror of the kernel's arithmetic (written in this file and on
+  no path of the port), on the plan's chunks and the forward's entering
+  states: each chunk's reverse decay product and local carry, the carries
+  folded right to left, each chunk's states recomputed from the state
+  entering it and its steps in reverse. Its sequential form (the carries
+  folded in chunk order) is held against ``ref.rglru_scan_bwd`` within 1e-5
+  of each gradient's largest. Its look-back form finishes each chunk's fold
+  from the carry of a chunk further right, one chosen for every chunk (each
+  one, and random choices from a seed), as the kernel's blocks do wherever
+  their look-back stops: its carries, dx, da_log and dh0 are bitwise the
+  sequential form's, and within 1e-5 of ``ref.rglru_scan_bwd`` and of
+  ``jax.vjp`` of the associative scan.
+* ``rglru_scan_bwd.plan``: blocks, workspace, flags and shared memory worked
+  out by hand from the note at the top of ``csrc/rglru_scan_bwd.cu``, at the
+  train shape and at the grid edges, and its refusals;
+  ``rglru_scan_bwd.ticket_work``: every (b, chunk, tile) draws one ticket, and
+  the chunks to a chunk's right draw lower ones.
 * ``rglru_scan.RGLRUScan`` with its two kernel calls replaced by the plain
   versions: what it saves, what it hands the backward and what it returns.
   The kernels themselves run on the card only (``tests/test_torch_cuda.py``,
@@ -90,9 +99,9 @@ def _assert_close(name, got, want):
     assert err <= bound, f"{name}: max abs diff {err} > {bound}"
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
-def test_plain_backward_matches_jax_vjp_of_the_associative_scan(case):
-    a = _inputs(case)
+def _jax_vjp(a):
+    """(dx, da_log[, dh0]) of jax.vjp of the JAX package's associative scan on
+    the inputs ``a``, a zero final-state cotangent where none is given."""
     x, a_log = jnp.asarray(a["x"]), jnp.asarray(a["a_log"])
     dh = a["dh"] if a["dh"] is not None else np.zeros_like(a["x"][:, 0])
     if a["h0"] is not None:
@@ -100,7 +109,13 @@ def test_plain_backward_matches_jax_vjp_of_the_associative_scan(case):
                          x, a_log, jnp.asarray(a["h0"]))
     else:
         _, vjp = jax.vjp(lambda x, al: jops.rglru_scan(x, al, impl="chunked"), x, a_log)
-    want = vjp((jnp.asarray(a["dy"]), jnp.asarray(dh)))
+    return vjp((jnp.asarray(a["dy"]), jnp.asarray(dh)))
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_backward_matches_jax_vjp_of_the_associative_scan(case):
+    a = _inputs(case)
+    want = _jax_vjp(a)
     got = _plain_bwd(a)
     assert (got[2] is None) == (a["h0"] is None)
     for name, g, w in zip(NAMES, got, want):
@@ -146,13 +161,21 @@ def test_plain_backward_rounds_dx_to_the_input_dtype():
 
 
 # --------------------------------------------------------------------------
-# the mirror of the three backward kernels
+# mirrors of the backward kernel: the sequential fold and the look-back
 # --------------------------------------------------------------------------
 
-def mirror(x, a_log, h0, dy, dh, L):
-    """chunk -> pass -> out in f32 over chunks of L steps (the last may be
-    shorter), as csrc/rglru_scan_bwd.cu runs them; the forward's entering
-    states as its workspace holds them. Returns (dx, da_log, dh0)."""
+def _fold(p, g, e):
+    """The carry a chunk hands its left neighbour: its decay product p times
+    the carry g from its right, plus its local carry e."""
+    return p * g + e
+
+
+def _parts(x, a_log, h0, dy, L):
+    """What the kernel works out per chunk before any carry is known: the
+    steps' a, 1 - a^2 and gate, the chunks' bounds, the forward's states
+    entering each chunk (its workspace after its pass), and each chunk's
+    reverse decay product and local carry from the carry 0 (chunk 0's are
+    never used)."""
     B, S, W = x.shape
     nc = -(-S // L)
     a = torch.exp(a_log)
@@ -160,14 +183,12 @@ def mirror(x, a_log, h0, dy, dh, L):
     s = torch.sqrt(torch.clamp_min(u, 1e-12))
     zeros = torch.zeros((B, W))
     bounds = [(c * L, min((c + 1) * L, S)) for c in range(nc)]
-    # the forward's states entering each chunk (its workspace after its pass)
     h = h0 if h0 is not None else zeros
     enter = []
     for lo, hi in bounds:
         enter.append(h)
         for t in range(lo, hi):
             h = a[:, t] * h + s[:, t] * x[:, t]
-    # 1. every chunk but the first, from carry 0: reverse decay product and carry
     prod, local = [None] * nc, [None] * nc
     for c in range(1, nc):
         G, p = zeros, torch.ones((B, W))
@@ -175,15 +196,16 @@ def mirror(x, a_log, h0, dy, dh, L):
             G = a[:, t] * (dy[:, t] + G)
             p = p * a[:, t]
         prod[c], local[c] = p, G
-    # 2. the carries into each chunk from its right, folded right to left
-    carry = [None] * nc
-    carry[nc - 1] = dh if dh is not None else zeros
-    for c in range(nc - 1, 0, -1):
-        carry[c - 1] = prod[c] * carry[c] + local[c]
-    # 3. each chunk's states forward from the state entering it, then its steps in reverse
+    return dict(a=a, u=u, s=s, bounds=bounds, enter=enter, prod=prod, local=local)
+
+
+def _out(x, dy, h0, parts, carry):
+    """Each chunk's states forward from the state entering it, then its steps
+    in reverse from the carry into it: (dx, da_log, dh0)."""
+    a, u, s = parts["a"], parts["u"], parts["s"]
     dx, da_log = torch.empty_like(x), torch.empty_like(x)
-    for c, (lo, hi) in enumerate(bounds):
-        h, h_prev = enter[c], {}
+    for c, (lo, hi) in enumerate(parts["bounds"]):
+        h, h_prev = parts["enter"][c], {}
         for t in range(lo, hi):
             h_prev[t] = h
             h = a[:, t] * h + s[:, t] * x[:, t]
@@ -196,8 +218,52 @@ def mirror(x, a_log, h0, dy, dh, L):
             da_log[:, t] = a[:, t] * g * dh_da
             G = a[:, t] * g
         if c == 0:
-            dh0 = G  # the first chunk's thread writes dh0 from the carry it ends with
+            dh0 = G  # the chunk-0 block writes dh0 from the carry it ends with
     return dx, da_log, dh0 if h0 is not None else None
+
+
+def _last_carry(x, dh):
+    return dh if dh is not None else torch.zeros((x.shape[0], x.shape[2]))
+
+
+def sequential_carries(parts, last):
+    """The carries into each chunk from its right, folded right to left."""
+    nc = len(parts["bounds"])
+    carry = [None] * nc
+    carry[nc - 1] = last
+    for c in range(nc - 1, 0, -1):
+        carry[c - 1] = _fold(parts["prod"][c], carry[c], parts["local"][c])
+    return carry
+
+
+def lookback_carries(parts, last, choose):
+    """The carries as the kernel's blocks find them, chunks in ticket order
+    (last first): chunk c's block stops its look-back at chunk choose(c) > c,
+    starts from the carry that block published (this mirror's own, not the
+    sequential one's) and folds the chunks between, innermost first."""
+    nc = len(parts["bounds"])
+    carry = [None] * nc
+    carry[nc - 1] = last
+    for c in range(nc - 2, -1, -1):
+        j = choose(c)
+        assert c < j < nc
+        G = carry[j]
+        for i in range(j, c, -1):
+            G = _fold(parts["prod"][i], G, parts["local"][i])
+        carry[c] = G
+    return carry
+
+
+def mirror(x, a_log, h0, dy, dh, L, choose=None):
+    """The kernel's arithmetic in f32 over chunks of L steps (the last may be
+    shorter): its carries folded in chunk order (``choose`` None) or by the
+    look-back from the chunks ``choose`` picks. Returns ((dx, da_log, dh0),
+    the carries into each chunk)."""
+    parts = _parts(x, a_log, h0, dy, L)
+    last = _last_carry(x, dh)
+    carry = (sequential_carries(parts, last) if choose is None
+             else lookback_carries(parts, last, choose))
+    return _out(x, dy, h0, parts, carry), carry
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
@@ -207,7 +273,7 @@ def test_mirror_of_the_kernels_matches_the_plain_backward(case, L):
     t = _torch(a)
     B, S, W = case[:3]
     chunk = tbwd.plan(B, S, W).chunk if L is None else min(L, S)
-    got = mirror(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"], chunk)
+    got, _ = mirror(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"], chunk)
     want = _plain_bwd(a)
     assert (got[2] is None) == (want[2] is None)
     for name, g, w in zip(NAMES, got, want):
@@ -215,24 +281,97 @@ def test_mirror_of_the_kernels_matches_the_plain_backward(case, L):
             _assert_close(name, g, w.numpy())
 
 
+def _chunk(case, L):
+    B, S, W = case[:3]
+    return tbwd.plan(B, S, W).chunk if L is None else min(L, S)
+
+
+def _chooser(kind, nc):
+    """Where each chunk's look-back stops: its right neighbour, the last
+    chunk, or a chunk drawn from a seed."""
+    if kind == "nearest":
+        return lambda c: c + 1
+    if kind == "last":
+        return lambda c: nc - 1
+    rng = np.random.default_rng(int(kind.split("-")[1]))
+    return lambda c: int(rng.integers(c + 1, nc))
+
+
+LOOKBACK_KINDS = ["nearest", "last", "seed-0", "seed-1", "seed-2"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("L", [None, 7, 16])
+def test_the_fold_from_every_chunk_to_the_right_gives_the_sequential_carry(case, L):
+    """Chunk c's carry folded from the carry of every chunk j > c, through
+    the aggregates of chunks j .. c + 1, is bitwise the sequential carry."""
+    t = _torch(_inputs(case, seed=4))
+    parts = _parts(t["x"], t["a_log"], t["h0"], t["dy"], _chunk(case, L))
+    carry = sequential_carries(parts, _last_carry(t["x"], t["dh"]))
+    nc = len(carry)
+    for c in range(nc - 1):
+        for j in range(c + 1, nc):
+            G = carry[j]
+            for i in range(j, c, -1):
+                G = _fold(parts["prod"][i], G, parts["local"][i])
+            assert torch.equal(G, carry[c]), (c, j)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("L", [None, 7, 16])
+@pytest.mark.parametrize("kind", LOOKBACK_KINDS)
+def test_lookback_mirror_is_bitwise_the_sequential_mirror(case, L, kind):
+    t = _torch(_inputs(case, seed=4))
+    chunk = _chunk(case, L)
+    args = (t["x"], t["a_log"], t["h0"], t["dy"], t["dh"], chunk)
+    want, want_carry = mirror(*args)
+    got, carry = mirror(*args, choose=_chooser(kind, len(want_carry)))
+    assert all(torch.equal(g, w) for g, w in zip(carry, want_carry))
+    assert (got[2] is None) == (want[2] is None)
+    for name, g, w in zip(NAMES, got, want):
+        if w is not None:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("L", [None, 7, 16])
+def test_lookback_mirror_matches_the_plain_backward_and_jax_vjp(case, L):
+    """On the inputs the plain backward is held against jax.vjp with."""
+    a = _inputs(case)
+    t = _torch(a)
+    chunk = _chunk(case, L)
+    nc = -(-case[1] // chunk)
+    got, _ = mirror(t["x"], t["a_log"], t["h0"], t["dy"], t["dh"], chunk,
+                    choose=_chooser("seed-0", nc))
+    for want in (_plain_bwd(a), _jax_vjp(a)):
+        assert (got[2] is None) == (len(want) < 3 or want[2] is None)
+        for name, g, w in zip(NAMES, got, want):
+            if w is not None:
+                _assert_close(name, g, np.asarray(w))
+
+
 # --------------------------------------------------------------------------
 # the plan
 # --------------------------------------------------------------------------
 
-# (B, S, W) -> (L, chunks, chunk grid, pass grid, out grid, workspace floats)
+# (B, S, W) -> (L, chunks, tiles, blocks, threads, workspace floats, flag
+# words, shared memory f32, bf16): one block per (b, chunk, 32-channel tile);
+# P and E of chunks 1 .. nc - 1; their carries out (two words each), an
+# aggregate flag a tile and the ticket counter; a, H, dy and x of L steps and
+# 32 channels
 PLANS = {
-    # recurrentgemma-9b train: 4 rows of 3072, 6144 out blocks, 6016 chunk blocks
-    (4, 3072, 4096): (64, 48, (32, 47, 4), (32, 4, 1), (32, 48, 4), 1540096),
-    (3, 1001, 1000): (64, 16, (8, 15, 3), (8, 3, 1), (8, 16, 3), 90000),  # last chunk 41
-    (2, 7, 33): (7, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),        # S < L: one chunk
-    (2, 1, 33): (1, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),        # S 1
-    (2, 63, 33): (63, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),      # S = L - 1
-    (2, 64, 33): (64, 1, (1, 0, 2), (1, 2, 1), (1, 1, 2), 0),      # S = L
-    (2, 65, 33): (64, 2, (1, 1, 2), (1, 2, 1), (1, 2, 2), 132),    # S = L + 1
-    (2, 197, 129): (64, 4, (2, 3, 2), (2, 2, 1), (2, 4, 2), 1548),  # W one past a block
-    (65535, 64, 128): (64, 1, (1, 0, 65535), (1, 65535, 1), (1, 1, 65535), 0),  # most rows
-    # 65535 chunks of 64 fill a grid dimension: the longest S the backward takes
-    (1, 64 * 65535, 1): (64, 65535, (1, 65534, 1), (1, 1, 1), (1, 65535, 1), 131068),
+    # recurrentgemma-9b train: 4 rows of 3072, 24576 blocks, 24 KB a bf16 block
+    (4, 3072, 4096): (64, 48, 128, 24576, 128, 1540096, 1564161, 32768, 24576),
+    (3, 1001, 1000): (64, 16, 32, 1536, 128, 90000, 91441, 32768, 24576),  # last chunk 41
+    (2, 7, 33): (7, 1, 2, 4, 128, 0, 1, 3584, 2688),                      # S < L: one chunk
+    (2, 1, 33): (1, 1, 2, 4, 128, 0, 1, 512, 384),                        # S 1
+    (2, 63, 33): (63, 1, 2, 4, 128, 0, 1, 32256, 24192),                  # S = L - 1
+    (2, 64, 33): (64, 1, 2, 4, 128, 0, 1, 32768, 24576),                  # S = L
+    (2, 65, 33): (64, 2, 2, 8, 128, 132, 137, 32768, 24576),              # S = L + 1
+    (2, 197, 129): (64, 4, 5, 40, 128, 1548, 1579, 32768, 24576),         # W one past 4 tiles
+    (65535, 64, 128): (64, 1, 4, 262140, 128, 0, 1, 32768, 24576),        # most rows
+    # 65535 chunks of 64: the longest S the backward takes
+    (1, 64 * 65535, 1): (64, 65535, 1, 65535, 128, 131068, 196603, 32768, 24576),
 }
 
 
@@ -243,8 +382,11 @@ def test_backward_plan_grids_and_workspace(shape):
     B, S, W = shape
     fp = trglru.plan(B, S, W)
     assert (p.chunk, p.n_chunks) == (fp.chunk, fp.n_chunks)  # the forward's chunks
-    assert p.workspace_floats == fp.workspace_floats == 2 * B * (p.n_chunks - 1) * W
-    assert max(p.chunk_grid[1:] + p.out_grid[1:] + p.pass_grid[1:]) <= trglru.MAX_GRID_YZ
+    assert p.workspace_floats == 2 * B * (p.n_chunks - 1) * W == fp.workspace_floats
+    assert p.flag_words == 2 * B * (p.n_chunks - 1) * W + B * p.tiles * (p.n_chunks - 1) + 1
+    assert p.blocks == B * p.n_chunks * p.tiles <= tbwd.MAX_BLOCKS
+    assert p.n_chunks <= trglru.MAX_GRID_YZ
+    assert max(p.smem_f32, p.smem_bf16) <= 232448  # what a block may opt in to on the H100
 
 
 def test_backward_plan_at_the_train_shape_follows_the_config():
@@ -257,10 +399,38 @@ def test_backward_plan_at_the_train_shape_follows_the_config():
 @pytest.mark.parametrize("shape", [(0, 8, 8), (1, 0, 8), (1, 8, 0), (65536, 8, 8),
                                    (1, 64 * 65535 + 1, 1)])
 def test_backward_plan_refuses_what_the_kernels_cannot_take(shape):
-    """The grids' bounds, and S past 64 * 65535 steps, where the forward's
-    chunk grows past the 64 steps whose states the out kernel keeps."""
+    """The forward's bounds, and S past 64 * 65535 steps, where the forward's
+    chunk grows past the 64 steps a block holds in shared memory."""
     with pytest.raises(ValueError, match="rglru_scan"):
         tbwd.plan(*shape)
+
+
+# plans whose tickets are enumerated here: the train shape, ragged S and W, one
+# chunk, a last chunk of one step, and the most chunks a row takes
+TICKET_SHAPES = [(4, 3072, 4096), (3, 1001, 1000), (2, 7, 33), (2, 65, 33), (2, 197, 129),
+                 (1, 64 * 65535, 1)]
+
+
+@pytest.mark.parametrize("shape", TICKET_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_every_block_of_the_grid_draws_exactly_one_ticket(shape):
+    p = tbwd.plan(*shape)
+    work = sorted(tbwd.ticket_work(p, t) for t in range(p.blocks))
+    assert work == [(b, c, i) for b in range(shape[0]) for c in range(p.n_chunks)
+                    for i in range(p.tiles)]
+
+
+@pytest.mark.parametrize("shape", TICKET_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_the_chunks_to_a_chunks_right_hold_lower_tickets(shape):
+    """So a block's look-back waits only on blocks that have started: its
+    right neighbour's ticket is lower, and so, by the same step, is every
+    chunk's further right."""
+    p = tbwd.plan(*shape)
+    ticket = {tbwd.ticket_work(p, t): t for t in range(p.blocks)}
+    for (b, c, i), t in ticket.items():
+        if c + 1 < p.n_chunks:
+            assert ticket[(b, c + 1, i)] < t
+        else:
+            assert t < shape[0] * p.tiles  # every row's last chunk before any other
 
 
 def test_backward_argtypes_match_the_c_entry():
@@ -272,6 +442,8 @@ def test_backward_argtypes_match_the_c_entry():
         kinds.append("c_void_p" if "*" in param else {"int": "c_int"}[param.rsplit(" ", 1)[0]])
     assert kinds == [t.__name__ for t in tbwd.ARGTYPES]
     assert f"constexpr int kMaxL = {tbwd.MAX_CHUNK};" in src
+    assert f"constexpr int NTB = {tbwd.BLOCK_THREADS};" in src
+    assert f"constexpr int NC = {tbwd.TILE};" in src
 
 
 def test_the_backward_wrapper_never_syncs_with_the_host():
