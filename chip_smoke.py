@@ -35,10 +35,13 @@ Phases, each printed as one JSON object per line:
    plain calls);
    epoch_pass: the simulator's epoch pass exactly equal to its plain version
    on the card and to the numpy pass, with a queue table and without, at
-   n = 1 to 2^24 frames (tile edges, the bench epoch of 63 342) and on the
-   edge cases (no frames, one, a burst of equal times, a wire busy past
-   every frame, the ideal wire, negative flow ids), and a flow id out of
-   range raising IndexError;
+   n = 1 to 2^24 frames (the 512-frame tile's edges, the bench epoch of
+   63 343), on consecutive calls of n 2^16, 1, 63 343 and 2049 (through
+   ops.epoch_pass and through the engine's make_pass("cuda"), whose arrays
+   stay as returned after the next call), on inputs 8 bytes off a 16-byte
+   boundary and on the edge cases (no frames, one, a burst of equal times,
+   a wire busy past every frame, the ideal wire, negative flow ids), and a
+   flow id out of range raising IndexError;
    simulate_vs_event and simulate: the port's simulator
    (repro_torch.core.fastpath.run_epoch_sim) at benchmarks/fastpath_bench.py's
    shape (one 100 GbE port, 8 RSS queues on 8 lcores, 1518-byte frames at
@@ -64,7 +67,7 @@ Phases, each printed as one JSON object per line:
    (above 0 in the searches that take the fast path), 0 plain calls; each
    search's msb_gbps, the bypass/kernel ratio at 1 and 4 ports, Fig. 3b's
    deltas from its base step, Fig. 4's p50/p99 and writebacks, and the wall
-   seconds of each engine;
+   seconds of each engine, and a histogram of the kernel's n by tiles;
    flash_forward_digest: a sha256 over the forward's outputs and
    logsumexp at those cases and the train shape, f32 and bf16 (two trees
    with equal digests on one card compute bitwise-equal forwards);
@@ -180,10 +183,16 @@ Phases, each printed as one JSON object per line:
    gather at bursts of 32 to 1024 packets and the whole ring of 4096, each
    checked exactly, by wrapper time, device time warm and with the L2
    flushed, beside the byte bound and the achieved GB/s; the epoch pass at
-   the bench shape's first epoch also by the device time of its three
-   kernels, beside a launch-and-read-back floor (torch.empty + fill_ +
+   the bench shape's first epoch also by the device time of its one
+   kernel, beside a launch-and-read-back floor (torch.empty + fill_ +
    tolist), the pass as the engine calls it (numpy in and out, the copies
-   included) and the numpy pass, on the host clock.
+   included; engine_pass_ms) with its host-clock split into staging,
+   upload, kernel with read-back and download (each step synchronised
+   alone), and the numpy pass, on the host clock.
+
+Two more entry points time the epoch pass alone (see their docstrings):
+epoch_pass_bits(), for the tree whose src is first on PYTHONPATH, and
+epoch_tile_sweep(), the kernel built at other tile shapes.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -750,9 +759,15 @@ def run_gather(dev):
 # the simulator: the epoch pass against its plain version, then the engine
 # --------------------------------------------------------------------------
 
-# frames of the exact checks: tile edges (2048 a tile), the engine's epoch at
-# the bench shape, and 2^24 in one call (an epoch of a long run)
-EPOCH_N = (1, 1023, 1024, 1025, 2047, 2048, 2049, 63342, 1 << 24)
+# frames of the exact checks: tile edges (epoch_pass.TILE, 512 a tile), the
+# engine's first epoch at the bench shape, and 2^24 in one call (an epoch of
+# a long run)
+EPOCH_TILE = 512
+EPOCH_BENCH_N = 63343
+EPOCH_N = (1, 3, 4, 5, EPOCH_TILE - 1, EPOCH_TILE, EPOCH_TILE + 1, 2 * EPOCH_TILE + 1, 2047,
+           2048, 2049, EPOCH_BENCH_N, 1 << 24)
+# consecutive calls on the device's one workspace, n growing and shrinking
+EPOCH_SEQUENCE = (1 << 16, 1, EPOCH_BENCH_N, 2049)
 EPOCH_FLOWS, EPOCH_QUEUES = 256, 8
 # the edge cases of tests/test_torch_epoch_pass.py: handed, ser, busy0, latency
 EPOCH_EDGES = {
@@ -798,14 +813,26 @@ def epoch_equal(got, want):
     return bool(torch.equal(host(a), host(wa)) and busy == wbusy and same_q)
 
 
+def epoch_numpy(h, s, busy0, lat, t, f):
+    """The numpy pass on the card's tensors."""
+    from repro_torch.kernels import epoch_pass as kep
+    host = [None if x is None else x.cpu().numpy() for x in (h, s, t, f)]
+    return kep.epoch_pass_np(host[0], host[1], busy0, lat, host[2], host[3])
+
+
 def run_epoch_checks(dev):
     """The epoch pass kernel exactly equal to its plain version on the card
     and to the numpy pass (the engine's reference), with a table and
-    without, on EPOCH_N and the edge cases; a flow id out of range raises
-    IndexError. Returns the largest absolute arrival difference at the
-    bench epoch (0 when equal)."""
+    without, on EPOCH_N, EPOCH_SEQUENCE (also through make_pass), inputs
+    off a 16-byte boundary and the edge cases; a flow id out of range
+    raises IndexError. Returns the largest absolute arrival difference at
+    the bench epoch (0 when equal)."""
+    import numpy as np
+    from repro_torch.kernels import _build
     from repro_torch.kernels import epoch_pass as kep
     from repro_torch.kernels import ops, ref
+    if not _build.load("epoch_pass").epoch_pass_tile() == kep.TILE == EPOCH_TILE:
+        fail(f"epoch_pass: the library's tile, the plan's {kep.TILE} and {EPOCH_TILE} differ")
     worst = None
     for n in EPOCH_N:
         (h, s, table, fids), busy0 = epoch_inputs(n, dev, seed=n)
@@ -816,15 +843,32 @@ def run_epoch_checks(dev):
             torch.cuda.synchronize()
             ok = epoch_equal(got, want)
             err = int((got[0] - want[0]).abs().max())
-            if n <= 63342:
-                host = kep.epoch_pass_np(h.cpu().numpy(), s.cpu().numpy(), busy0, 1000,
-                                         None if t is None else t.cpu().numpy(),
-                                         None if f is None else f.cpu().numpy())
-                ok = ok and epoch_equal(got, host)
+            if n <= EPOCH_BENCH_N:
+                ok = ok and epoch_equal(got, epoch_numpy(h, s, busy0, 1000, t, f))
             _check("epoch_pass", {"n": n, "steer": steer}, torch.int64,
                    {"max_abs_err": err, "busy_until": got[1]}, ok, "")
-            if n == 63342 and steer:
+            if n == EPOCH_BENCH_N and steer:
                 worst = err
+    engine, kept = kep.make_pass("cuda"), []
+    for k, n in enumerate(EPOCH_SEQUENCE):
+        (h, s, table, fids), busy0 = epoch_inputs(n, dev, seed=100 + k)
+        want = epoch_numpy(h, s, busy0, 1000, table, fids)
+        host = [x.cpu().numpy() for x in (h, s, table, fids)]
+        got = engine(host[0], host[1], busy0, 1000, host[2], host[3])
+        ok = epoch_equal(ops.epoch_pass(h, s, busy0, 1000, table, fids), want) and \
+            epoch_equal(got, want)
+        kept.append((got, [got[0].copy(), got[2].copy()]))
+        _check("epoch_pass", {"sequence": k, "n": n}, torch.int64, {"busy_until": want[1]},
+               ok, "")
+    fresh = all(np.array_equal(g[0], c[0]) and np.array_equal(g[2], c[1]) for g, c in kept)
+    _check("epoch_pass", "make_pass arrays unchanged by later calls", torch.int64, {}, fresh,
+           "")
+    (h, s, table, fids), busy0 = epoch_inputs(5001, dev, seed=9)
+    h, s, fids = h[1:], s[1:], fids[1:]  # 8 bytes past a 16-byte boundary
+    got = ops.epoch_pass(h, s, busy0, 7, table, fids)
+    _check("epoch_pass", "inputs off a 16-byte boundary", torch.int64, {"offset": h.data_ptr() % 16},
+           h.data_ptr() % 16 == 8 and epoch_equal(got, epoch_numpy(h, s, busy0, 7, table, fids)),
+           "")
     tab = torch.arange(EPOCH_FLOWS, device=dev) % EPOCH_QUEUES
     for name, (h, s, busy0, lat) in EPOCH_EDGES.items():
         h, s = (torch.tensor(x, dtype=torch.int64, device=dev) for x in (h, s))
@@ -832,11 +876,8 @@ def run_epoch_checks(dev):
         ok = True
         for t, f in ((tab, ids), (None, None), (tab, None)):
             got = ops.epoch_pass(h, s, busy0, lat, t, f)
-            host = kep.epoch_pass_np(h.cpu().numpy(), s.cpu().numpy(), busy0, lat,
-                                     None if t is None else t.cpu().numpy(),
-                                     None if f is None else f.cpu().numpy())
             ok = ok and epoch_equal(got, ref.epoch_pass(h, s, busy0, lat, t, f)) \
-                and epoch_equal(got, host)
+                and epoch_equal(got, epoch_numpy(h, s, busy0, lat, t, f))
         _check("epoch_pass", name, torch.int64, {"busy_until": got[1]}, ok, "")
     h, s = torch.arange(8, device=dev), torch.ones(8, dtype=torch.int64, device=dev)
     for bad in (EPOCH_FLOWS, -EPOCH_FLOWS - 1):
@@ -868,9 +909,9 @@ def sim_build(nports):
 def timed_pass():
     """Within the block, the engine's epoch pass (numpy or torch) is timed
     on the host clock and its calls counted; yields a list of the seconds
-    summed and the calls."""
+    summed, the calls and each call's n."""
     from repro_torch.core import fastpath
-    spent = [0.0, 0]
+    spent = [0.0, 0, []]
     make, numpy_pass = fastpath.make_pass, fastpath.epoch_pass_np
 
     def timed(fn):
@@ -879,6 +920,7 @@ def timed_pass():
             out = fn(*args)
             spent[0] += time.perf_counter() - t0
             spent[1] += 1
+            spent[2].append(len(args[0]))
             return out
         return call
 
@@ -1053,7 +1095,18 @@ def experiment_run(cfg, engine):
         rep = run_experiment(cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return rep.to_dict(), wall, spent[0], spent[1]
+    return rep.to_dict(), wall, spent[0], spent[1], spent[2]
+
+
+def tiles_histogram(ns):
+    """Calls of the pass by the kernel's tiles (EPOCH_TILE frames each)."""
+    bins = {"1": (1, 1), "2-8": (2, 8), "9-32": (9, 32), "33-132": (33, 132),
+            "133+": (133, 1 << 62)}
+    tiles = [-(-n // EPOCH_TILE) for n in ns]
+    return {"calls_by_tiles": {k: sum(lo <= t <= hi for t in tiles)
+                               for k, (lo, hi) in bins.items()},
+            "n_min": min(ns, default=0), "n_median": sorted(ns)[len(ns) // 2] if ns else 0,
+            "n_max": max(ns, default=0), "calls": len(ns)}
 
 
 def run_experiments(card):
@@ -1065,11 +1118,12 @@ def run_experiments(card):
     other kernel. Returns the kernel runs' launches summed, by kernel."""
     total = {}
     reports, walls = {}, {"epoch": 0.0, "epoch-torch": 0.0}
-    bad = []
+    bad, ns = [], []
     for label, cfg in experiment_configs().items():
-        want, np_wall, np_pass_s, np_calls = experiment_run(cfg, "epoch")
+        want, np_wall, np_pass_s, np_calls, _ = experiment_run(cfg, "epoch")
         zero_counters()
-        got, cu_wall, cu_pass_s, cu_calls = experiment_run(cfg, "epoch-torch")
+        got, cu_wall, cu_pass_s, cu_calls, cu_ns = experiment_run(cfg, "epoch-torch")
+        ns += cu_ns
         counts, plain = read_counters()
         expect = {k: (np_calls if k == "epoch_pass" else 0) for k in counts}
         ok = (got == want and counts == expect and plain == 0 and cu_calls == np_calls
@@ -1104,7 +1158,7 @@ def run_experiments(card):
                      "received": reports[f"fig4 burst {b}"]["received"],
                      "sent": reports[f"fig4 burst {b}"]["sent"]} for b in FIG4_BURSTS},
         "wall_s": walls, "torch_over_numpy_wall": walls["epoch-torch"] / walls["epoch"],
-        "launches": total, "card": card}
+        "launches": total, "pass_n": tiles_histogram(ns), "card": card}
     emit("experiment_summary", summary)
     if bad:
         fail(f"experiment: the numpy and card runs disagree or miscounted on {bad}")
@@ -2324,45 +2378,90 @@ def time_gather(launches, errs, card, dev, launch_floor_ms):
                        "plan": kgather.plan(n, width)._asdict()})
 
 
-def time_epoch_pass(launches, errs, card, dev):
-    """The epoch pass at the bench shape's first epoch: the wrapper (its
-    call reads busy_until back, a synchronisation) by CUDA events, the
-    device time of its kernels, the plain version (cumsum, cummax and a
-    gather on the card), and the pass as the engine calls it (numpy in and
-    out, the copies included) beside the numpy pass, on the host clock."""
+def host_ms(fn, calls=200):
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def engine_pass_split(host, calls=200):
+    """make_pass("cuda")'s call at the bench epoch on the host clock, step by
+    step, each step synchronised alone: staging (np.copyto into the pinned
+    buffer), upload, kernel, download (status, arrivals and queues, then
+    the copies returned); ms a call. None for a tree whose make_pass has no
+    steps."""
+    from repro_torch.kernels import epoch_pass as kep
+    card = kep.make_pass("cuda")
+    if not hasattr(card, "stage"):
+        return None
+    handed, ser, busy0, lat, table, fids = host
+    n, sync = len(handed), torch.cuda.synchronize
+    spent = dict.fromkeys(("staging", "upload", "kernel", "download"), 0.0)
+    for k in range(calls + 5):
+        with card.dev.lock:
+            t0 = time.perf_counter()
+            m = card.stage(handed, ser, fids)
+            t1 = time.perf_counter()
+            card.upload(n, m, True)
+            sync()
+            t2 = time.perf_counter()
+            n_flows = card.launch(n, m, busy0, lat, table)
+            sync()
+            t3 = time.perf_counter()
+            card.download(n, m, True)
+            sync()
+            card.finish(n, m, True, n_flows)
+            t4 = time.perf_counter()
+        if k >= 5:
+            for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                spent[key] += dt
+    out = {k: v / calls * 1e3 for k, v in spent.items()}
+    out["sum"] = sum(out.values())
+    return out
+
+
+def epoch_pass_times(dev):
+    """The epoch pass at the bench shape's first epoch, in the tree this
+    process imports: the wrapper (its call reads busy_until back, a
+    synchronisation) by CUDA events, the device time of its kernels (by the
+    name part epoch_pass_) beside a kernel's that fills two words
+    (device_floor_ms), a launch-and-read-back floor, the plain version
+    (cumsum, cummax and a gather on the card), and the pass as the engine
+    calls it (numpy in and out, the copies included) with its split, beside
+    the numpy pass, on the host clock."""
     from repro_torch.kernels import epoch_pass as kep
     from repro_torch.kernels import ref
     host, (h, s, table, fids) = bench_epoch(dev)
     n, busy0, lat = h.numel(), host[2], host[3]
     kern = lambda: kep.epoch_pass_cuda(h, s, busy0, lat, table, fids)  # noqa: E731
     plain = lambda: ref.epoch_pass(h, s, busy0, lat, table, fids)  # noqa: E731
-    if not (epoch_equal(kern(), plain()) and epoch_equal(kern(), kep.epoch_pass_np(*host))):
-        fail("epoch_pass at the bench epoch: the kernel, its plain version and the numpy "
-             "pass disagree")
+    engine_pass = kep.make_pass(dev.type)
+    if not (epoch_equal(kern(), plain()) and epoch_equal(kern(), kep.epoch_pass_np(*host))
+            and epoch_equal(engine_pass(*host), kep.epoch_pass_np(*host))):
+        fail("epoch_pass at the bench epoch: the kernel, its plain version, the engine's "
+             "pass and the numpy pass disagree")
     nbytes = 8 * (5 * n + table.numel())  # handed, ser, fids in; arrivals, queues out
     b_ms, b_by = bound(nbytes, 0)
-    engine_pass = kep.make_pass(dev.type)
-
-    def host_ms(fn, calls=200):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        return (time.perf_counter() - t0) / calls * 1e3
-
-    return _row("epoch_pass", SIM_LABEL, launches, errs, card,
-                ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "epoch_pass_"),
-                device_ms_per_kernel={k: device_ms(kern, "epoch_pass_" + k)
-                                      for k in ("reduce", "carry", "apply")},
+    words = torch.empty(2, dtype=torch.int64, device=dev)
+    return dict(ms=time_ms(kern, iters=200), device_ms=device_ms(kern, "epoch_pass_"),
+                device_floor_ms=device_ms(lambda: words.fill_(0), "FillFunctor"),
                 launch_floor_ms=time_ms(lambda: torch.empty(
                     2, dtype=torch.int64, device=dev).fill_(0).tolist(), iters=200),
                 plain_ms=time_ms(plain, iters=200),
                 engine_pass_ms=host_ms(lambda: engine_pass(*host)),
+                engine_pass_split_ms=engine_pass_split(host),
                 numpy_pass_ms=host_ms(lambda: kep.epoch_pass_np(*host)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                library="none: no single PyTorch call computes a max-plus scan",
+                bound_ms=b_ms, bound_by=b_by,
                 shape={"n": n, "n_flows": table.numel(), "queues": EPOCH_QUEUES,
                        "bytes": nbytes, "plan": kep.plan(n)._asdict()})
+
+
+def time_epoch_pass(launches, errs, card, dev):
+    return _row("epoch_pass", SIM_LABEL, launches, errs, card, **epoch_pass_times(dev),
+                library_ms=None,
+                library="none: no single PyTorch call computes a max-plus scan")
 
 
 def time_decode(arch, launches, errs, card, dev):
@@ -2693,6 +2792,125 @@ def rglru_bwd_bits():
     emit("rglru_bwd_time", {"ms": time_ms(kern, iters=20),
                             "device_ms": device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
                             "card": card})
+
+
+def epoch_pass_bits():
+    """The epoch pass's time and bits in the tree whose repro_torch this
+    process imports, for two trees on one card: epoch_pass_times at the bench
+    epoch; each simulate shape through the numpy pass and the kernel in
+    turns (numpy, kernel, kernel, numpy), with the wall and pass seconds, the
+    launches and a digest of the observations; and the experiment phase's
+    configs through the kernel only, with walls, pass seconds, calls, the
+    histogram of n and a digest of the reports. Run on a git archive of
+    another tree as
+
+        PYTHONPATH=<archive>/src python3 -c 'import chip_smoke; chip_smoke.epoch_pass_bits()'
+
+    from this tree's root: chip_smoke puts its own src after PYTHONPATH."""
+    import hashlib
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    dev = torch.device("cuda", 0)
+    card = card_line()
+
+    def digest(x):
+        text = json.dumps(x, sort_keys=True, default=lambda o: o.item() if hasattr(o, "item")
+                          else str(o))
+        return hashlib.sha256(text.encode()).hexdigest()
+
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["epoch_pass"])
+    emit("epoch_pass_time", {**epoch_pass_times(dev), "card": card})
+    for name, (nports, rate, dur) in SIM_SHAPES.items():
+        runs = []
+        for device in (None, "cuda", "cuda", None):
+            zero_counters()
+            obs, info, wall, pass_s = sim_run(nports, rate, dur, device)
+            runs.append((device, obs, info.n_epochs, wall, pass_s, read_counters()))
+        emit("epoch_simulate", {
+            "shape": name, "digest": digest(runs[0][1]),
+            "equal": all(r[1] == runs[0][1] for r in runs),
+            "runs": [{"device": str(d), "wall_s": w, "pass_s": p, "n_epochs": e,
+                      "launches": c[0]["epoch_pass"], "plain_calls": c[1]}
+                     for d, _, e, w, p, c in runs], "card": card})
+    walls, pass_s, ns, reports = 0.0, 0.0, [], {}
+    for label, cfg in experiment_configs().items():
+        got, wall, spent, _, cu_ns = experiment_run(cfg, "epoch-torch")
+        walls, pass_s, ns, reports[label] = walls + wall, pass_s + spent, ns + cu_ns, got
+    emit("epoch_experiment", {"digest": digest(reports), "wall_s": walls, "pass_s": pass_s,
+                              "pass_n": tiles_histogram(ns), "card": card})
+
+
+EPOCH_TILE_SHAPES = ((128, 4), (256, 2), (64, 4), (128, 2), (64, 8), (128, 8), (256, 4),
+                     (256, 8), (512, 2))  # threads x frames a thread
+EPOCH_SWEEP_N = (4096, EPOCH_BENCH_N, 1 << 20)
+
+
+def epoch_tile_sweep():
+    """The epoch pass's kernel built at each of EPOCH_TILE_SHAPES
+    (-DEPOCH_PASS_THREADS, -DEPOCH_PASS_ITEMS; one nvcc each, started
+    together, into build/), each run through epoch_pass_cuda with the
+    module's tile set to match: bit-equal to the numpy pass at EPOCH_SWEEP_N
+    and EPOCH_SEQUENCE, then the wrapper's ms and the kernel's device ms at
+    EPOCH_SWEEP_N, beside the device time of a kernel that fills two words
+    (device_floor_ms). Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.epoch_tile_sweep()'"""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import epoch_pass as kep
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    out = _build.BUILD_DIR / "epoch_tile_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for th, it in EPOCH_TILE_SHAPES:
+        so = out / f"libepoch_pass_{th}x{it}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DEPOCH_PASS_THREADS={th}",
+               f"-DEPOCH_PASS_ITEMS={it}", "-I", str(_build.CSRC), "-o", str(so),
+               str(_build.CSRC / "epoch_pass.cu")]
+        procs[(th, it)] = so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)
+    saved = kep._launcher, kep.THREADS, kep.ITEMS, kep.TILE, kep.LOOKBACK
+    words = torch.empty(2, dtype=torch.int64, device=dev)
+    floor = device_ms(lambda: words.fill_(0), "FillFunctor")
+    rows = []
+    try:
+        for (th, it), (so, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"epoch_tile_sweep: nvcc failed at {th} x {it}:\n{log}")
+            lib = ctypes.CDLL(str(so))
+            fn = lib.epoch_pass_fwd
+            fn.argtypes, fn.restype = kep.ARGTYPES, ctypes.c_int
+            kep._launcher = lib, fn, torch._C._cuda_getCurrentRawStream
+            kep.THREADS, kep.ITEMS, kep.TILE, kep.LOOKBACK = th, it, th * it, th
+            kep.plan.cache_clear()
+            if lib.epoch_pass_tile() != kep.TILE:
+                fail(f"epoch_tile_sweep: the {th} x {it} library's tile is "
+                     f"{lib.epoch_pass_tile()}")
+            row = {"threads": th, "items": it, "tile": th * it,
+                   "device_floor_ms": floor, "n": {}}
+            for k, n in enumerate(EPOCH_SWEEP_N + EPOCH_SEQUENCE):
+                (h, s, table, fids), busy0 = epoch_inputs(n, dev, seed=200 + k)
+                if not epoch_equal(kep.epoch_pass_cuda(h, s, busy0, 1000, table, fids),
+                                   epoch_numpy(h, s, busy0, 1000, table, fids)):
+                    fail(f"epoch_tile_sweep: {th} x {it} differs from numpy at n {n}")
+            for n in EPOCH_SWEEP_N:
+                (h, s, table, fids), busy0 = epoch_inputs(n, dev, seed=n)
+                kern = lambda: kep.epoch_pass_cuda(h, s, busy0, 1000, table, fids)  # noqa: E731
+                row["n"][n] = {"tiles": kep.plan(n).tiles, "ms": time_ms(kern, iters=200),
+                               "device_ms": device_ms(kern, "epoch_pass_")}
+            rows.append(row)
+            emit("epoch_tile", {**row, "card": card})
+    finally:
+        kep._launcher, kep.THREADS, kep.ITEMS, kep.TILE, kep.LOOKBACK = saved
+        kep.plan.cache_clear()
+    return rows
 
 
 def main():

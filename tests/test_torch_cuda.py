@@ -1133,14 +1133,16 @@ def _epoch_inputs(n, dev, seed=0, n_flows=256, queues=8):
 
 
 def _same_pass(got, want):
+    """Two passes' outputs (tensors anywhere, or numpy) bit-equal."""
     (a, busy, q), (wa, wbusy, wq) = got, want
-    assert torch.equal(a.cpu(), torch.as_tensor(wa).cpu()) and busy == wbusy
+    assert torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(wa).cpu()) and busy == wbusy
     assert (q is None) == (wq is None)
     if q is not None:
-        assert torch.equal(q.cpu(), torch.as_tensor(wq).cpu())
+        assert torch.equal(torch.as_tensor(q).cpu(), torch.as_tensor(wq).cpu())
 
 
-@pytest.mark.parametrize("n", [0, 1, 8, 2047, 2048, 2049, 4097, 63342, 1 << 20])
+@pytest.mark.parametrize("n", [0, 1, 8, 511, 512, 513, 1025, 2047, 2048, 2049, 4097, 63343,
+                               1 << 20])
 @pytest.mark.parametrize("steer", [True, False])
 def test_epoch_pass_kernel_vs_plain_and_numpy(dev, n, steer):
     from repro_torch.kernels import epoch_pass, ops, ref
@@ -1156,14 +1158,79 @@ def test_epoch_pass_kernel_vs_plain_and_numpy(dev, n, steer):
     _same_pass(ops.epoch_pass(h, s, busy0, 1000, t, f), got)  # repeat calls equal
 
 
-def test_epoch_pass_out_of_range_flow_id_raises(dev):
+def test_epoch_pass_tile_is_the_plans(dev):
+    from repro_torch.kernels import _build, epoch_pass
+    assert _build.load("epoch_pass").epoch_pass_tile() == epoch_pass.TILE == 512
+
+
+def _numpy_pass(h, s, busy0, lat, t, f):
+    from repro_torch.kernels import epoch_pass
+    host = [None if x is None else x.cpu().numpy() for x in (h, s, t, f)]
+    return epoch_pass.epoch_pass_np(host[0], host[1], busy0, lat, host[2], host[3])
+
+
+def test_epoch_pass_consecutive_calls_of_mixed_sizes(dev):
+    """n growing and shrinking on the device's one workspace (flags of
+    earlier, larger calls left in place): every call bit-equal to numpy,
+    through the wrapper and through make_pass."""
+    from repro_torch.kernels import epoch_pass, ops
+    engine = epoch_pass.make_pass("cuda")
+    for k, n in enumerate((1 << 16, 1, 63343, 2049, 1 << 16, 513)):
+        (h, s, table, fids), busy0 = _epoch_inputs(n, dev, seed=100 + k)
+        want = _numpy_pass(h, s, busy0, 1000, table, fids)
+        _same_pass(ops.epoch_pass(h, s, busy0, 1000, table, fids), want)
+        host = [x.cpu().numpy() for x in (h, s, table, fids)]
+        _same_pass(engine(host[0], host[1], busy0, 1000, host[2], host[3]), want)
+
+
+def test_epoch_pass_unaligned_inputs(dev):
+    """Inputs that start 8 bytes past a 16-byte boundary take the kernel's
+    8-byte loads and stores."""
     from repro_torch.kernels import ops
+    n = 5000
+    (h, s, table, fids), busy0 = _epoch_inputs(n + 1, dev, seed=9)
+    h, s, fids = h[1:], s[1:], fids[1:]
+    assert h.data_ptr() % 16 == 8 and h.is_contiguous()
+    got = ops.epoch_pass(h, s, busy0, 7, table, fids)
+    assert got[0].data_ptr() % 16 == 0
+    _same_pass(got, _numpy_pass(h, s, busy0, 7, table, fids))
+
+
+def test_epoch_make_pass_returns_fresh_arrays(dev):
+    """The engine keeps every array the pass returns: the next call, which
+    reuses the staging buffers, leaves them as they were."""
+    import numpy as np
+    from repro_torch.kernels import epoch_pass
+    engine = epoch_pass.make_pass("cuda")
+    (h, s, table, fids), busy0 = _epoch_inputs(4097, dev, seed=5)
+    host = [x.cpu().numpy() for x in (h, s, table, fids)]
+    first = engine(host[0], host[1], busy0, 1000, host[2], host[3])
+    kept = [first[0].copy(), first[2].copy()]
+    engine(host[0][::-1].copy(), host[1], 0, 3, host[2], host[3][::-1].copy())
+    assert np.array_equal(first[0], kept[0]) and np.array_equal(first[2], kept[1])
+    # strided slices, as the engine hands a two-port run's, need no copy first
+    two = np.repeat(host[0], 2)[::2]
+    assert not two.flags.c_contiguous
+    _same_pass(engine(two, host[1], busy0, 1000, host[2], host[3]),
+               epoch_pass.epoch_pass_np(two, host[1], busy0, 1000, host[2], host[3]))
+
+
+def test_epoch_pass_out_of_range_flow_id_raises(dev):
+    from repro_torch.kernels import epoch_pass, ops
     (h, s, table, fids), _ = _epoch_inputs(5000, dev)
     fids[4321] = 256
     with pytest.raises(IndexError):
         ops.epoch_pass(h, s, 0, 0, table, fids)
     fids[4321] = 3  # the status word is reset by the next call
     assert ops.epoch_pass(h, s, 0, 0, table, fids)[2].shape == (5000,)
+    host = [x.cpu().numpy() for x in (h, s, table, fids)]
+    engine = epoch_pass.make_pass("cuda")
+    host[3][17] = -257
+    with pytest.raises(IndexError):
+        engine(host[0], host[1], 0, 0, host[2], host[3])
+    host[3][17] = -256
+    _same_pass(engine(host[0], host[1], 0, 0, host[2], host[3]),
+               _numpy_pass(h, s, 0, 0, table, torch.from_numpy(host[3])))
 
 
 def test_epoch_engine_on_the_card_matches_numpy_engine(dev):

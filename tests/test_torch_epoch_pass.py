@@ -70,50 +70,195 @@ def plain_pass(handed, ser, busy0, lat, table, fids):
     return a.numpy(), busy, None if q is None else q.numpy()
 
 
+NONE = int(np.iinfo(np.int64).min)  # M of the empty pair
+AGGREGATE, INCLUSIVE = 0, 4            # a tile's two slots, 4 words from its first
+
+
+def join(l, r):
+    """Pair l, then pair r (the kernel's join; the empty pair on either side)."""
+    return (l[0] + r[0], l[1] if r[1] == NONE else max(l[1], r[1] - l[0]))
+
+
+def halves(v):
+    """The low and high 32 bits of an int64."""
+    u = v % 2 ** 64
+    return u & 0xffffffff, u >> 32
+
+
+def from_halves(lo, hi):
+    u = lo | hi << 32
+    return u - 2 ** 64 if u >= 2 ** 63 else u
+
+
+class MirrorCard:
+    """A numpy mirror of the CUDA kernel (``kernels/csrc/epoch_pass.cu``) on
+    one device's workspace, kept across calls as the wrapper keeps it: a
+    ticket counter never reset, each call's base the tickets issued before
+    it, and two slots a tile, an aggregate and an inclusive one, of four
+    64-bit words, each a 32-bit tag (ticket + 1) over 32 bits of the pair,
+    left as the last call wrote them; and the status pair, left too.
+
+    A call runs its blocks as generators, interleaved at random: a block
+    starts when it takes a ticket (at most ``resident`` blocks at once),
+    and each of its steps may be followed by another block's, also between
+    the two 2-word stores of a slot. A block stages its tile, joins each
+    thread's ITEMS consecutive pairs and scans the threads; it publishes the
+    tile's aggregate (tile 0 its inclusive pair; the last tile publishes
+    neither), then looks back over windows of LOOKBACK tiles, taking a slot
+    as this call's only if its four tags are base + its tile + 1, and reads
+    again (yields) while a tile has neither slot; it joins the window's
+    pairs from its last inclusive pair on, or moves the window down, and
+    publishes its inclusive pair. The block steers its frames; tile 0
+    stores its count of bad ids into status[1] and marks it stored
+    (base + 1), and a block with bad ids waits for that mark and adds its
+    count; the thread of frame n - 1 writes busy_until."""
+
+    def __init__(self, seed=0, garbage=0):
+        self.rng = np.random.default_rng(seed)
+        self.counter = 0   # the workspace's ticket counter
+        self.issued = 0    # the wrapper's count of tickets issued
+        # by word index, 8 a tile; absent: zero. With ``garbage``, the first
+        # ``garbage`` tiles' words hold random halves under tags no call of
+        # this test issues (2^31 and up), as words of another life would
+        self.words = {w: int(self.rng.integers(2 ** 31, 2 ** 32)) << 32
+                      | int(self.rng.integers(0, 2 ** 32)) for w in range(8 * garbage)}
+        self.status = [7, 7]  # whatever an earlier call left
+        self.counted = 0      # tile 0's mark
+        self.stale_words = 0  # words of an earlier call read while this one's were not out
+
+    def __call__(self, handed, ser, busy0, lat, table, fids):
+        n = len(handed)
+        steer = table is not None and fids is not None
+        if n == 0:
+            return np.empty(0, np.int64), int(busy0), table[fids] if steer else None
+        tiles, base = ep.plan(n).tiles, self.issued
+        assert base + tiles < ep.TAGS
+        out = (np.empty(n, np.int64), np.empty(n, np.int64) if steer else None)
+        resident, started = [], 0
+        limit = int(self.rng.integers(1, 9))
+        while started < tiles or resident:
+            if started < tiles and len(resident) < limit and (
+                    not resident or self.rng.random() < 0.5):
+                resident.append(self.block(base, handed, ser, busy0, lat, table if steer else
+                                           None, fids, out))
+                started += 1
+            k = int(self.rng.integers(len(resident)))
+            try:
+                next(resident[k])
+            except StopIteration:
+                resident.pop(k)
+        self.issued += tiles
+        assert self.counter == self.issued
+        busy, bad = self.status
+        if bad:
+            raise IndexError(f"{bad} flow ids out of range")
+        return out[0], busy, out[1]
+
+    def publish(self, tile, slot, pair, tag):
+        """Two stores of two words: S's halves, then M's."""
+        w = 8 * tile + slot
+        for k, v in enumerate(pair):
+            lo, hi = halves(v)
+            self.words[w + 2 * k] = tag << 32 | lo
+            self.words[w + 2 * k + 1] = tag << 32 | hi
+            yield
+
+    def read(self, tile, slot, tag):
+        """The slot's pair if its four tags are ``tag``, else None."""
+        ws = [self.words.get(8 * tile + slot + x, 0) for x in range(4)]
+        self.stale_words += sum(w >> 32 not in (0, tag) for w in ws)
+        if any(w >> 32 != tag for w in ws):
+            return None
+        lo = [w & 0xffffffff for w in ws]
+        return from_halves(lo[0], lo[1]), from_halves(lo[2], lo[3])
+
+    def block(self, base, handed, ser, busy0, lat, table, fids, out):
+        ticket = self.counter
+        self.counter += 1
+        tile, tag = ticket - base, (ticket + 1) % 2 ** 32
+        n, i0 = len(handed), (ticket - base) * ep.TILE
+        cnt = min(ep.TILE, n - i0)
+        yield
+        frames = [(int(ser[i]), int(handed[i])) for i in range(i0, i0 + cnt)]
+        excl, total = [], (0, NONE)  # 2. the threads' pairs, scanned in thread order
+        for t in range(ep.THREADS):
+            excl.append(total)
+            for x in frames[t * ep.ITEMS:(t + 1) * ep.ITEMS]:
+                total = join(total, x)
+        yield
+        carry = (0, NONE)  # 3. the carry into the tile (the last tile's pairs have no reader)
+        last = tile == ep.plan(n).tiles - 1
+        if not last:
+            yield from self.publish(tile, AGGREGATE if tile > 0 else INCLUSIVE, total, tag)
+        if tile > 0:
+            carry = yield from self.look_back(tile, base)
+            if not last:
+                yield from self.publish(tile, INCLUSIVE, join(carry, total), tag)
+        bad = 0  # 4. steer: a flow id indexes as numpy does, once wrapped
+        if table is not None:
+            for i in range(i0, i0 + cnt):
+                fid = int(fids[i]) + (len(table) if fids[i] < 0 else 0)
+                ok = 0 <= fid < len(table)
+                out[1][i] = table[fid] if ok else 0
+                bad += not ok
+        if tile == 0:  # 5. the count of bad ids
+            self.status[1] = bad
+            self.counted = base + 1
+        elif bad:
+            while self.counted != base + 1:
+                yield  # the kernel waits for tile 0's mark
+            self.status[1] += bad
+        yield
+        for t in range(ep.THREADS):  # 6. each thread's frames from join(carry, its prefix)
+            run = join(carry, excl[t])
+            for k, x in enumerate(frames[t * ep.ITEMS:(t + 1) * ep.ITEMS]):
+                run = join(run, x)
+                end = max(busy0, run[1]) + run[0]
+                i = i0 + t * ep.ITEMS + k
+                out[0][i] = end + lat
+                if i == n - 1:
+                    self.status[0] = end
+
+    def look_back(self, tile, base):
+        acc, k = (0, NONE), tile - 1
+        while True:
+            window = range(k - ep.LOOKBACK + 1, k + 1)
+            pairs = []  # (pair, inclusive) a tile of the window, None while neither is out
+            for t in window:
+                if t < 0:
+                    pairs.append(((0, NONE), False))
+                    continue
+                tag = (base + t + 1) % 2 ** 32
+                c, a = self.read(t, INCLUSIVE, tag), self.read(t, AGGREGATE, tag)
+                pairs.append(None if c is None and a is None else (c or a, c is not None))
+            if None in pairs:
+                yield  # the kernel reads the window again
+                continue
+            last = [j for j, (_, inc) in enumerate(pairs) if inc]
+            w = (0, NONE)
+            for pair, _ in pairs[last[-1] if last else 0:]:
+                w = join(w, pair)
+            acc = join(w, acc)
+            if last:
+                return acc
+            k -= ep.LOOKBACK
+
+
 def mirror_pass(handed, ser, busy0, lat, table, fids):
-    """A numpy mirror of the CUDA kernel: pairs (S, M) per frame, each
-    thread's ITEMS frames joined in order, threads joined in a block,
-    tiles' totals joined into carry-ins, then each frame's pair from its
-    tile's carry-in, its thread's prefix and its own frames; the empty pair
-    (0, NONE) on either side of a join."""
-    NONE = np.iinfo(np.int64).min
+    """One call of the mirror on a new workspace."""
+    return MirrorCard()(handed, ser, busy0, lat, table, fids)
 
-    def join(l, r):
-        return (l[0] + r[0], l[1] if r[1] == NONE else max(l[1], r[1] - l[0]))
 
-    n = len(handed)
-    if n == 0:
-        q = table[fids] if table is not None and fids is not None else None
-        return np.empty(0, np.int64), int(busy0), q
-    p = ep.plan(n)
-    pairs = [(int(s), int(t)) for s, t in zip(ser, handed)]
-    threads = [[pairs[i] for i in range(k, min(k + ep.ITEMS, n))]
-               for k in range(0, p.tiles * ep.TILE, ep.ITEMS)]
-    thread_pair = []
-    for items in threads:
-        v = (0, NONE)
-        for x in items:
-            v = join(v, x)
-        thread_pair.append(v)
-    tile_total, thread_prefix = [], []
-    for b in range(p.tiles):
-        v = (0, NONE)
-        for t in range(b * ep.THREADS, (b + 1) * ep.THREADS):
-            thread_prefix.append(v)
-            v = join(v, thread_pair[t])
-        tile_total.append(v)
-    carry, v = [], (0, NONE)
-    for total in tile_total:
-        carry.append(v)
-        v = join(v, total)
-    arrivals = np.empty(n, np.int64)
-    for t, items in enumerate(threads):
-        run = join(carry[t * ep.ITEMS // ep.TILE], thread_prefix[t])
-        for k, x in enumerate(items):
-            run = join(run, x)
-            arrivals[t * ep.ITEMS + k] = max(busy0, run[1]) + run[0] + lat
-    q = table[fids] if table is not None and fids is not None else None
-    return arrivals, int(arrivals[-1] - lat), q
+def random_epoch(n, seed):
+    """Random gaps and sizes (bursts of equal times included) and a busy
+    wire at the start."""
+    rng = np.random.default_rng(seed)
+    handed = np.cumsum(rng.integers(0, 3, n) * rng.integers(0, 200, n)).astype(np.int64)
+    ser = rng.integers(0, 250, n).astype(np.int64)
+    table = queue_table(8, seed=seed)
+    fids = rng.integers(-N_FLOWS, N_FLOWS, n).astype(np.int64)  # negative ids wrap
+    busy0 = int(handed[n // 2]) if n > 1 else 5
+    return handed, ser, busy0, table, fids
 
 
 def assert_same(got, want):
@@ -214,29 +359,104 @@ def test_pass_matches_jitted_jax_pass_when_available():
                 jax_pass(times, ser, 0, lat, table, fids))
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 9, 2047, 2048, 2049, 5000])
+T = ep.TILE
+
+
+@pytest.mark.parametrize("n", [1, ep.ITEMS - 1, ep.ITEMS, ep.ITEMS + 1, T - 1, T, T + 1,
+                               2 * T + 1, 5000, 63343])
 def test_kernel_mirror_matches_numpy_pass(n):
-    """The tiled pair scan at tile edges, on random gaps and sizes (bursts of
-    equal times included) and a busy wire at the start."""
-    rng = np.random.default_rng(n)
-    handed = np.cumsum(rng.integers(0, 3, n) * rng.integers(0, 200, n)).astype(np.int64)
-    ser = rng.integers(0, 250, n).astype(np.int64)
-    table = queue_table(8, seed=n)
-    fids = rng.integers(0, N_FLOWS, n).astype(np.int64)
-    busy0 = int(handed[n // 2]) if n > 1 else 5
-    assert_same(mirror_pass(handed, ser, busy0, 1000, table, fids),
-                jx.epoch_pass_np(handed, ser, busy0, 1000, table, fids))
+    """The one-pass kernel's tiles, look-backs and flags at the tile's and a
+    thread's edges, at 5000 and at the bench epoch of 63 343 frames."""
+    handed, ser, busy0, table, fids = random_epoch(n, seed=n)
+    want = jx.epoch_pass_np(handed, ser, busy0, 1000, table, fids)
+    card = MirrorCard(seed=n)
+    assert_same(card(handed, ser, busy0, 1000, table, fids), want)
+    assert_same(card(handed, ser, busy0, 1000, None, None), (want[0], want[1], None))
+    assert card.issued == 2 * ep.plan(n).tiles
 
 
-def test_plan():
-    assert ep.TILE == 2048
-    assert ep.plan(1) == ep.Plan(tiles=1, kernels=1, workspace=6)
-    assert ep.plan(2048) == ep.Plan(tiles=1, kernels=1, workspace=6)
-    assert ep.plan(2049) == ep.Plan(tiles=2, kernels=3, workspace=10)
-    assert ep.plan(63342) == ep.Plan(tiles=31, kernels=3, workspace=126)
-    assert ep.plan(1 << 24).tiles == 8192
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_mirror_consecutive_calls_take_no_stale_word(seed):
+    """Calls of growing and shrinking n on one workspace: slots of earlier
+    calls stay where they were, and the look-backs meet their words
+    (counted), but take none as this call's."""
+    card = MirrorCard(seed=seed, garbage=ep.plan(1 << 16).tiles)
+    for n in (1 << 16, 1, 63343, 2049):
+        handed, ser, busy0, table, fids = random_epoch(n, seed=seed * 7 + n)
+        assert_same(card(handed, ser, busy0, 1000, table, fids),
+                    jx.epoch_pass_np(handed, ser, busy0, 1000, table, fids))
+    assert card.stale_words > 0
+    assert card.counter == card.issued == sum(ep.plan(n).tiles for n in (1 << 16, 1, 63343, 2049))
+
+
+def test_kernel_mirror_counts_bad_ids_across_tiles():
+    """Out-of-range ids in tiles 0, 2 and 3: tile 0 stores its count, the
+    others add theirs; the call raises, and the next one counts from 0."""
+    n = 3 * T + 5
+    handed, ser, busy0, table, fids = random_epoch(n, seed=3)
+    bad = fids.copy()
+    bad[[4, 2 * T + 1, 3 * T + 2, 3 * T + 4]] = N_FLOWS
+    card = MirrorCard(seed=3)
+    with pytest.raises(IndexError, match="^4 flow ids"):
+        card(handed, ser, busy0, 0, table, bad)
+    with pytest.raises(IndexError):
+        jx.epoch_pass_np(handed, ser, busy0, 0, table, bad)
+    assert_same(card(handed, ser, busy0, 0, table, fids),
+                jx.epoch_pass_np(handed, ser, busy0, 0, table, fids))
+
+
+def test_device_workspace_bookkeeping(monkeypatch):
+    """The host side of the kernel's workspace, the launch faked: each
+    call's base is the tickets issued before it on the workspace; a call of
+    more tiles than it holds makes a new, zeroed one (base 0), and so does
+    one whose tickets would reach TAGS (a tag is ticket + 1, 32 bits)."""
+    seen = []
+
+    def fake(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(ep, "_launcher", (None, fake, lambda index: 7))
+    d = ep._Device(0)
+    d.device = torch.device("cpu")
+    launches = ep.launches
+
+    def launch(n, status=None):
+        d.launch(n, 1, 2, None, None, 0, 3, None, status, 5, 6)
+        args = seen[-1]
+        return dict(zip(("work", "n", "n_flows", "busy0", "latency", "tiles", "cap", "base",
+                         "stream"), args[7:])), args[6]
+
+    got, status = launch(1000)
+    assert got["tiles"] == got["cap"] == 2 and got["base"] == 0 and got["stream"] == 7
+    assert status == got["work"] + 16  # the workspace's own status pair
+    work = got["work"]
+    got, status = launch(T, status=99)
+    assert (got["base"], got["cap"], got["work"], status) == (2, 2, work, 99)
+    got, _ = launch(5000)  # 10 tiles: a new workspace
+    assert (got["base"], got["cap"], got["tiles"]) == (0, 10, 10)
+    assert d.work.numel() == ep.plan_words(10) and not d.work.any()
+    d.issued = ep.TAGS - 3
+    got, _ = launch(2 * T)
+    assert got["base"] == ep.TAGS - 3 and d.issued == ep.TAGS - 1
+    got, _ = launch(1)  # its ticket's tag would be 2^32: a new workspace
+    assert got["base"] == 0 and d.issued == 1
+    assert ep.launches == launches + 5
+
+
+@pytest.mark.parametrize("n,tiles", [(1, 1), (T, 1), (T + 1, 2), (2 * T + 1, 3),
+                                     (63343, 124), (1 << 24, 32768)])
+def test_plan(n, tiles):
+    """One kernel of ceil(n / TILE) blocks; the bench epoch fills 124 of the
+    H100's 132 SMs."""
+    assert ep.TILE == ep.THREADS * ep.ITEMS == 512
+    assert ep.plan(n) == ep.Plan(tiles=tiles, workspace=ep.HEAD + 8 * tiles)
+
+
+@pytest.mark.parametrize("n", [0, -1, (ep.MAX_GRID_X + 1) * T])
+def test_plan_refuses(n):
     with pytest.raises(ValueError):
-        ep.plan(0)
+        ep.plan(n)
 
 
 def test_cost_table_matches_jax_package():
