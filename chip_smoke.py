@@ -68,6 +68,16 @@ Phases, each printed as one JSON object per line:
    search's msb_gbps, the bypass/kernel ratio at 1 and 4 ports, Fig. 3b's
    deltas from its base step, Fig. 4's p50/p99 and writebacks, and the wall
    seconds of each engine, and a histogram of the kernel's n by tiles;
+   serving_sim and serving_sim_counts: benchmarks/fig_serving.py's five
+   serving topologies (QPS 2 000, 8 000 and 24 000 at 2 000 ns per prefill
+   token with one client, the KV incast onto one decode replica, decode1
+   failing at a quarter of the 2 ms trial) through the port's
+   run_topology_experiment on the card's host: sent and received requests,
+   TTFT p50/p99, TPOT p50, the switch drops and stranded requests, wall
+   seconds and simulated requests per wall second, and the sha256 of each
+   report, which must equal its pin (SERVING_DIGESTS, the JAX package's
+   reports); every kernel counter and the plain counter stay 0 across the
+   phase, since serving never reaches the epoch pass;
    flash_forward_digest: a sha256 over the forward's outputs and
    logsumexp at those cases and the train shape, f32 and bf16 (two trees
    with equal digests on one card compute bitwise-equal forwards);
@@ -200,6 +210,7 @@ and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import subprocess
@@ -652,7 +663,6 @@ def forward_digest(dev):
     and bf16, at the first DIGEST_CASES of FLASH_CASES and the train shape:
     two trees whose digests agree on one card compute bitwise-equal
     forwards."""
-    import hashlib
     from repro_torch.kernels import flash_attention as kflash
     h = hashlib.sha256()
     cases = FLASH_CASES[:DIGEST_CASES] + [FLASH_TRAIN]
@@ -1165,6 +1175,115 @@ def run_experiments(card):
     return {EXP_LABEL: total}
 
 
+# --------------------------------------------------------------------------
+# serving_sim: the serving layer's topologies on the card's host
+# --------------------------------------------------------------------------
+
+SERVING_TRIAL_S = 0.002  # benchmarks/fig_serving.py's trial
+SERVING_QPS = (2_000.0, 8_000.0, 24_000.0)  # its sweep across the prefill knee
+# sha256 of json.dumps(report.to_dict(), sort_keys=True) for each config of
+# serving_configs(): the JAX package's run_topology_experiment gives the same
+# reports on the CPU (tests/test_torch_serving.py holds these pins to them)
+SERVING_DIGESTS = {
+    "qps2000": "239ee3d1d96ed4394ca04694f787b0f7944350e3ca8010913f205af3484cee11",
+    "qps8000": "d233cb7b1dff9d49c0eb420e0a500a44e1ba5fcf25c1dfcfd75941e1c30581e4",
+    "qps24000": "3d50c940beb4d3bc4914a4bcacbd774bba606d2765a6c8b2ce6d9b91d165c5b2",
+    "kv_incast": "59f7ae8f1696277e903cdc4a192b3a1a290149c9974f2ea016f16b58bbab022c",
+    "failover": "3e6ce054247a2e60d384cef90dfa4aa1f7679b70fcd614a2d7b190371c337031",
+}
+
+
+def serving_configs():
+    """label -> the port's TopologyConfig: benchmarks/fig_serving.py's five
+    configurations on the port's classes (the QPS sweep at 2 000 ns per
+    prefill token and one client, the KV incast onto one pinned decode
+    replica through 16-frame egress buffers at 10 Gbit/s, decode1 failing at
+    a quarter of the trial)."""
+    from repro_torch.exp import (LinkConfig, NodeConfig, PoolConfig, PortConfig,
+                                 StackConfig, SwitchConfig, TopologyConfig, TrafficConfig)
+    from repro_torch.serving import RequestMixConfig, ServingConfig
+
+    def serving(**kw):
+        base = dict(
+            mix=RequestMixConfig(prompt_mean_tokens=64, prompt_dist="fixed",
+                                 output_mean_tokens=4, output_dist="fixed"),
+            qps=20_000.0, prefill_ns_per_token=200, prefill_overhead_ns=5_000,
+            decode_ns_per_token=300, decode_overhead_ns=2_000,
+            kv_bytes_per_token=256, kv_segment_bytes=1024,
+            max_batch_tokens=2048, max_batch_requests=8)
+        base.update(kw)
+        return ServingConfig(**base)
+
+    def node(name, kind):
+        return NodeConfig(name=name, pool=PoolConfig(n_slots=4096, slot_size=2048),
+                          port=PortConfig(n_queues=2, ring_size=512, writeback_threshold=1),
+                          stack=StackConfig(kind=kind, burst_size=32))
+
+    def topology(s, n_clients, egress_capacity=256, link_gbps=100.0):
+        return TopologyConfig(
+            name=f"serving-{s.qps:g}qps",
+            nodes=(node("lb", "balancer"), node("prefill0", "prefill"),
+                   node("prefill1", "prefill"), node("decode0", "decode"),
+                   node("decode1", "decode")),
+            n_clients=n_clients, client_pool=PoolConfig(n_slots=4096, slot_size=2048),
+            switch=SwitchConfig(egress_capacity=egress_capacity,
+                                link=LinkConfig(gbps=link_gbps, latency_ns=1000)),
+            traffic=TrafficConfig(duration_s=SERVING_TRIAL_S, seed=7, mode="open_loop",
+                                  sim_time=True),
+            serving=s)
+
+    out = {f"qps{qps:g}": topology(serving(qps=qps, prefill_ns_per_token=2_000), 1)
+           for qps in SERVING_QPS}
+    out["kv_incast"] = topology(serving(kv_bytes_per_token=4096, decode=("decode0",)), 2,
+                                egress_capacity=16, link_gbps=10.0)
+    out["failover"] = topology(serving(fail_node="decode1", fail_at_s=SERVING_TRIAL_S / 4), 2)
+    return out
+
+
+def report_digest(rep):
+    return hashlib.sha256(json.dumps(rep.to_dict(), sort_keys=True).encode()).hexdigest()
+
+
+def run_serving_sim(card):
+    """Each of serving_configs() through the port's run_topology_experiment
+    on the host, the counters set to 0 before the first run and read after
+    the last: each report's digest equal to its pin, and no kernel launch or
+    plain call in the phase, since serving never reaches the epoch pass. One
+    line a config: requests sent and received, TTFT p50 and p99, TPOT p50,
+    the switch drops and the requests lost at the failed replica that
+    benchmarks/fig_serving.py reports, the wall seconds and simulated
+    requests per wall second."""
+    from repro_torch.exp import run_topology_experiment
+    bad = []
+    zero_counters()
+    for label, cfg in serving_configs().items():
+        t0 = time.perf_counter()
+        rep = run_topology_experiment(cfg)
+        wall = time.perf_counter() - t0
+        x = rep.extras
+        digest = report_digest(rep)
+        ok = digest == SERVING_DIGESTS[label]
+        emit("serving_sim", {
+            "name": label, "sent": rep.sent, "received": rep.received,
+            "ttft_p50_ns": x["ttft_p50_ns"], "ttft_p99_ns": x["ttft_p99_ns"],
+            "tpot_p50_ns": x["tpot_p50_ns"], "sw_p3_egress_drops": x["sw_p3_egress_drops"],
+            "n3_imissed": x["n3_imissed"],
+            "n3_decode_reasm_pending": x["n3_decode_reasm_pending"],
+            "lost_at_failed": x["n4_decode_failed_drops"] + x["n4_decode_stranded_requests"],
+            "n3_decode_requests_done": x["n3_decode_requests_done"],
+            "wall_s": wall, "requests_per_wall_s": rep.sent / wall,
+            "digest": digest, "pinned": ok, "card": card})
+        if not ok:
+            bad.append(label)
+    counts, plain = read_counters()
+    emit("serving_sim_counts", {"launches": counts, "plain_calls": plain})
+    if bad:
+        fail(f"serving_sim: reports differ from the pinned digests on {bad}")
+    if any(counts.values()) or plain:
+        fail(f"serving_sim: the serving topologies reached a kernel or a plain version "
+             f"({counts}, {plain} plain calls)")
+
+
 def bench_epoch(dev):
     """The first epoch slice of the bench shape's 0.1 s run as the engine
     plans it (about 63 000 frames over 8 queues): numpy inputs, and the same
@@ -1524,7 +1643,6 @@ def rglru_bwd_digest(dev):
     trees whose digests agree on one card compute bitwise-equal gradients.
     Each case's own digest too (its first 16 hex digits), to name a case
     where two trees differ."""
-    import hashlib
     from repro_torch.kernels import rglru_scan as krglru
     from repro_torch.kernels import rglru_scan_bwd as kbwd
     h, per_case = hashlib.sha256(), []
@@ -2807,7 +2925,6 @@ def epoch_pass_bits():
         PYTHONPATH=<archive>/src python3 -c 'import chip_smoke; chip_smoke.epoch_pass_bits()'
 
     from this tree's root: chip_smoke puts its own src after PYTHONPATH."""
-    import hashlib
     import repro_torch
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
@@ -2942,6 +3059,7 @@ def main():
     errs[("epoch_pass", SIM_LABEL)] = run_epoch_checks(dev)
     launches.update(run_simulate(dev, card))
     launches.update(run_experiments(card))
+    run_serving_sim(card)
     errs.update(run_flash_bwd_checks(dev))
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)

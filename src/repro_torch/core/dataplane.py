@@ -70,17 +70,17 @@ class KernelStackFeed:
         self.stats = FeedStats()
 
     def next_batch(self) -> Optional[DeviceBatch]:
-        t0 = time.perf_counter_ns()
+        t0 = time.perf_counter_ns()  # simlint: disable=SL001 -- wall-clock feed mode
         try:
             host = next(self._it)
         except StopIteration:
             return None
         # defensive copy: the kernel stack never trusts caller buffers (skb copy)
         host = {k: np.array(v) for k, v in host.items()}
-        t1 = time.perf_counter_ns()
+        t1 = time.perf_counter_ns()  # simlint: disable=SL001 -- wall-clock feed mode
         dev = {k: torch.from_numpy(v).to(self._device) for k, v in host.items()}
         _sync(self._device)  # interrupt-driven completion: hard sync
-        t2 = time.perf_counter_ns()
+        t2 = time.perf_counter_ns()  # simlint: disable=SL001 -- wall-clock feed mode
         self.stats.host_alloc_ns += t1 - t0
         self.stats.put_ns += t2 - t1
         self.stats.batches += 1
@@ -203,11 +203,11 @@ class BypassDataplane:
             self._rr = (self._rr + 1) % self._ports
             host = ring.try_pop()
             if host is not None:
-                t0 = time.perf_counter_ns()
+                t0 = time.perf_counter_ns()  # simlint: disable=SL001 -- wall-clock feed mode
                 # NOTE: no synchronize — the copy proceeds while we return to
                 # compute. Readiness is observed by polling.
                 self._inflight.append(self._transfer(host))
-                self.stats.put_ns += time.perf_counter_ns() - t0
+                self.stats.put_ns += time.perf_counter_ns() - t0  # simlint: disable=SL001 -- wall-clock feed mode
                 return True
         return False
 
@@ -232,8 +232,8 @@ class BypassDataplane:
         """Poll for the next ready batch (PMD rx_burst of size 1). Returns None
         at the clean end of the stream; raises TimeoutError when no batch
         became ready within ``timeout_s``."""
-        deadline = time.perf_counter_ns() + int(timeout_s * 1e9)
-        t_start = time.perf_counter_ns()
+        deadline = time.perf_counter_ns() + int(timeout_s * 1e9)  # simlint: disable=SL001 -- wall-clock feed mode
+        t_start = time.perf_counter_ns()  # simlint: disable=SL001 -- wall-clock feed mode
         self._refill()
         while True:
             # poll in-flight transfers; prefer the oldest ready one
@@ -245,14 +245,14 @@ class BypassDataplane:
                     self.stats.batches += 1
                     self.stats.bytes += tr.nbytes
                     self.stats.occupancy_sum += len(self._inflight) + 1
-                    self.stats.wait_ns += time.perf_counter_ns() - t_start
+                    self.stats.wait_ns += time.perf_counter_ns() - t_start  # simlint: disable=SL001 -- wall-clock feed mode
                     return batch
             if not self._inflight:
                 if all(self._exhausted) and all(r.is_empty() for r in self._stage):
                     return None  # clean end of stream
                 self._refill()
             self.stats.empty_polls += 1
-            if time.perf_counter_ns() > deadline:
+            if time.perf_counter_ns() > deadline:  # simlint: disable=SL001 -- wall-clock feed mode
                 raise TimeoutError("dataplane: no batch became ready in time")
             time.sleep(0)  # yield so the producers run
 

@@ -12,7 +12,7 @@ live objects from a config is :mod:`repro_torch.exp.testbed`'s job; running one 
 :func:`repro_torch.exp.runner.run_experiment`'s.
 
 Own copy, in the PyTorch port, of ``src/repro/exp/config.py``: the same plain
-Python, with its imports pointing into ``repro_torch``, and two changes.
+Python, with its imports pointing into ``repro_torch``, and one change.
 
 * **Engines.** :data:`TRAFFIC_ENGINES` is ``("event", "epoch",
   "epoch-torch")``: ``"epoch-torch"`` takes the place of the reference's
@@ -23,14 +23,14 @@ Python, with its imports pointing into ``repro_torch``, and two changes.
   scrubbed from seed fingerprints (:mod:`repro_torch.exp.seeding`), so the
   port derives the reference's seeds from the same config whichever engine
   it names.
-* **No serving yet.** ``TopologyConfig.serving`` needs the serving layer,
-  which the port does not have yet (ROADMAP Queue 1 item 8 c): a
-  ``TopologyConfig`` or dict that sets it raises ``NotImplementedError``.
+
+``TopologyConfig.serving`` takes the port's own
+:class:`repro_torch.serving.config.ServingConfig`.
 """
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field, fields, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core.cost import HostCostModel
 from repro_torch.core.loadgen import TRAFFIC_KINDS
@@ -49,14 +49,6 @@ CC_MODES = ("fixed", "dctcp")
 # arXiv:2012.14219), or the same partitioning spread across worker processes.
 # All three produce bit-identical RunReports; the knob only trades wall time.
 PARTITION_MODES = ("shared-clock", "partitioned", "partitioned-mp")
-
-
-def serving_unported() -> NotImplementedError:
-    """The error every serving branch of the port raises: the reference's
-    ``serving/`` layer is not ported yet."""
-    return NotImplementedError(
-        "TopologyConfig.serving needs the serving layer, which repro_torch "
-        "does not have yet (ROADMAP Queue 1 item 8 c)")
 
 
 def _plain(value: Any) -> Any:
@@ -730,9 +722,7 @@ class TopologyConfig:
     cluster: clients become request populations (QPS, token-length mix) and
     the named balancer/prefill/decode nodes must carry the matching serving
     stack kinds.  ``traffic`` then only contributes duration/seed/engine
-    knobs — the offered load comes from ``serving.qps``.  The port has no
-    serving layer yet: a config that sets ``serving`` raises
-    ``NotImplementedError`` (:func:`serving_unported`).
+    knobs — the offered load comes from ``serving.qps``.
 
     ``partition`` selects the execution engine (:data:`PARTITION_MODES`):
     ``shared-clock`` is the reference event loop, ``partitioned`` gives every
@@ -756,8 +746,8 @@ class TopologyConfig:
     switch: SwitchConfig = field(default_factory=SwitchConfig)
     traffic: TrafficConfig = field(default_factory=TrafficConfig)
     target: str = ""
-    # the reference's ServingConfig; not ported yet, so anything but None
-    # raises (see serving_unported)
+    # repro_torch.serving.ServingConfig; typed loosely to keep repro_torch.exp
+    # importable without the serving package (it imports this module back)
     serving: Optional[Any] = None
     # execution engine (never affects results — see PARTITION_MODES)
     partition: str = "shared-clock"
@@ -776,8 +766,6 @@ class TopologyConfig:
     client_switch: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self) -> None:
-        if self.serving is not None:
-            raise serving_unported()
         if not self.nodes:
             raise ValueError("need at least one node")
         if not 1 <= self.n_clients <= 255:
@@ -816,6 +804,10 @@ class TopologyConfig:
                     raise ValueError(
                         f"client_targets[{g}]={t!r} is not a node name "
                         f"(have {names})")
+            if self.serving is not None:
+                raise ValueError(
+                    "client_targets is an echo-topology knob; serving "
+                    "clients address the balancer")
         for label, placement, count in (
                 ("node_switch", self.node_switch, len(self.nodes)),
                 ("client_switch", self.client_switch, self.n_clients)):
@@ -829,6 +821,58 @@ class TopologyConfig:
                     f"{label} has {len(placement)} entries, need {count}")
             if any(s not in (0, 1) for s in placement):
                 raise ValueError(f"{label} entries must be 0 or 1")
+        if self.serving is not None:
+            pipe = self.switch.pipeline
+            if pipe is not None and (
+                    pipe.aqm.kind != "drop-tail" or pipe.per_port_aqm):
+                raise ValueError(
+                    "serving topologies don't support AQM marking (serving "
+                    "frames carry their own header layout)")
+            if self.traffic.cc_mode != "fixed":
+                raise ValueError(
+                    "serving topologies drive load from serving.qps; "
+                    "cc_mode must stay 'fixed'")
+            self._validate_serving(names)
+
+    def _validate_serving(self, names: List[str]) -> None:
+        from repro_torch.serving.config import ServingConfig
+        s = self.serving
+        if not isinstance(s, ServingConfig):
+            raise ValueError(
+                f"serving must be a ServingConfig, got {type(s).__name__}")
+        by_name = {n.name: n for n in self.nodes}
+        roles = [(s.balancer, "balancer"), *[(p, "prefill") for p in s.prefill],
+                 *[(d, "decode") for d in s.decode]]
+        for node_name, kind in roles:
+            if node_name not in by_name:
+                raise ValueError(
+                    f"serving {kind} node {node_name!r} is not a node name "
+                    f"(have {names})")
+            nc = by_name[node_name]
+            if nc.stack.kind != kind:
+                raise ValueError(
+                    f"serving {kind} node {node_name!r} has stack kind "
+                    f"{nc.stack.kind!r}; it must be {kind!r}")
+            # serving nodes exchange full-size request/KV frames
+            max_frame = max(s.request_frame_bytes, s.kv_segment_bytes,
+                            s.token_frame_bytes)
+            if max_frame > nc.pool.slot_size:
+                raise ValueError(
+                    f"serving frames up to {max_frame}B exceed node "
+                    f"{node_name!r} pool slot size {nc.pool.slot_size}")
+            # engine iterations park a node's lcore for long virtual
+            # windows; frames idling below a >1 writeback threshold would
+            # only surface at quiet-fabric flushes, stalling the pipeline.
+            # Either expose completions immediately (threshold 1) or model
+            # DCA properly (DcaConfig arms the give-up timers).
+            if nc.dca is None and nc.port.writeback_threshold != 1:
+                raise ValueError(
+                    f"serving node {node_name!r} needs "
+                    "port.writeback_threshold == 1 (or an explicit "
+                    "DcaConfig with writeback timers)")
+        if s.request_frame_bytes > self.client_pool.slot_size:
+            raise ValueError(
+                "serving request_frame_bytes exceeds the client pool slot size")
 
     def to_dict(self) -> Dict[str, Any]:
         return _config_to_dict(self)
@@ -836,12 +880,13 @@ class TopologyConfig:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TopologyConfig":
         d = dict(d)
-        if d.get("serving") is not None:
-            raise serving_unported()
         d["nodes"] = tuple(NodeConfig.from_dict(n) for n in d.get("nodes", [{}]))
         d["client_pool"] = PoolConfig.from_dict(d.get("client_pool", {}))
         d["switch"] = SwitchConfig.from_dict(d.get("switch", {}))
         d["traffic"] = TrafficConfig.from_dict(d.get("traffic", {}))
+        if d.get("serving") is not None:
+            from repro_torch.serving.config import ServingConfig
+            d["serving"] = ServingConfig.from_dict(d["serving"])
         if d.get("client_targets") is not None:
             d["client_targets"] = tuple(d["client_targets"])
         for key in ("node_switch", "client_switch"):

@@ -46,10 +46,8 @@ build/dispatch loops — the same ``TopologyConfig`` produces a bit-identical
 Own copy, in the PyTorch port, of ``src/repro/exp/topology.py``: the same
 numpy and plain Python, with its imports pointing into ``repro_torch``.
 :data:`PARTITION_BUILDER` names this module, so the ``partitioned-mp``
-workers import the port and never the JAX package.  The port has no serving
-layer yet: the branches that would build serving clients raise
-``NotImplementedError`` (:func:`repro_torch.exp.config.serving_unported`),
-and the config refuses ``serving`` before a cluster is built.
+workers import the port and never the JAX package.  Serving topologies build
+the port's own :mod:`repro_torch.serving` stacks and clients.
 """
 from __future__ import annotations
 
@@ -71,7 +69,7 @@ from repro_torch.core.partition import (ClientDomain, Crossing, DomainScheduler,
                                         PartitionEngine, PartitionRunInfo,
                                         PartitionSanitizer, SwitchDomain)
 
-from .config import CostConfig, NodeConfig, TopologyConfig, serving_unported
+from .config import CostConfig, NodeConfig, TopologyConfig
 from .seeding import config_fingerprint, derive_seed
 from .testbed import (apply_dca, build_stack, effective_stack_config,
                       effective_writeback_threshold)
@@ -102,14 +100,15 @@ class Client:
     """One fabric-attached client population and its private buffer arena.
 
     Echo workloads drive a :class:`~repro_torch.core.loadgen.LoadGen`; serving
-    topologies (``TopologyConfig.serving``, not ported yet) would drive the
-    reference's ``ServingClient`` instead, with ``lg`` None."""
+    topologies (``TopologyConfig.serving``) drive a
+    :class:`~repro_torch.serving.requestgen.ServingClient` instead and ``lg`` is
+    None."""
 
     lg: Optional[LoadGen]
     pool: PacketPool
     port_id: int
     seed: int
-    serving: Optional[object] = None  # the reference's ServingClient
+    serving: Optional[object] = None  # repro_torch.serving.ServingClient
 
 
 def _node_sink(node: Node) -> Callable[[np.ndarray, int], None]:
@@ -396,7 +395,7 @@ class Cluster:
     @classmethod
     def build(cls, cfg: TopologyConfig) -> "Cluster":
         if cfg.serving is not None:
-            raise serving_unported()
+            import repro_torch.serving  # noqa: F401 — registers the serving kinds
         clock = SimClock()
         sched = EventScheduler(clock)
         if cfg.switch.trunk is not None:
@@ -421,18 +420,30 @@ class Cluster:
         # client's position in some loop — a sweep runner can shuffle,
         # shard, or replay this config and always get the same streams
         fp = config_fingerprint(cfg.to_dict())
+        if cfg.serving is not None:
+            from repro_torch.serving import ServingClient, wire_serving
+            wire_serving(cfg.serving, {n.cfg.name: n for n in nodes})
+            balancer_ip = next(n.ip for n in nodes
+                               if n.cfg.name == cfg.serving.balancer)
         clients: List[Client] = []
         for g in range(cfg.n_clients):
             port_id = len(nodes) + g
             pool = PacketPool(cfg.client_pool.n_slots, cfg.client_pool.slot_size)
             src_base = CLIENT_IP_BASE | ((g + 1) << 16)
             seed = derive_seed(fp, g, "client")
-            lg = LoadGen([], ts_offset=t.ts_offset,
-                         verify_integrity=t.verify_integrity,
-                         max_tx_burst=t.max_tx_burst, n_flows=t.n_flows,
-                         src_ip_base=src_base,
-                         dst_ip=_client_target_ip(cfg, g, ips))
-            client = Client(lg=lg, pool=pool, port_id=port_id, seed=seed)
+            if cfg.serving is not None:
+                sc = ServingClient(serving=cfg.serving, client_index=g,
+                                   src_ip=src_base, balancer_ip=balancer_ip,
+                                   seed=seed)
+                client = Client(lg=None, pool=pool, port_id=port_id,
+                                seed=seed, serving=sc)
+            else:
+                lg = LoadGen([], ts_offset=t.ts_offset,
+                             verify_integrity=t.verify_integrity,
+                             max_tx_burst=t.max_tx_burst, n_flows=t.n_flows,
+                             src_ip_base=src_base,
+                             dst_ip=_client_target_ip(cfg, g, ips))
+                client = Client(lg=lg, pool=pool, port_id=port_id, seed=seed)
             switch.attach(port_id, _client_sink(client))
             switch.add_route(src_base, port_id, prefix_len=16)
             clients.append(client)

@@ -10,8 +10,9 @@ node's per-queue stats and xstats; under ``partitioned`` and
 those of ``tests/test_switch.py``, ``tests/test_aqm_pipeline.py`` (drop-tail,
 RED, ECN with DCTCP, the trunk fabric), ``tests/test_dca_sim.py`` and
 ``tests/test_partition.py``; the fallback reasons those of
-``tests/test_partition.py`` and ``tests/test_fallback_taxonomy.py``. The
-port has no serving layer yet, and a serving config raises.
+``tests/test_partition.py`` and ``tests/test_fallback_taxonomy.py``. A
+serving topology builds and runs as the JAX package's does (the serving
+layer's own cases are in ``tests/test_torch_serving.py``).
 """
 import dataclasses
 import json
@@ -262,7 +263,7 @@ def test_epoch_fallback_reason_equal(name):
     assert outs[1] == outs[0]
 
 
-# -- serving is not ported ----------------------------------------------------
+# -- serving -------------------------------------------------------------------
 
 def _serving_topology():
     from repro.serving import RequestMixConfig, ServingConfig
@@ -277,17 +278,17 @@ def _serving_topology():
         n_clients=1, traffic=RX.TrafficConfig(duration_s=0.0005, seed=3), serving=s)
 
 
-def test_serving_topology_raises():
-    d = _serving_topology().to_dict()
-    assert d["serving"] is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8 c"):
-        TX.TopologyConfig.from_dict(d)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8 c"):
+def test_serving_topology_equal():
+    """The topology that once raised builds and runs in the port: its
+    RunReport, clock, per-queue stats and xstats equal the JAX package's, and
+    a dict or a config that names no ServingConfig is refused as there."""
+    cfg = _serving_topology()
+    want, got = shared_clock_runs(cfg)
+    assert want[0]["received"] > 0 and want[0]["extras"]["serving"] == 1.0
+    assert got == want
+    assert TX.run_topology_experiment(to_port(cfg)).to_dict() == want[0]
+    with pytest.raises(ValueError, match="must be a ServingConfig"):
         TX.TopologyConfig(serving={"qps": 1.0})
-    cfg = TX.TopologyConfig()
-    object.__setattr__(cfg, "serving", object())  # past the config's own refusal
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8 c"):
-        TCluster.build(cfg)
 
 
 def test_switch_aqm_stream_equal():
