@@ -17,10 +17,11 @@ Phases, each printed as one JSON object per line:
    ragged S and W, a non-zero h0 (carried by the SSD scan across 8 chunks
    too), an SSD chunk of 1, group 16 at head_dim 256, a window that
    cuts keys (mixtral-8x7b's: 4096 at head_dim 128 over S 4608), GQA
-   groups 3, 4 and 5 at head_dim 128 (the plain attention in blocks of
+   groups 3, 4, 5 and 6 at head_dim 128 (the plain attention in blocks of
    query rows where its scores would not fit), and flash at head_dim 80
    and 96 (run on the head_dim 128
-   body with zero columns) with ragged Sq and Skv under q_offset; decode
+   body with zero columns) with ragged Sq and Skv under q_offset, at head_dim
+   80 bidirectional (hubert-xlarge's encode shape and a ragged one); decode
    at groups 1 to 16, rows of len 0 (exactly 0), 1, a key either side of a
    64-key tile edge and C, C not a multiple of the tile, and head_dim 24
    (the mma body) and 20 (the FMA body, in bf16 too);
@@ -87,7 +88,8 @@ Phases, each printed as one JSON object per line:
    ref.mha_bwd on the same out and lse (f32 the same bound; bf16 each
    gradient within a relative RMS of 1e-2), two calls bitwise equal, on
    causal, window, GQA group 2 and 16, q_offset > 0, rows with no visible
-   key, Dh 80 and 96 (on the Dh 128 body), Dh 160 and 192 (on the Dh 256
+   key, Dh 80 and 96 (on the Dh 128 body; Dh 80 also bidirectional, ragged
+   and at hubert-xlarge's train shape), GQA group 6, Dh 160 and 192 (on the Dh 256
    body), Dh 256 with ragged Sq and Skv under q_offset and with rows that see
    no key, Dh 256 with enough kv tiles for one head subset a tile, Dh 160
    with group 3 in subsets of 1 and 2 heads, ragged Sq and Skv,
@@ -122,8 +124,10 @@ Phases, each printed as one JSON object per line:
    prints it, the kernel's time and recurrentgemma-9b's train losses for a
    tree named on PYTHONPATH, such as a git archive of the parent);
 4. per arch — qwen3-1.7b, mamba2-1.3b, recurrentgemma-9b, granite-8b,
-   phi4-mini-3.8b, llama3.2-3b, mixtral-8x7b (16 of 32 layers) and
-   llama4-maverick-400b-a17b (2 of 48 layers: one dense and one MoE layer),
+   phi4-mini-3.8b, llama3.2-3b, mixtral-8x7b (16 of 32 layers),
+   llama4-maverick-400b-a17b (2 of 48 layers: one dense and one MoE layer)
+   and internvl2-26b (48 layers; each batch's 256 image patches before its
+   512-token prompt, so prefill runs 768 positions and decode from 768),
    each at full width with random weights from seed 0, its params freed
    before the next — serve: 8 requests in batches of 4, 32 generated tokens,
    greedy, through repro_torch.launch.serve, with every launch counter set
@@ -139,7 +143,14 @@ Phases, each printed as one JSON object per line:
    counts the tokens whose own choice differs), on the card, in bf16 and then,
    the served params freed, in f32 (recurrentgemma-9b's f32 copy keeps one
    pattern unit and the tail, mixtral-8x7b's 4 layers; llama4-maverick's
-   does not fit, and its f32 check is the kernels' at its shapes);
+   does not fit, and its f32 check is the kernels' at its shapes;
+   internvl2-26b's keeps 8 layers);
+   encode and encode_vs_plain: hubert-xlarge (the encoder: no decode step)
+   at full width, 48 layers, lm.prefill of 4 x 2048 f32 frames with the
+   counters set to 0 just before (exactly 48 flash calls, 0 plain), its
+   median over 5 calls, and its logits at the last frame and every layer's
+   cached keys against the plain versions, bf16 and f32 (all 48 layers,
+   3.8 GB), bounds as serve_vs_plain's;
 5. train: TrainerRuntime on qwen3-1.7b at full width, bf16, random weights
    from seed 0, 8 steps of 4 x 2048 tokens, once fed by the bypass
    dataplane and once by the kernel-stack feed, on the same batches, each
@@ -155,20 +166,30 @@ Phases, each printed as one JSON object per line:
    training state), 8 steps of 4 x 3072 tokens so that its 2048-key window
    cuts keys (exactly 32 flash forwards, 16 flash backwards, 64 rglru_scan
    and 32 rglru_scan_bwd launches), its peak memory, profiled for the four
-   kernels' device time; trace_train scales each counted kernel's mean
+   kernels' device time; and hubert-xlarge whole (48 layers, 15.1 GB of
+   training state), 8 steps of 4 x 2048 f32 frames (41.9 MB a batch) once
+   per feed, exactly 768 flash forwards and 384 backwards each, losses
+   bitwise equal, feed wait, put ms and bytes per batch; trace_train
+   scales each counted kernel's mean
    event time by its launches in the step (the wrapper counters), as
    device_ms does, since the profiler drops events;
-   train_vs_plain, for each of the three archs: one step's loss and every
-   gradient with the kernels against the plain versions, f32, full width,
-   4 layers (recurrentgemma-9b: one unit and the tail's RG-LRU layer, at S
-   3072), with non-zero gradients on the leaves that only the backward
-   kernels reach;
+   train_vs_plain, for each of the four trained archs and internvl2-26b
+   (whose 318 GB of training state does not fit; its batch is the
+   pipeline's 256 patches and 1792 text tokens, the patch labels -100): one
+   step's loss and every gradient with the kernels against the plain
+   versions, f32, full width, 4 layers (recurrentgemma-9b: one unit and the
+   tail's RG-LRU layer, at S 3072), with non-zero gradients on the leaves
+   that only the backward kernels reach;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
    gather's benchmark; the flash backward and the RG-LRU backward also at
    recurrentgemma-9b's train shape, the flash backward's yardstick there
-   SDPA under the window mask; CUDA events; the gather, decode, the SSD
+   SDPA under the window mask; the flash forward and backward at
+   hubert-xlarge's train shape and the forward and decode at internvl2-26b's
+   serve shapes, with the body's head dim beside Dh: Dh 80 runs the Dh 128
+   body, 1.6x the arithmetic the bound counts; every SDPA yardstick with the
+   backend that ran it; CUDA events; the flash forward, the gather, decode, the SSD
    scan and its backward, the flash backward and the RG-LRU backward also
    their device time from the profiler, decode, the SSD scan and its
    backward, the flash backward (row dots, dK/dV, the head subsets' sum
@@ -286,9 +307,11 @@ RGLRU_BWD_F32_TOL, RGLRU_BWD_BF16_REL_RMS, RGLRU_BWD_VS_PLAIN_BF16_REL_RMS = 1e-
 SERVE = dict(requests=8, batch=4, gen_len=32, seed=0)
 # mixtral-8x7b's prompt passes its 4096-token window, so prefill rotates the
 # ring cache and every decode step overwrites its oldest slot
+# internvl2-26b's prompt is 512 text tokens after its config's 256 image
+# patches: prefill runs a fused sequence of 768 (prompt_batch)
 PROMPT = {"qwen3-1.7b": 512, "mamba2-1.3b": 2048, "recurrentgemma-9b": 3072,
           "granite-8b": 512, "phi4-mini-3.8b": 512, "llama3.2-3b": 512,
-          "mixtral-8x7b": 4608, "llama4-maverick-400b-a17b": 512}
+          "mixtral-8x7b": 4608, "llama4-maverick-400b-a17b": 512, "internvl2-26b": 512}
 # depth cuts of the archs whose weights do not fit the card (width is never
 # cut): mixtral-8x7b's 32 layers are 93.4 GB in bf16, 16 are about 47 GB;
 # llama4-maverick keeps one (dense, MoE) unit, about 37 GB (the 128 experts of
@@ -303,6 +326,7 @@ EXPECTED = {  # exact launches of one serve run; every other counter must read 0
     "llama3.2-3b": {"flash_attention": 56, "decode_attention": 1792},
     "mixtral-8x7b": {"flash_attention": 32, "decode_attention": 1024},
     "llama4-maverick-400b-a17b": {"flash_attention": 4, "decode_attention": 128},
+    "internvl2-26b": {"flash_attention": 96, "decode_attention": 3072},
 }
 # plain vs kernel serving in bf16: relative RMS of the logit difference. Both
 # sides compute in f32 and round to bf16, but at other points, so bf16
@@ -313,12 +337,15 @@ EXPECTED = {  # exact launches of one serve run; every other counter must read 0
 # 0.044 phi4-mini over 32, 0.042 llama3.2 over 28; 0.051 mixtral over 16 and
 # 0.011 llama4-maverick over 2, each with the plain run's expert choices
 # forced to the kernels' run: left free, 5.6% of mixtral's routed tokens
-# flip their top 2 and its relative RMS is 0.33), while a wrong mask, head,
-# slot or decay moves the logits by order 100%. f32 is the tight check
-# (summation order only).
+# flip their top 2 and its relative RMS is 0.33; 0.080 internvl2-26b over 48
+# layers; hubert-xlarge's encode 0.016 on its logits and 0.013 on its cached
+# keys, over 48 bidirectional layers), while a wrong mask, head, slot or
+# decay moves the logits by order 100%. f32 is the tight check (summation
+# order only).
 SERVE_BF16_REL_RMS = {"qwen3-1.7b": 0.05, "mamba2-1.3b": 0.08, "recurrentgemma-9b": 0.08,
                       "granite-8b": 0.1, "phi4-mini-3.8b": 0.09, "llama3.2-3b": 0.08,
-                      "mixtral-8x7b": 0.1, "llama4-maverick-400b-a17b": 0.02}
+                      "mixtral-8x7b": 0.1, "llama4-maverick-400b-a17b": 0.02,
+                      "internvl2-26b": 0.16, "hubert-xlarge": 0.035}
 SERVE_F32_ABS = 1e-3
 
 
@@ -463,12 +490,16 @@ FLASH_CASES = [
     (4, 512, 512, 24, 8, 128, True, 0, 0),    # phi4-mini-3.8b, llama3.2-3b prefill: group 3
     (4, 512, 512, 40, 8, 128, True, 0, 0),    # llama4-maverick prefill: group 5
     (4, 4608, 4608, 32, 8, 128, True, 4096, 0),  # mixtral-8x7b prefill: window 4096 < S
+    (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80, ragged S
+    (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6, ragged S
+    (4, 768, 768, 48, 8, 128, True, 0, 0),    # internvl2-26b prefill: 256 patches + 512 text
+    (4, 2048, 2048, 16, 16, 80, False, 0, 0),  # hubert-xlarge encode: 2048 frames, Dh 80
 ]
 DIGEST_CASES = 15  # forward_digest's cases: those it covered when first recorded
 FLASH_SERVE = {"qwen3-1.7b": FLASH_CASES[13], "recurrentgemma-9b": FLASH_CASES[14],
                "granite-8b": FLASH_CASES[15], "phi4-mini-3.8b": FLASH_CASES[16],
                "llama3.2-3b": FLASH_CASES[16], "llama4-maverick-400b-a17b": FLASH_CASES[17],
-               "mixtral-8x7b": FLASH_CASES[18]}
+               "mixtral-8x7b": FLASH_CASES[18], "internvl2-26b": FLASH_CASES[21]}
 DECODE_CASES = [
     # B, C, H, Hkv, Dh, cache_len
     (4, 300, 4, 2, 64, (0, 1, 300, 157)),
@@ -486,11 +517,12 @@ DECODE_CASES = [
     (4, 544, 24, 8, 128, (1, 200, 544, 377)),  # phi4-mini-3.8b, llama3.2-3b: group 3
     (4, 544, 40, 8, 128, (1, 200, 544, 377)),  # llama4-maverick: group 5
     (4, 4096, 32, 8, 128, (4096, 4096, 4096, 4096)),  # mixtral-8x7b: group 4, full ring
+    (4, 800, 48, 8, 128, (1, 300, 800, 785)),  # internvl2-26b: group 6, 768 + 32 slots
 ]
 DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[9], "recurrentgemma-9b": DECODE_CASES[10],
                 "granite-8b": DECODE_CASES[11], "phi4-mini-3.8b": DECODE_CASES[12],
                 "llama3.2-3b": DECODE_CASES[12], "llama4-maverick-400b-a17b": DECODE_CASES[13],
-                "mixtral-8x7b": DECODE_CASES[14]}
+                "mixtral-8x7b": DECODE_CASES[14], "internvl2-26b": DECODE_CASES[15]}
 SSD_CASES = [
     # B, S, H, P, N, chunk, h0
     (4, 2048, 64, 64, 128, 256, False),       # mamba2-1.3b prefill, full width
@@ -1324,12 +1356,16 @@ FLASH_BWD_CASES = [
     (1, 64, 64, 4, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
     (4, 1100, 1100, 16, 4, 256, True, 0, 0),  # Dh 256, 288 kv tiles: one head subset
     (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
+    (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80, ragged S
+    (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6, ragged S
+    (4, 2048, 2048, 16, 16, 80, False, 0, 0),  # hubert-xlarge train: bidirectional, Dh 80
     # recurrentgemma-9b train, full width: group 16 at Dh 256, a window that cuts keys
     (4, 3072, 3072, 16, 1, 256, True, 2048, 0),
     (4, 2048, 2048, 16, 8, 128, True, 0, 0),  # qwen3-1.7b train, full width
 ]
 FLASH_TRAIN = FLASH_BWD_CASES[-1]
 FLASH_TRAIN_RG = FLASH_BWD_CASES[-2]
+FLASH_TRAIN_HUBERT = FLASH_BWD_CASES[-3]
 
 
 def flash_grads(fn, q, k, v, dout):
@@ -1426,8 +1462,8 @@ def run_flash_bwd_checks(dev):
                         "empty_rows": int(empty.sum()), "empty_rows_dq_zero": ok_empty})
             _check("flash_attention_bwd", case, dtype, res,
                    ok and ok_out and ok_lse and ok_empty, "")
-            if case in (FLASH_TRAIN, FLASH_TRAIN_RG) and dtype == torch.bfloat16:
-                label = TRAIN_LABEL if case == FLASH_TRAIN else RG_TRAIN_LABEL
+            label = {c: lab for lab, c in flash_train_cases().items()}.get(case)
+            if label is not None and dtype == torch.bfloat16:
                 worst[("flash_attention", label)] = e_out
                 worst[("flash_attention_bwd", label)] = max(r["max_abs"] for r in
                                                             (res["dq"], res["dk"], res["dv"]))
@@ -1731,17 +1767,36 @@ class plain_kernels:
             setattr(self.ops, name, fn)
 
 
+def n_patches(cfg):
+    """The image patches before a prompt's text (the vlm's frontend), else 0."""
+    return cfg.n_patches if cfg.frontend == "vision_patches" else 0
+
+
+def prompt_batch(cfg, tokens, gen=None):
+    """The prefill batch of prompt ``tokens`` (B, S): for the vlm also its
+    config's n_patches patches before the text, 0.02 N(0, 1) in the compute
+    dtype as launch/serve.py draws them (here from ``gen``), on the tokens'
+    device."""
+    batch = {"tokens": tokens}
+    if n_patches(cfg):
+        patches = torch.randn((tokens.shape[0], cfg.n_patches, cfg.d_model), generator=gen)
+        batch["patches"] = (patches * 0.02).to(tokens.device, getattr(torch, cfg.compute_dtype))
+    return batch
+
+
 def logits_run(cfg, params, prompt, steps, forced=None):
-    """Prefill + ``steps`` decode steps. Decode inputs are ``forced`` tokens
-    when given (teacher forcing), else this run's own argmax."""
+    """Prefill of the batch ``prompt`` (prompt_batch) + ``steps`` decode
+    steps. Decode inputs are ``forced`` tokens when given (teacher forcing),
+    else this run's own argmax."""
     from repro_torch.models import lm
-    B, S = prompt.shape
-    logits, cache = lm.prefill(cfg, params, {"tokens": prompt}, S + steps)
+    B, S = prompt["tokens"].shape
+    S += n_patches(cfg)  # the fused sequence: patches, then text
+    logits, cache = lm.prefill(cfg, params, prompt, S + steps)
     outs, toks = [logits.float()], []
     for i in range(steps):
         tok = forced[i] if forced is not None else logits.argmax(-1).to(torch.int32)
         toks.append(tok)
-        pos = torch.full((B,), S + i, dtype=torch.int32, device=prompt.device)
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=prompt["tokens"].device)
         logits, cache = lm.decode_step(cfg, params, cache, tok, pos)
         outs.append(logits.float())
     return torch.stack(outs), toks
@@ -1760,8 +1815,10 @@ def _cast_tree(node, dtype):
 # card alone, at full width: mixtral-8x7b keeps 4 of its 16 served layers
 # (23.6 GB); llama4-maverick's one unit is 66 GB in f32 and does not fit
 # beside its activations, so its f32 check is the kernels' at its attention
-# shapes (run_checks)
-F32_LAYERS = {"mixtral-8x7b": 4, "llama4-maverick-400b-a17b": 0}
+# shapes (run_checks); internvl2-26b's 48 layers are 75 GB in f32, 8 layers
+# and the f32 embeddings about 17 GB, made while its 39.7 GB of bf16 params
+# are still on the card
+F32_LAYERS = {"mixtral-8x7b": 4, "llama4-maverick-400b-a17b": 0, "internvl2-26b": 8}
 
 
 def f32_copy(cfg, params):
@@ -1878,19 +1935,21 @@ def run_trace(cfg, params, dev, steps=8):
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     from repro_torch.models import lm
-    B, S = SERVE["batch"], PROMPT[cfg.arch_id]
-    prompt = torch.randint(0, cfg.vocab_size, (B, S), device=dev)
-    out = {"arch": cfg.arch_id}
+    B = SERVE["batch"]
+    prompt = prompt_batch(cfg, torch.randint(0, cfg.vocab_size, (B, PROMPT[cfg.arch_id]),
+                                             device=dev))
+    S = PROMPT[cfg.arch_id] + n_patches(cfg)  # the fused sequence
+    out = {"arch": cfg.arch_id, "prefill_len": S}
     for phase in ("prefill", "decode"):
         torch.cuda.synchronize()
         if phase == "decode":
-            logits, cache = lm.prefill(cfg, params, {"tokens": prompt}, S + steps)
+            logits, cache = lm.prefill(cfg, params, prompt, S + steps)
             tok = logits.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if phase == "prefill":
-                lm.prefill(cfg, params, {"tokens": prompt}, S + SERVE["gen_len"])
+                lm.prefill(cfg, params, prompt, S + SERVE["gen_len"])
             else:
                 for i in range(steps):
                     pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
@@ -1928,8 +1987,22 @@ TRAIN = dict(arch="qwen3-1.7b", seq_len=2048, global_batch=4, steps=8, seed=0)
 TRAIN_LABEL = "qwen3-1.7b train"
 SSM_TRAIN_LABEL = "mamba2-1.3b train"
 RG_TRAIN_LABEL = "recurrentgemma-9b train"
+HUBERT_TRAIN_LABEL = "hubert-xlarge train"
+# hubert-xlarge trains whole (48 layers, 15.1 GB of training state), on both
+# feeds: its 4 x 2048 f32 frames are 41.9 MB a batch, the first feed that
+# carries real bytes
 TRAIN_FEEDS = {"qwen3-1.7b": ("bypass", "kernel"), "mamba2-1.3b": ("bypass",),
-               "recurrentgemma-9b": ("bypass",)}
+               "recurrentgemma-9b": ("bypass",), "hubert-xlarge": ("bypass", "kernel")}
+# archs checked by train_vs_plain only: internvl2-26b's training state is
+# 318 GB, but 4 layers in f32 (about 6 GB of layers and 4.5 GB of embeddings)
+# hold the patch labels and the group-6 flash backward to the plain versions
+TRAIN_VS_PLAIN_ONLY = ("internvl2-26b",)
+
+
+def flash_train_cases():
+    """The flash shape of each train run, by its label."""
+    return {TRAIN_LABEL: FLASH_TRAIN, RG_TRAIN_LABEL: FLASH_TRAIN_RG,
+            HUBERT_TRAIN_LABEL: FLASH_TRAIN_HUBERT}
 # per arch where it differs from TRAIN: recurrentgemma-9b at S 3072, past its
 # 2048-key window, so that the window cuts keys, as in its serve prefill; its
 # training state is 138 GB at 38 layers (16 B a param), so it keeps two
@@ -1949,9 +2022,11 @@ TRAIN_KERNELS = {
                "rglru_fwd": (RGLRU_KERNELS, "rglru_scan", "rglru", False),
                "rglru_bwd": (RGLRU_BWD_KERNELS, "rglru_scan_bwd", "rglru", True)},
 }
+TRAIN_KERNELS["encoder"] = TRAIN_KERNELS["vlm"] = TRAIN_KERNELS["dense"]
 # leaves whose gradient only the family's backward kernels give
 KERNEL_GRAD_LEAVES = {"dense": ("wq", "wk", "wv"), "ssm": ("a_log", "dt_bias"),
-                      "hybrid": ("lam", "wq", "wk", "wv")}
+                      "hybrid": ("lam", "wq", "wk", "wv"), "encoder": ("wq", "wk", "wv"),
+                      "vlm": ("wq", "wk", "wv")}
 
 
 def train_config(arch, **kw):
@@ -1973,7 +2048,8 @@ def layer_kinds(cfg):
     """The kind of each layer, in order: what calls which kernel."""
     if cfg.family == "hybrid":
         return [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
-    return [{"dense": "attn", "ssm": "ssd"}[cfg.family]] * cfg.n_layers
+    kind = {"dense": "attn", "encoder": "attn", "vlm": "attn", "ssm": "ssd"}[cfg.family]
+    return [kind] * cfg.n_layers
 
 
 def train_expected(cfg, steps):
@@ -2098,6 +2174,7 @@ def run_train(dev, card, arch):
             "feed_wait_ms_per_batch": 1e3 * sum(rt.feed_times_s) / len(rt.feed_times_s),
             "feed_wait_ms_max": 1e3 * max(rt.feed_times_s),
             "feed_stats": {"batches": st.batches, "bytes": st.bytes,
+                           "bytes_per_batch": st.bytes / max(st.batches, 1),
                            "put_ms_per_batch": st.put_ns / 1e6 / max(st.batches, 1),
                            "poll_wait_ms_per_batch": st.wait_ns / 1e6 / max(st.batches, 1),
                            "host_alloc_ms_per_batch": st.host_alloc_ns / 1e6 / max(st.batches, 1),
@@ -2121,6 +2198,10 @@ def run_train(dev, card, arch):
         emit("train_feeds", {"arch": arch, "losses_bitwise_equal": same,
                              "feed_wait_ms_per_batch": {f: runs[f]["feed_wait_ms_per_batch"]
                                                         for f in runs},
+                             "put_ms_per_batch": {f: runs[f]["feed_stats"]["put_ms_per_batch"]
+                                                  for f in runs},
+                             "bytes_per_batch": {f: runs[f]["feed_stats"]["bytes_per_batch"]
+                                                 for f in runs},
                              "step_ms_median": {f: runs[f]["step_ms_median"] for f in runs}})
         if not same:
             fail(f"the two feeds gave different losses: {runs['bypass']['losses']} vs "
@@ -2244,17 +2325,33 @@ def _row(name, arch, launches, errs, card, **kw):
             **kw, "card": card}
 
 
+def visible_pairs(S, causal, window):
+    """Visible (q, k) pairs per (b, h) of a square S x S attention under the
+    causal and window masks."""
+    if not causal:
+        return S * S
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def padded_head_dim(Dh):
+    """The head dim of the bf16 flash body that runs Dh, with zero columns
+    past Dh (the dispatch of both flash sources): Dh 80 and 96 run the Dh 128
+    body, 160 and 192 the Dh 256 body. Its products do padded / Dh times the
+    arithmetic that the bound counts."""
+    return next(d for d in (32, 64, 128, 256) if Dh <= d)
+
+
 def time_flash(arch, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
-    with_lse = arch == TRAIN_LABEL  # the train path's forward also writes the logsumexp
-    case = FLASH_TRAIN if with_lse else FLASH_SERVE[arch]
+    train_cases = flash_train_cases()
+    with_lse = arch in train_cases  # the train path's forward also writes the logsumexp
+    case = train_cases[arch] if with_lse else FLASH_SERVE[arch]
     B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
-    # visible (q, k) pairs per (b, h) under the causal and window masks
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    pairs = visible_pairs(S, causal, window)
     flops = 4 * Dh * pairs * B * H
     b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel())
                        + (4 * B * H * S if with_lse else 0), flops)
@@ -2266,20 +2363,24 @@ def time_flash(arch, launches, errs, card, dev):
         q, k, v, causal=causal, window=window, q_offset=0, softmax_scale=scale,
         with_lse=with_lse)[0]
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
         enable_gqa=True).transpose(1, 2)
     heads_major = [t.contiguous() for t in (qt, kt, vt)]
     ms = time_ms(kern, iters=20 if window else 50)
+    pad = padded_head_dim(Dh)
     return _row("flash_attention", arch, launches, errs, card,
                 ms=ms, flops=flops, tflop_per_s=flops / ms / 1e9,
+                device_ms=device_ms(kern, "flash_fwd_"),
                 plain_ms=time_ms(lambda: plain_mha(q, k, v, causal=causal, window=window,
                                                    softmax_scale=scale), iters=3, warmup=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=20),
                 library="scaled_dot_product_attention" + (" with a window mask" if window else ""),
+                library_backend=sdpa_backend(lib),
                 library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
                 library_head_major_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    *heads_major, attn_mask=mask, is_causal=mask is None, scale=scale,
-                    enable_gqa=True), iters=20),
+                    *heads_major, attn_mask=mask, is_causal=causal and mask is None,
+                    scale=scale, enable_gqa=True), iters=20),
+                body_head_dim=pad, body_flops_over_bound_flops=pad / Dh,
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
                        "causal": causal, "window": window, "dtype": "bfloat16",
                        "lse": with_lse})
@@ -2290,14 +2391,13 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import ref
-    B, S, _, H, Hkv, Dh, _, window, _ = case
+    B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
-    mask = dict(causal=True, window=window, q_offset=0)
+    mask = dict(causal=causal, window=window, q_offset=0)
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
     dout = randn(torch.Generator().manual_seed(9), q.shape, torch.bfloat16, dev)
     out, lse = kflash._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
-    # visible (q, k) pairs per (b, h) under the causal and window masks
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    pairs = visible_pairs(S, causal, window)
     # read q, o, dO and k, v once, write dq, dk, dv; 5 products of 2*Dh FLOP per
     # visible pair and head: the scores again, dP, dV, dK and dQ
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
@@ -2319,7 +2419,7 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
     attn_mask = (ref.attention_mask(S, S, causal=True, window=window, device=dev)
                  if window else None)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=attn_mask, is_causal=attn_mask is None, scale=scale,
+        qt, kt, vt, attn_mask=attn_mask, is_causal=causal and attn_mask is None, scale=scale,
         enable_gqa=True)
     sdpa_fb = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dout_t)  # noqa: E731
     lib_ms = time_ms(sdpa_fb, iters=20) - time_ms(sdpa, iters=20)
@@ -2345,19 +2445,30 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
                         + (", window mask" if window else ""),
                 library_backend=sdpa_backend(sdpa_fb),
                 library_vs_kernel_rel_rms=(rr, rr <= FLASH_BWD_BF16_REL_RMS),
+                body_head_dim=padded_head_dim(Dh),
+                body_flops_over_bound_flops=padded_head_dim(Dh) / Dh,
                 shape={"B": B, "Sq": S, "Skv": S, "H": H, "Hkv": Hkv, "Dh": Dh,
-                       "causal": True, "window": window, "dtype": "bfloat16",
+                       "causal": causal, "window": window, "dtype": "bfloat16",
                        "bytes": nbytes, "plan": p._asdict()})
 
 
-def sdpa_backend(fn, calls=5):
+def sdpa_backend(fn, calls=(5, 20, 50)):
     """Which of SDPA's backends ran ``fn``, named from the device kernels of
     a trace of ``calls`` calls: cuDNN, flash, memory-efficient (CUTLASS fmha)
     or math (no fused attention kernel, the products and softmax as separate
-    kernels); with the four kernels that took the most time."""
+    kernels); with the four kernels that took the most time. The profiler
+    can drop every event of a short trace, so a trace without one is taken
+    again with more calls; after the last, the backend is None (not traced),
+    never a guess."""
     by = {}
-    for e in _cuda_events(lambda: [fn() for _ in range(calls)]):
-        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
+    for n in calls:
+        for e in _cuda_events(lambda: [fn() for _ in range(n)]):
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+        if by:
+            break
+    if not by:
+        return {"backend": None, "kernel_events": 0,
+                "traces": f"{len(calls)} traces of {calls} calls held no kernel event"}
     names = " ".join(by).lower()
     backend = ("cudnn" if "cudnn" in names else "flash" if "flash" in names else
                "efficient" if "fmha" in names or "mem_eff" in names else "math")
@@ -2586,10 +2697,13 @@ def time_decode(arch, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
+    from repro_torch.models.registry import get_config
     B, C, H, Hkv, Dh, _ = DECODE_SERVE[arch]
-    # qwen3: the middle decode step over a cache of prompt + gen slots;
-    # recurrentgemma: the ring is full at every decode step
-    n = PROMPT[arch] + SERVE["gen_len"] // 2 + 1 if C > PROMPT[arch] else C
+    # qwen3: the middle decode step over a cache of prompt + gen slots (the
+    # vlm's prompt with its patches); recurrentgemma: the ring is full at
+    # every decode step
+    prompt = PROMPT[arch] + n_patches(get_config(arch))
+    n = prompt + SERVE["gen_len"] // 2 + 1 if C > prompt else C
     q1, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, (n,) * B), torch.bfloat16, dev, seed=4)
     scale = Dh ** -0.5
     valid = n * B
@@ -2613,7 +2727,7 @@ def time_decode(arch, launches, errs, card, dev):
                 plain_ms=time_ms(lambda: ref.decode_attention(q1, kc, vc, cl,
                                                               softmax_scale=scale)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=200),
-                library="scaled_dot_product_attention",
+                library="scaled_dot_product_attention", library_backend=sdpa_backend(lib),
                 library_device_ms=device_ms(lib, ""),  # every kernel of the call
                 library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
                 library_head_major_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -2813,6 +2927,10 @@ def run_times(launches, errs, card, dev):
             time_ssd_bwd(launches, errs, card, dev),
             time_flash_bwd(FLASH_TRAIN_RG, RG_TRAIN_LABEL, launches, errs, card, dev),
             time_rglru_bwd(launches, errs, card, dev),
+            time_flash("internvl2-26b", launches, errs, card, dev),
+            time_decode("internvl2-26b", launches, errs, card, dev),
+            time_flash(HUBERT_TRAIN_LABEL, launches, errs, card, dev),
+            time_flash_bwd(FLASH_TRAIN_HUBERT, HUBERT_TRAIN_LABEL, launches, errs, card, dev),
             time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"]),
             time_epoch_pass(launches, errs, card, dev)]
     gather_sweep(dev, card)
@@ -2862,8 +2980,8 @@ def run_arch(arch, dev, card):
     served = run_serve(cfg, params, dev, card)
     run_trace(cfg, params, dev)
     gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[arch]),
-                           generator=gen).to(dev)
+    prompt = prompt_batch(cfg, torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[arch]),
+                                             generator=gen).to(dev), gen)
     out = {"arch": arch, "bfloat16": serve_vs_plain(cfg, params, prompt)}
     c32, p32 = f32_copy(cfg, params)
     del params
@@ -2880,6 +2998,109 @@ def run_arch(arch, dev, card):
             fail(f"{arch}: serving with kernels disagrees with the plain versions in {name}: "
                  f"{out[name]}")
     return served["launches"]
+
+
+# hubert-xlarge encodes whole: 4 x 2048 f32 frames (its train shape), one
+# flash call a layer; the median of ENCODE_CALLS timed calls after a warm-up
+ENCODE = dict(arch="hubert-xlarge", batch=4, frames=2048)
+ENCODE_CALLS = 5
+ENCODE_EXPECTED = {"flash_attention": 48}
+
+
+def encode_vs_plain(cfg, params, frames):
+    """lm.prefill of ``frames`` with the kernels against the same model on
+    the plain versions, in the config's dtype: the logits at the last frame
+    and the keys that every layer caches (each layer's pass through all the
+    layers before it, at every frame), bf16 within SERVE_BF16_REL_RMS (the
+    keys too), f32 within SERVE_F32_ABS."""
+    from repro_torch.models import lm
+    S = frames.shape[1]
+    kern, cache = lm.prefill(cfg, params, {"frames": frames}, S)
+    kern, kk = kern.float(), cache["k"]
+    del cache
+    with plain_kernels():
+        plain, cache = lm.prefill(cfg, params, {"frames": frames}, S)
+    plain, pk = plain.float(), cache["k"]
+    del cache
+    bf16 = cfg.param_dtype == "bfloat16"
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "logits_max_abs": float((kern - plain).abs().max()),
+           "logits_rel_rms": rel_rms(kern, plain),
+           "keys_max_abs": float((kk.float() - pk.float()).abs().max()),
+           "keys_rel_rms": rel_rms(kk, pk),
+           "argmax_agree": float((kern.argmax(-1) == plain.argmax(-1)).float().mean()),
+           "max_abs_logit": float(plain.abs().max()),
+           "bound": ({"rel_rms": SERVE_BF16_REL_RMS[cfg.arch_id]} if bf16
+                     else {"max_abs": SERVE_F32_ABS})}
+    if bf16:
+        ok = max(out["logits_rel_rms"], out["keys_rel_rms"]) <= out["bound"]["rel_rms"]
+    else:
+        ok = max(out["logits_max_abs"], out["keys_max_abs"]) <= SERVE_F32_ABS
+    out["ok"] = bool(torch.isfinite(kern).all()) and bool(torch.isfinite(kk).all()) and ok
+    del kern, plain, kk, pk
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_encode(dev, card):
+    """hubert-xlarge at full width, 48 layers: lm.prefill of 4 x 2048 frames
+    with the counters set to 0 just before (exactly ENCODE_EXPECTED, 0 plain
+    calls), its median time, then encode_vs_plain in bf16 and, the bf16
+    params freed, in f32 (3.8 GB). Returns the counted call's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ENCODE["arch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = serve.init_params(cfg, SERVE["seed"], dev)
+    gen = torch.Generator().manual_seed(1)
+    # f32 frames, as the pipeline gives them; lm casts them to the compute dtype
+    frames = (torch.randn((ENCODE["batch"], ENCODE["frames"], cfg.d_model), generator=gen)
+              * 0.02).to(dev)
+
+    def encode():
+        return lm.prefill(cfg, params, {"frames": frames}, ENCODE["frames"])
+    encode()  # warm-up: cuBLAS handles, allocator pools
+    torch.cuda.synchronize()
+    zero_counters()
+    logits, _ = encode()
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counters()
+    expected = {name: ENCODE_EXPECTED.get(name, 0) for name in launches}
+    ms = []
+    for _ in range(ENCODE_CALLS):
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"card": card, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), **ENCODE, "dtype": cfg.param_dtype,
+           "encode_ms": ms, "encode_ms_median": _pct(ms, 50),
+           "frames_per_s": ENCODE["batch"] * ENCODE["frames"] / (_pct(ms, 50) / 1e3),
+           "launches": launches, "expected_launches": expected, "plain_calls": plain_calls,
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_shape": list(logits.shape),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit("encode", out)
+    if launches != expected:
+        fail(f"encode: launch counts {launches} != expected {expected}")
+    if plain_calls:
+        fail(f"encode: called the plain versions {plain_calls} times")
+    if not out["finite"] or out["logits_shape"] != [ENCODE["batch"], cfg.vocab_size]:
+        fail(f"encode: logits {out['logits_shape']}, finite {out['finite']}")
+    res = {"arch": cfg.arch_id, "bfloat16": encode_vs_plain(cfg, params, frames)}
+    c32, p32 = f32_copy(cfg, params)
+    del params, logits
+    torch.cuda.empty_cache()
+    res["float32"] = encode_vs_plain(c32, p32, frames)
+    del p32
+    torch.cuda.empty_cache()
+    emit("encode_vs_plain", res)
+    for name in ("bfloat16", "float32"):
+        if not res[name]["ok"]:
+            fail(f"encode: the kernels disagree with the plain versions in {name}: "
+                 f"{res[name]}")
+    return launches
 
 
 def rglru_bwd_bits():
@@ -3065,8 +3286,11 @@ def main():
     errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)
     emit("rglru_bwd_digest", rglru_bwd_digest(dev))
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
+    launches[f"{ENCODE['arch']} encode"] = run_encode(dev, card)
     for arch in TRAIN_FEEDS:
         launches[f"{arch} train"] = run_train(dev, card, arch)
+        run_train_vs_plain(dev, arch)
+    for arch in TRAIN_VS_PLAIN_ONLY:
         run_train_vs_plain(dev, arch)
     run_restart(dev)
     rows = run_times(launches, errs, card, dev)

@@ -1,5 +1,5 @@
-"""Synthetic token streams that feed the dataplane (own copy of the
-reference's ``src/repro/data/pipeline.py:21-85``).
+"""Synthetic token, audio-frame and image-patch streams that feed the
+dataplane (own copy of the reference's ``src/repro/data/pipeline.py:21-85``).
 
 Deterministic, seeded and shardable: each producer port of the dataplane
 pulls batches from its own slice of the stream, so multi-port ingest is
@@ -37,11 +37,12 @@ def _rng_for(seed: int, port: int, step: int) -> np.random.Generator:
 
 def synth_tokens(cfg: ModelConfig, dcfg: DataConfig, port: int, n_ports: int,
                  step: int) -> Dict[str, np.ndarray]:
-    """One host batch: this port's slice of the global batch, ``tokens`` and
-    ``labels`` (B, S) int32. Only the ``tokens`` frontend is ported."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet "
-                                  "(ROADMAP.md)")
+    """One host batch: this port's slice of the global batch. ``tokens`` and
+    ``labels`` (B, S) int32; for audio frames ``frames`` (B, S, D) f32 and
+    ``labels``; for vision patches ``patches`` (B, P, D) f32 and the text's
+    ``tokens`` and ``labels`` (B, S - P), so the fused sequence is S long.
+    The frames and patches are drawn after the tokens from the same rng, as
+    the JAX package draws them."""
     rng = _rng_for(dcfg.seed, port, step)
     B = dcfg.global_batch // n_ports
     S = dcfg.seq_len
@@ -57,6 +58,17 @@ def synth_tokens(cfg: ModelConfig, dcfg: DataConfig, port: int, n_ports: int,
         if rng.random() < dcfg.motif_prob:
             pos = rng.integers(0, S + 1 - dcfg.motif_len)
             toks[:, pos:pos + dcfg.motif_len] = motif
+
+    if cfg.frontend == "audio_frames":
+        frames = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32) * 0.02
+        return {"frames": frames, "labels": toks[:, :S] % V}
+    if cfg.frontend == "vision_patches":
+        s_text = S - cfg.n_patches
+        patches = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32) * 0.02
+        return {"tokens": toks[:, :s_text],
+                "patches": patches,
+                "labels": toks[:, 1:s_text + 1]}
     return {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
 
 

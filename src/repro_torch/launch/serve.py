@@ -4,9 +4,12 @@ latency, on one CUDA device (or, when asked, the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 8 --batch 4 --prompt-len 512 --gen-len 32
 
-``--arch`` takes the ported ids: qwen3-1.7b, granite-8b, phi4-mini-3.8b,
+``--arch`` takes the registry's ids: qwen3-1.7b, granite-8b, phi4-mini-3.8b,
 llama3.2-3b (dense), mixtral-8x7b, llama4-maverick-400b-a17b (moe, the local
-path: no expert sharding), mamba2-1.3b (ssm), recurrentgemma-9b (hybrid).
+path: no expert sharding), mamba2-1.3b (ssm), recurrentgemma-9b (hybrid),
+internvl2-26b (vlm: each batch of prompts also gets ``n_patches`` image
+patches, put before the text); hubert-xlarge (encoder) has no decode step
+and is refused, as the JAX package refuses it.
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the
@@ -58,7 +61,9 @@ def serve(cfg: ModelConfig, params, *, requests: int, batch: int,
     if not cfg.has_decode:
         raise ValueError(f"{cfg.arch_id} is encoder-only: no decode serving")
     B = batch
-    max_len = prompt_len + gen_len
+    # the vlm's patches come before the prompt's text in the fused sequence
+    n_patches = cfg.n_patches if cfg.frontend == "vision_patches" else 0
+    max_len = prompt_len + gen_len + n_patches
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
 
@@ -70,10 +75,14 @@ def serve(cfg: ModelConfig, params, *, requests: int, batch: int,
     _sync(device)
     t_start = time.perf_counter_ns()
     for _ in range((requests + B - 1) // B):
-        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, prompt_len)),
-                                 dtype=torch.long).to(device)
+        prompt = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, size=(B, prompt_len)), dtype=torch.long).to(device)}
+        if n_patches:  # drawn after the tokens from the same rng, as the JAX package does
+            prompt["patches"] = torch.as_tensor(
+                rng.standard_normal((B, n_patches, cfg.d_model)) * 0.02).to(
+                    device=device, dtype=getattr(torch, cfg.compute_dtype))
         t0 = time.perf_counter_ns()
-        logits, cache = prefill(params, {"tokens": prompt})
+        logits, cache = prefill(params, prompt)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         _sync(device)
         ttft.record(time.perf_counter_ns() - t0)
@@ -81,7 +90,8 @@ def serve(cfg: ModelConfig, params, *, requests: int, batch: int,
         generated = [tok]
         for i in range(gen_len):
             t1 = time.perf_counter_ns()
-            pos = torch.full((B,), prompt_len + i, dtype=torch.int32, device=device)
+            pos = torch.full((B,), n_patches + prompt_len + i, dtype=torch.int32,
+                             device=device)
             tok, logits, cache = decode(params, cache, tok, pos)
             _sync(device)
             tpot.record(time.perf_counter_ns() - t1)

@@ -1,10 +1,11 @@
-"""Layers shared by the families: norms, RoPE, GQA attention with qk-norm,
-the ring KV cache insert, the SwiGLU MLP, the tied embedding and the chunked
-cross-entropy of the train path.
+"""Layers shared by the families: norms (RMSNorm, LayerNorm), RoPE, GQA
+attention with qk-norm, the ring KV cache insert, the MLP (SwiGLU, GELU), the
+tied embedding and the chunked cross-entropy of the train path.
 
 Functional style as in the JAX package: ``init_*`` returns a dict of tensors
 with the reference's key names and layouts (``wq (D,H,Dh)``, ``wk``/``wv
 (D,Hkv,Dh)``, ``wo (H,Dh,D)``, ``w_gate``/``w_up (D,F)``, ``w_down (F,D)``,
+the GELU MLP's ``b_up (F,)``, ``b_down (D,)``, LayerNorm's ``bias (D,)``,
 ``tok (V,D)``), and ``apply_*`` consumes it. The projections and the MLP are
 plain matrix products; attention goes through ``kernels.ops``.
 """
@@ -79,13 +80,22 @@ def layer_of(stacked: Params, i: int) -> Params:
 # =============================================================================
 
 def init_norm(cfg: ModelConfig, device) -> Params:
-    return {"scale": torch.ones((cfg.d_model,), dtype=dt(cfg), device=device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dt(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dt(cfg), device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in f32, cast back to x's dtype."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet (ROADMAP.md)")
+    """RMSNorm, or LayerNorm (mean, then the variance as the mean of
+    (x - mean)^2, as the JAX package computes them), in f32, cast back to x's
+    dtype."""
+    if cfg.norm == "layernorm":
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     return rms_head_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -234,33 +244,43 @@ def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
 
 
 # =============================================================================
-# MLP (SwiGLU)
+# MLP (SwiGLU or GELU)
 # =============================================================================
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
              d_ff: Optional[int] = None) -> Params:
     """``d_ff`` defaults to the config's (an MoE layer's shared expert passes
     ``n_shared_experts · d_ff``)."""
-    if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r} is not ported yet (ROADMAP.md)")
     D, Fd = cfg.d_model, cfg.d_ff if d_ff is None else d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    if cfg.act == "silu":
+        return {
+            "w_gate": _normal(gen, (D, Fd), 0.02, dt(cfg), device),
+            "w_up": _normal(gen, (D, Fd), 0.02, dt(cfg), device),
+            "w_down": _normal(gen, (Fd, D), out_scale, dt(cfg), device),
+        }
     return {
-        "w_gate": _normal(gen, (D, Fd), 0.02, dt(cfg), device),
         "w_up": _normal(gen, (D, Fd), 0.02, dt(cfg), device),
+        "b_up": torch.zeros((Fd,), dtype=dt(cfg), device=device),
         "w_down": _normal(gen, (Fd, D), out_scale, dt(cfg), device),
+        "b_down": torch.zeros((D,), dtype=dt(cfg), device=device),
     }
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x·w_gate) in f32, cast, times x·w_up, then ·w_down."""
-    if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r} is not ported yet (ROADMAP.md)")
+    """SwiGLU: silu(x·w_gate) in f32, cast, times x·w_up, then ·w_down. GELU:
+    u = x·w_up + b_up, gelu(u) in f32, cast, then ·w_down + b_down. The GELU
+    is the tanh form, which ``jax.nn.gelu`` computes by default (torch's
+    default, the erf form, differs by up to 4.7e-4 over [-6, 6])."""
     c = cdt(cfg)
-    g = x @ p["w_gate"].to(c)
-    u = x @ p["w_up"].to(c)
-    h = F.silu(g.float()).to(c) * u
-    return h @ p["w_down"].to(c)
+    if cfg.act == "silu":
+        g = x @ p["w_gate"].to(c)
+        u = x @ p["w_up"].to(c)
+        h = F.silu(g.float()).to(c) * u
+        return h @ p["w_down"].to(c)
+    u = x @ p["w_up"].to(c) + p["b_up"]
+    h = F.gelu(u.float(), approximate="tanh").to(c)
+    return h @ p["w_down"].to(c) + p["b_down"]
 
 
 # =============================================================================

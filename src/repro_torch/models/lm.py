@@ -1,9 +1,18 @@
-"""LM facade, ``tokens`` frontend: serving over the dense, moe, hybrid and
-ssm families, training over the dense, hybrid and ssm families.
+"""LM facade over every family: serving over the dense, moe, vlm, hybrid and
+ssm families (the encoder prefills only: it has no decode step), training
+over the dense, encoder, vlm, hybrid and ssm families.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
-* ``train_loss(cfg, params, batch)`` — scalar loss + metrics (dense, hybrid, ssm)
+* ``train_loss(cfg, params, batch)`` — scalar loss + metrics
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving
+
+Batch layouts, as in the JAX package:
+  dense/moe/hybrid/ssm : {"tokens": (B,S) int, "labels": (B,S) int}
+  encoder (audio stub) : {"frames": (B,S,D) float, "labels": (B,S) int}
+  vlm (patch stub)     : {"tokens": (B,S_text) int, "patches": (B,P,D) float,
+                          "labels": (B,S_text) int}
+The VLM puts the patches before the text (early fusion), and its patch
+positions carry label -100.
 
 Init draws from the same distributions as the JAX init (normal·0.02, and
 ``0.02/sqrt(2·n_layers)`` for output projections) from a ``torch.Generator``;
@@ -12,7 +21,7 @@ the values differ from ``jax.random``'s. Tests copy JAX params over instead
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +30,7 @@ from .config import ModelConfig
 from .layers import (
     Params,
     apply_norm,
+    cdt,
     chunked_softmax_xent,
     embed_tokens,
     init_embedding,
@@ -31,27 +41,22 @@ from .layers import (
 _FAMILY = {
     "dense": transformer,
     "moe": transformer,
+    "encoder": transformer,
+    "vlm": transformer,
     "hybrid": rglru,
     "ssm": mamba2,
 }
 
 
 def backbone(cfg: ModelConfig):
-    """The family's module; the families not ported yet raise."""
+    """The family's module; a family the JAX package does not have raises."""
     if cfg.family not in _FAMILY:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  f"repro_torch serves {sorted(_FAMILY)} (ROADMAP.md)")
+        raise NotImplementedError(f"family {cfg.family!r} is not a family of the JAX "
+                                  f"package; repro_torch has {sorted(_FAMILY)} (ROADMAP.md)")
     return _FAMILY[cfg.family]
 
 
-def _check_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet "
-                                  "(ROADMAP.md)")
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
-    _check_frontend(cfg)
     return {
         "embed": init_embedding(cfg, generator, device),
         "backbone": backbone(cfg).init_params(cfg, generator, device),
@@ -59,22 +64,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     }
 
 
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(x (B,S,D), positions (B,S), labels or None) of any batch layout
+    (``src/repro/models/lm.py:60-81``): audio frames cast to the compute
+    dtype; vision patches cast to the token embedding's dtype and put before
+    the embedded text, with P leading -100 labels; else the embedded tokens."""
+    labels = batch.get("labels")
+    if cfg.frontend == "audio_frames":
+        x = batch["frames"].to(cdt(cfg))
+    elif cfg.frontend == "vision_patches":
+        tok = embed_tokens(cfg, params["embed"], batch["tokens"])
+        patches = batch["patches"].to(tok.dtype)
+        x = torch.cat([patches, tok], dim=1)  # early fusion
+        if labels is not None:  # patch positions carry no LM loss
+            pad = torch.full(patches.shape[:2], -100, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+    else:
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return x, positions, labels
+
+
 def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy of ``batch`` {"tokens", "labels"} (B,S)
-    (labels -100 ignored), with per-layer recompute. Returns (loss, {loss,
-    xent, aux, tokens}), f32 scalars. The dense, hybrid and ssm families
-    train; moe training is a later slice, and encoder and vlm are not ported
+    """Mean cross-entropy of ``batch`` against its labels (-100 ignored),
+    with per-layer recompute. Returns (loss, {loss, xent, aux, tokens}), f32
+    scalars. Every family but moe trains; moe training is a later slice
     (ROADMAP.md)."""
-    _check_frontend(cfg)
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    if cfg.family == "moe":
         raise NotImplementedError(
             f"{cfg.arch_id}: training the {cfg.family!r} family is not ported yet; "
-            "repro_torch trains the dense, hybrid and ssm families (ROADMAP.md)")
-    tokens, labels = batch["tokens"], batch["labels"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            "repro_torch trains the dense, encoder, vlm, hybrid and ssm families "
+            "(ROADMAP.md)")
+    x, positions, labels = _embed_inputs(cfg, params, batch)
     hidden, aux = backbone(cfg).forward_hidden(cfg, params["backbone"], x, positions)
     hidden = apply_norm(cfg, params["final_norm"], hidden)
     loss_sum, n_valid = chunked_softmax_xent(cfg, params["embed"], hidden, labels)
@@ -90,14 +115,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             max_len: int) -> Tuple[torch.Tensor, Params]:
-    """Run the prompt ``batch["tokens"]`` (B,S); returns (last-position logits
-    (B,V), populated cache)."""
-    _check_frontend(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B, max_len, x.device)
+    """Run the prompt (any batch layout: tokens, frames, or patches and
+    tokens); returns (last-position logits (B,V), populated cache)."""
+    x, positions, _ = _embed_inputs(cfg, params, batch)
+    cache = init_cache(cfg, x.shape[0], max_len, x.device)
     hidden, cache = backbone(cfg).prefill_hidden(cfg, params["backbone"], x,
                                                  positions, cache)
     last = apply_norm(cfg, params["final_norm"], hidden[:, -1])

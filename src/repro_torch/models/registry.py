@@ -1,4 +1,5 @@
-"""Architecture registry: --arch <id> → ModelConfig, for the ported archs only."""
+"""Architecture registry: --arch <id> → ModelConfig, for the ten archs of the
+JAX package's registry."""
 from __future__ import annotations
 
 import importlib
@@ -16,14 +17,15 @@ ARCHS: Dict[str, str] = {
     "llama3.2-3b": "llama3p2_3b",
     "mixtral-8x7b": "mixtral_8x7b",
     "llama4-maverick-400b-a17b": "llama4_maverick",
+    "hubert-xlarge": "hubert_xlarge",
+    "internvl2-26b": "internvl2_26b",
 }
 
 
 def _module(arch_id: str):
     if arch_id not in ARCHS:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(ARCHS)}); see ROADMAP.md for the order of the port")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)} "
+                       "(the JAX package's registry, ROADMAP.md)")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch_id]}")
 
 

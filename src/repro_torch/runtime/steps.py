@@ -18,13 +18,18 @@ from repro_torch.tree import leaf_paths, unflatten_like
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
     """(loss, metrics, grads) of ``lm.train_loss``; grads mirror ``params``.
-    The param leaves require grad only for the duration of the call."""
+    The param leaves require grad only for the duration of the call. A leaf
+    the loss does not reach (hubert-xlarge's ``embed.tok``: its frames are
+    not tokens) gets a zero gradient of its shape and dtype, as
+    ``jax.value_and_grad`` gives it, so AdamW still decays it."""
     named = leaf_paths(params)
     for p in named.values():
         p.requires_grad_(True)
     try:
         loss, metrics = lm.train_loss(cfg, params, batch)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(named.values(), grads)]
     finally:
         for p in named.values():
             p.requires_grad_(False)

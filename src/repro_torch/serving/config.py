@@ -22,13 +22,10 @@ dataplane or the exp layer — :mod:`repro_torch.exp.config` embeds a
 builds the live objects.
 
 Own copy, in the PyTorch port, of ``src/repro/serving/config.py``: the same
-plain Python, with its imports pointing into ``repro_torch``, and one change
-that shows. :attr:`RequestMixConfig.model` is checked against the port's
-registry (:data:`repro_torch.models.registry.ARCHS`, 8 archs), not the JAX
-package's (10): a mix that names one of :data:`UNPORTED_ARCHS`
-(``hubert-xlarge``, ``internvl2-26b``) raises ``ValueError`` naming ROADMAP
-Queue 1 item 5, where the JAX package accepts it. Every arch the port does
-register derives the same cost figures as the JAX package.
+plain Python, with its imports pointing into ``repro_torch``.
+:attr:`RequestMixConfig.model` is checked against the port's registry
+(:data:`repro_torch.models.registry.ARCHS`), which has the JAX package's ten
+archs, and every one derives the same cost figures as the JAX package.
 """
 from __future__ import annotations
 
@@ -41,8 +38,6 @@ from repro_torch.models.registry import ARCHS, get_config
 
 BALANCER_POLICIES = ("round_robin", "least_loaded", "weighted")
 TOKEN_DISTS = ("fixed", "exponential", "lognormal")
-# archs the JAX package's registry has and the port's does not yet
-UNPORTED_ARCHS = ("hubert-xlarge", "internvl2-26b")
 
 # serving frames carry an application header after the flow tuple; keep a
 # comfortable floor above it (see repro_torch.serving.protocol.HEADER_END == 70)
@@ -86,10 +81,6 @@ class RequestMixConfig:
     max_output_tokens: int = 512
 
     def __post_init__(self) -> None:
-        if self.model in UNPORTED_ARCHS:
-            raise ValueError(
-                f"model {self.model!r} is not ported to repro_torch yet "
-                f"(ROADMAP Queue 1 item 5); registry has {sorted(ARCHS)}")
         if self.model not in ARCHS:
             raise ValueError(
                 f"unknown model {self.model!r}; registry has {sorted(ARCHS)}")

@@ -28,6 +28,8 @@ CASES = [
     (1, 128, 128, 2, 1, 256, True, 0, 0),
     (2, 130, 130, 4, 2, 80, True, 0, 0),      # Dh 80 on the Dh 128 body, zero columns
     (1, 200, 200, 4, 1, 96, False, 0, 0),     # Dh 96, not causal
+    (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80 (hubert-xlarge)
+    (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6 (internvl2-26b)
     (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 
@@ -562,13 +564,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ("mamba2-1.3b", {"ssd_scan": 4 * 2}),
     ("recurrentgemma-9b", {"rglru_scan": 4 * 2, "flash_attention": 2,
                            "decode_attention": 2 * 3}),
+    ("internvl2-26b", {"flash_attention": 4 * 2, "decode_attention": 4 * 2 * 3}),
 ])
 def test_smoke_serve_goes_through_the_kernels(dev, arch, expected):
-    """Smoke configs: qwen3, granite, mixtral (window 32) and llama4 4
-    attention layers each (head_dim 16; the phi4 and llama3.2 smoke configs
-    have head_dim 10, which the kernels do not take); mamba2 4 SSD blocks;
-    the hybrid 4 RG-LRU layers and 1 local-attention layer, its 32-token
-    prompt over a window of 16."""
+    """Smoke configs: qwen3, granite, mixtral (window 32), llama4 and
+    internvl2 (16 patches before the prompt) 4 attention layers each
+    (head_dim 16; the phi4 and llama3.2 smoke configs have head_dim 10,
+    which the kernels do not take); mamba2 4 SSD blocks; the hybrid 4 RG-LRU
+    layers and 1 local-attention layer, its 32-token prompt over a window of
+    16."""
     from repro_torch.kernels import decode_attention, flash_attention, ref, rglru_scan, ssd_scan
     from repro_torch.launch import serve
     mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
@@ -580,6 +584,28 @@ def test_smoke_serve_goes_through_the_kernels(dev, arch, expected):
                          "--batch", "2", "--prompt-len", "32", "--gen-len", "3"])
     assert result["finite"]
     assert {n: m.launches for n, m in mods.items()} == {n: expected.get(n, 0) for n in mods}
+    assert ref.calls == 0
+
+
+def test_internvl2_serve_at_full_width_goes_through_the_kernels(dev):
+    """internvl2-26b at full width (48 heads on 8, head_dim 128), cut to 2 of
+    its 48 layers: launch.serve with its 256 patches before a 64-token
+    prompt, every launch counted and no plain version run."""
+    from repro_torch.kernels import decode_attention, flash_attention, ref, rglru_scan, ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_config
+    cfg = get_config("internvl2-26b").replace(n_layers=2)
+    params = serve.init_params(cfg, 0, dev)
+    mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+    for m in mods.values():
+        m.launches = 0
+    ref.calls = 0
+    result = serve.serve(cfg, params, requests=4, batch=2, prompt_len=64, gen_len=3, seed=0,
+                         device=dev)
+    assert result["finite"] and tuple(result["tokens"].shape) == (4, 4)
+    assert {n: m.launches for n, m in mods.items()} == {
+        "flash_attention": 2 * 2, "decode_attention": 2 * 2 * 3, "ssd_scan": 0, "rglru_scan": 0}
     assert ref.calls == 0
 
 
@@ -599,6 +625,8 @@ BWD_CASES = [
     (1, 64, 64, 2, 1, 256, True, 0, -16),     # Dh 256, rows with no visible key
     (4, 1100, 1100, 16, 4, 256, True, 0, 0),  # Dh 256, 288 kv tiles: one head subset
     (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
+    (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80 (hubert-xlarge)
+    (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6 (internvl2-26b)
     (2, 100, 161, 4, 2, 64, True, 0, 61),     # ragged Sq and Skv under q_offset
 ]
 

@@ -330,9 +330,11 @@ def test_params_from_jax_refuses_a_foreign_dtype():
 
 
 def test_unported_family_raises_naming_roadmap():
+    """Every family of the JAX package is ported since the encoder and the
+    VLM came in; a family it does not have raises, naming ROADMAP.md."""
     _, tmod = _modules("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_cache(tmod.SMOKE_CONFIG.replace(family="encoder"), 1, 8, "cpu")
+        lm.init_cache(tmod.SMOKE_CONFIG.replace(family="diffusion"), 1, 8, "cpu")
 
 
 # =============================================================================

@@ -178,7 +178,7 @@ def test_registry_names_roadmap_for_unported_archs():
     assert dataclasses.asdict(SMOKE_CONFIG) == dataclasses.asdict(JAX_SMOKE)
     assert get_config("qwen3-1.7b").param_count() == JAX_CONFIG.param_count()
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("hubert-xlarge")
+        get_config("hubert-xxlarge")  # an id the JAX package's registry lacks too
 
 
 def test_moe_config_raises():

@@ -12,8 +12,8 @@ its mice control, decode failover), ``benchmarks/fig_serving.py``'s five and
 reason and report. The pieces below the cluster are held equal too: request
 draws and arrival times, frame bytes, the derived cost figures of every arch
 the port registers, the balancer's least-loaded pick and the extras guard.
-The port refuses the two archs its registry lacks (``hubert-xlarge``,
-``internvl2-26b``) where the JAX package accepts them. The round-trip
+The two registries are equal, and a mix naming the encoder or the VLM
+(``hubert-xlarge``, ``internvl2-26b``) gives the JAX package's report. The round-trip
 contract of ``tests/test_config_roundtrip_meta.py`` holds for the port's
 ``RequestMixConfig`` and ``ServingConfig``, and ``chip_smoke.py``'s
 ``serving_sim`` pins equal the JAX package's reports.
@@ -252,19 +252,30 @@ def test_derived_cost_figures_equal(arch):
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-26b"])
-def test_archs_the_port_lacks_are_refused(arch):
-    assert arch in RREG.ARCHS and arch not in TREG.ARCHS
-    assert arch in TSC.UNPORTED_ARCHS
-    cfg = S._topology(S._serving(mix=S._mix(model=arch)))  # the JAX package takes it
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        TS.RequestMixConfig(model=arch)
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        to_port(cfg)
+def test_topology_naming_the_encoder_or_the_vlm_equal(arch):
+    """A mix naming the encoder or the VLM gives the JAX package's report bit
+    for bit. No cost figure is set by hand: each derives from the arch's
+    config, so the report depends on the arch."""
+    serving = S._serving(mix=S._mix(model=arch, prompt_mean_tokens=8, output_mean_tokens=2),
+                         prefill_ns_per_token=None, decode_ns_per_token=None,
+                         decode_overhead_ns=None)
+    assert serving.resolved_prefill_ns_per_token() >= 1
+    cfg = S._topology(serving)
+    port = to_port(cfg)
+    assert port.serving.mix.model == arch
+    want = RX.run_topology_experiment(cfg)
+    got = TX.run_topology_experiment(port)
+    assert want.received > 0 and want.extras["serving"] == 1.0
+    assert S._report_key(got) == S._report_key(want)
+    assert got.to_dict() == want.to_dict()
 
 
-def test_the_unported_archs_are_the_registries_difference():
-    assert set(TSC.UNPORTED_ARCHS) == set(RREG.ARCHS) - set(TREG.ARCHS)
-    assert set(TREG.ARCHS) <= set(RREG.ARCHS)
+def test_the_registries_are_equal():
+    """The port registers the JAX package's ten archs, each under the same
+    config module name, so no serving mix is refused by one and taken by
+    the other."""
+    assert TREG.ARCHS == RREG.ARCHS and len(TREG.ARCHS) == 10
+    assert not hasattr(TSC, "UNPORTED_ARCHS")
 
 
 # -- below the cluster ---------------------------------------------------------
