@@ -88,7 +88,8 @@ Phases, each printed as one JSON object per line:
    ref.mha_bwd on the same out and lse (f32 the same bound; bf16 each
    gradient within a relative RMS of 1e-2), two calls bitwise equal, on
    causal, window, GQA group 2 and 16, q_offset > 0, rows with no visible
-   key, Dh 80 and 96 (on the Dh 128 body; Dh 80 also bidirectional, ragged
+   key, mixtral-8x7b's train shape (group 4 at Dh 128, S 4608 under a
+   4096-key window), Dh 80 and 96 (on the Dh 128 body; Dh 80 also bidirectional, ragged
    and at hubert-xlarge's train shape), GQA group 6, Dh 160 and 192 (on the Dh 256
    body), Dh 256 with ragged Sq and Skv under q_offset and with rows that see
    no key, Dh 256 with enough kv tiles for one head subset a tile, Dh 160
@@ -169,24 +170,41 @@ Phases, each printed as one JSON object per line:
    kernels' device time; and hubert-xlarge whole (48 layers, 15.1 GB of
    training state), 8 steps of 4 x 2048 f32 frames (41.9 MB a batch) once
    per feed, exactly 768 flash forwards and 384 backwards each, losses
-   bitwise equal, feed wait, put ms and bytes per batch; trace_train
+   bitwise equal, feed wait, put ms and bytes per batch; and mixtral-8x7b
+   (the moe family) at full width, cut to 2 of its 32 layers (3.165 B
+   params, 50.6 GB of training state), bypass feed only, 8 steps of 2 x 4608
+   tokens so that its 4096-key window cuts keys (exactly 32 flash forwards
+   and 16 backwards), with per step the host time to issue it and its
+   device time between two CUDA events; its routing over the 8 steps
+   (train_routing: per layer the share of assignments dropped at capacity,
+   the aux loss of each forward, and the tokens whose recompute under
+   torch.utils.checkpoint routed otherwise than its forward, which must be
+   0), one more step's peak memory and time per phase (train_phases:
+   forward, loss, backward, optimizer, the card synchronised and the peak
+   reset at each bound) and the loss and every gradient of one step taken
+   twice, which must be bitwise equal (train_repeat); trace_train
    scales each counted kernel's mean
    event time by its launches in the step (the wrapper counters), as
-   device_ms does, since the profiler drops events;
-   train_vs_plain, for each of the four trained archs and internvl2-26b
+   device_ms does, since the profiler drops events, and gives the largest
+   elementwise, fill, add and indexing kernels, and for mixtral-8x7b the
+   expert products' (aten::bmm's kernels') share of the busy time;
+   train_vs_plain, for each of the five trained archs and internvl2-26b
    (whose 318 GB of training state does not fit; its batch is the
    pipeline's 256 patches and 1792 text tokens, the patch labels -100): one
    step's loss and every gradient with the kernels against the plain
    versions, f32, full width, 4 layers (recurrentgemma-9b: one unit and the
-   tail's RG-LRU layer, at S 3072), with non-zero gradients on the leaves
-   that only the backward kernels reach;
+   tail's RG-LRU layer, at S 3072; mixtral-8x7b: one layer, 21 GB of
+   params and both gradient trees, its plain run taking the kernels' run's
+   expert choices, recomputes included, the tokens whose own choice differs
+   counted), with non-zero gradients on the leaves that only the backward
+   kernels reach;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
    gather's benchmark; the flash backward and the RG-LRU backward also at
    recurrentgemma-9b's train shape, the flash backward's yardstick there
    SDPA under the window mask; the flash forward and backward at
-   hubert-xlarge's train shape and the forward and decode at internvl2-26b's
+   hubert-xlarge's and mixtral-8x7b's train shapes and the forward and decode at internvl2-26b's
    serve shapes, with the body's head dim beside Dh: Dh 80 runs the Dh 128
    body, 1.6x the arithmetic the bound counts; every SDPA yardstick with the
    backend that ran it; CUDA events; the flash forward, the gather, decode, the SSD
@@ -221,9 +239,10 @@ Phases, each printed as one JSON object per line:
    upload, kernel with read-back and download (each step synchronised
    alone), and the numpy pass, on the host clock.
 
-Two more entry points time the epoch pass alone (see their docstrings):
-epoch_pass_bits(), for the tree whose src is first on PYTHONPATH, and
-epoch_tile_sweep(), the kernel built at other tile shapes.
+More entry points (see their docstrings): epoch_pass_bits() and
+rglru_bwd_bits(), for the tree whose src is first on PYTHONPATH;
+epoch_tile_sweep(), the epoch pass built at other tile shapes; and
+moe_train_bits(), mixtral-8x7b's train cell alone.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -231,6 +250,7 @@ and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -425,6 +445,17 @@ def device_ms(fn, name_part, iters=50, flush=None):
             return sum(math.ceil(len(v) / iters) * sum(v) / len(v)
                        for v in times.values()) / 1e3
     fail(f"device_ms({name_part!r}): 3 traces of {iters} calls without a matching kernel event")
+
+
+def fresh_peak(dev):
+    """Free what the phases before left, then reset the peak to what is
+    still allocated. A train step leaves its layers' params and inputs in
+    reference cycles (torch.utils.checkpoint's recompute closures) that only
+    the garbage collector frees: up to 7 GB after an f32 train_vs_plain,
+    which the next phase's first peak counted."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
 
 
 def randn(gen, shape, dtype, dev):
@@ -1358,6 +1389,8 @@ FLASH_BWD_CASES = [
     (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
     (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80, ragged S
     (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6, ragged S
+    # mixtral-8x7b train, full width: group 4 at Dh 128, a window that cuts keys
+    (2, 4608, 4608, 32, 8, 128, True, 4096, 0),
     (4, 2048, 2048, 16, 16, 80, False, 0, 0),  # hubert-xlarge train: bidirectional, Dh 80
     # recurrentgemma-9b train, full width: group 16 at Dh 256, a window that cuts keys
     (4, 3072, 3072, 16, 1, 256, True, 2048, 0),
@@ -1366,6 +1399,7 @@ FLASH_BWD_CASES = [
 FLASH_TRAIN = FLASH_BWD_CASES[-1]
 FLASH_TRAIN_RG = FLASH_BWD_CASES[-2]
 FLASH_TRAIN_HUBERT = FLASH_BWD_CASES[-3]
+FLASH_TRAIN_MIXTRAL = FLASH_BWD_CASES[-4]
 
 
 def flash_grads(fn, q, k, v, dout):
@@ -1988,11 +2022,13 @@ TRAIN_LABEL = "qwen3-1.7b train"
 SSM_TRAIN_LABEL = "mamba2-1.3b train"
 RG_TRAIN_LABEL = "recurrentgemma-9b train"
 HUBERT_TRAIN_LABEL = "hubert-xlarge train"
+MIXTRAL_TRAIN_LABEL = "mixtral-8x7b train"
 # hubert-xlarge trains whole (48 layers, 15.1 GB of training state), on both
 # feeds: its 4 x 2048 f32 frames are 41.9 MB a batch, the first feed that
 # carries real bytes
 TRAIN_FEEDS = {"qwen3-1.7b": ("bypass", "kernel"), "mamba2-1.3b": ("bypass",),
-               "recurrentgemma-9b": ("bypass",), "hubert-xlarge": ("bypass", "kernel")}
+               "recurrentgemma-9b": ("bypass",), "hubert-xlarge": ("bypass", "kernel"),
+               "mixtral-8x7b": ("bypass",)}
 # archs checked by train_vs_plain only: internvl2-26b's training state is
 # 318 GB, but 4 layers in f32 (about 6 GB of layers and 4.5 GB of embeddings)
 # hold the patch labels and the group-6 flash backward to the plain versions
@@ -2002,12 +2038,22 @@ TRAIN_VS_PLAIN_ONLY = ("internvl2-26b",)
 def flash_train_cases():
     """The flash shape of each train run, by its label."""
     return {TRAIN_LABEL: FLASH_TRAIN, RG_TRAIN_LABEL: FLASH_TRAIN_RG,
-            HUBERT_TRAIN_LABEL: FLASH_TRAIN_HUBERT}
+            HUBERT_TRAIN_LABEL: FLASH_TRAIN_HUBERT, MIXTRAL_TRAIN_LABEL: FLASH_TRAIN_MIXTRAL}
 # per arch where it differs from TRAIN: recurrentgemma-9b at S 3072, past its
 # 2048-key window, so that the window cuts keys, as in its serve prefill; its
 # training state is 138 GB at 38 layers (16 B a param), so it keeps two
-# whole (rglru, rglru, attn) units, 6 layers: 35.9 GB of state
-TRAIN_SHAPE = {"recurrentgemma-9b": dict(seq_len=3072, global_batch=4, n_layers=6)}
+# whole (rglru, rglru, attn) units, 6 layers: 35.9 GB of state. mixtral-8x7b
+# at S 4608, past its 4096-key window, as its serve prefill; a layer is 1.451 B
+# params (1.409 B in its 8 experts) and the untied embeddings 0.262 B, so 2
+# of its 32 layers are 3.165 B params, 50.6 GB of training state
+TRAIN_SHAPE = {"recurrentgemma-9b": dict(seq_len=3072, global_batch=4, n_layers=6),
+               "mixtral-8x7b": dict(seq_len=4608, global_batch=2, n_layers=2)}
+# train_vs_plain's depth where it is not 4: one mixtral-8x7b layer in f32 is
+# 5.8 GB, and the embeddings 1.0 GB; params and the two gradient trees 21 GB
+TRAIN_VS_PLAIN_LAYERS = {"mixtral-8x7b": 1}
+# a train step's peak device memory above which mixtral-8x7b would be cut to
+# one layer (the card holds 80 GB; the allocator needs room around the peak)
+TRAIN_PEAK_GB = 76.0
 TRAIN_LOSS_REL, TRAIN_GRAD_OF_MAX, RESTART_TOL = 1e-5, 1e-4, 1e-4
 # the kernels of each family's train step: (name part of their kernels,
 # counter of their wrapper, the kind of layer that calls it, whether it is a
@@ -2022,11 +2068,11 @@ TRAIN_KERNELS = {
                "rglru_fwd": (RGLRU_KERNELS, "rglru_scan", "rglru", False),
                "rglru_bwd": (RGLRU_BWD_KERNELS, "rglru_scan_bwd", "rglru", True)},
 }
-TRAIN_KERNELS["encoder"] = TRAIN_KERNELS["vlm"] = TRAIN_KERNELS["dense"]
+TRAIN_KERNELS["encoder"] = TRAIN_KERNELS["vlm"] = TRAIN_KERNELS["moe"] = TRAIN_KERNELS["dense"]
 # leaves whose gradient only the family's backward kernels give
 KERNEL_GRAD_LEAVES = {"dense": ("wq", "wk", "wv"), "ssm": ("a_log", "dt_bias"),
                       "hybrid": ("lam", "wq", "wk", "wv"), "encoder": ("wq", "wk", "wv"),
-                      "vlm": ("wq", "wk", "wv")}
+                      "vlm": ("wq", "wk", "wv"), "moe": ("wq", "wk", "wv")}
 
 
 def train_config(arch, **kw):
@@ -2048,7 +2094,8 @@ def layer_kinds(cfg):
     """The kind of each layer, in order: what calls which kernel."""
     if cfg.family == "hybrid":
         return [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
-    kind = {"dense": "attn", "encoder": "attn", "vlm": "attn", "ssm": "ssd"}[cfg.family]
+    kind = {"dense": "attn", "encoder": "attn", "vlm": "attn", "moe": "attn",
+            "ssm": "ssd"}[cfg.family]
     return [kind] * cfg.n_layers
 
 
@@ -2125,11 +2172,181 @@ def trace_train(cfg, rt, state, dev):
     out.update({"arch": cfg.arch_id, "counted": counted,
                 "device_busy_ms_corrected": None if busy_c is None else busy_c / 1e3,
                 "device_idle_share_corrected": None if busy_c is None else 1.0 - busy_c / wall_us,
-                "counted_share_of_busy": None if not busy_c else total * 1e3 / busy_c})
+                "counted_share_of_busy": None if not busy_c else total * 1e3 / busy_c,
+                "kernels_by_kind_ms": kernels_by_kind(by_name)})
+    if cfg.family == "moe":
+        # the expert products are the step's only bmm calls (the projections
+        # and the LM head are mm): their kernels, as the profiler links them
+        # to aten::bmm, over the step's busy time (events the profiler kept)
+        bmm_us = sum(k.duration for e in prof.events() if e.name == "aten::bmm"
+                     for k in getattr(e, "kernels", ()))
+        out.update({"expert_bmm_ms": bmm_us / 1e3,
+                    "expert_bmm_calls": sum(1 for e in prof.events() if e.name == "aten::bmm"),
+                    "expert_bmm_share_of_busy": None if not busy_c else bmm_us / busy_c})
     emit("trace_train", out)
     if any(c["ms"] <= 0 for c in counted.values()):
         fail(f"trace_train: a kernel family of {cfg.arch_id} reads no device time: "
              f"{ {f: c['ms'] for f, c in counted.items()} }")
+
+
+KERNEL_KINDS = {  # by name part of the kernel's name, lower case
+    "elementwise": ("elementwise",), "fill": ("fillfunctor",), "add": ("functor_add", "add_"),
+    # an atomic scatter-add would show here (index_put with accumulate, scatter_add)
+    "indexing": ("index", "scatter", "gather")}
+
+
+def kernels_by_kind(by_name, top=5):
+    """The ``top`` kernels of each kind of KERNEL_KINDS by device ms, with
+    each kind's total (a kernel can be of two kinds)."""
+    out = {}
+    for kind, parts in KERNEL_KINDS.items():
+        hits = {k: v for k, v in by_name.items() if any(p in k.lower() for p in parts)}
+        out[kind] = {"ms": sum(hits.values()) / 1e3, "kernels": len(hits),
+                     "top": [[k[:160], v / 1e3] for k, v in
+                             sorted(hits.items(), key=lambda kv: -kv[1])[:top]]}
+    return out
+
+
+class route_log:
+    """Every MoE layer's routing over train steps, read from moe.route and
+    moe.dispatch_indices, wrapped within the block (their outputs pass as
+    they are). Under torch.utils.checkpoint a layer routes twice a step, in
+    its forward and in its recompute, from the same router view: calls are
+    keyed by its data pointer, and alternate forward, recompute. Of each
+    forward the share of assignments dropped at capacity and the aux loss
+    are kept; each recompute's expert choices are held to its forward's,
+    counting the tokens whose top k differs. The counts stay on the card
+    until read."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved = moe, (moe.route, moe.dispatch_indices)
+        self.layers, self.forward = {}, None
+        route, dispatch = self.saved
+
+        def logged_route(cfg, router, x2d):
+            idx, weights, aux = route(cfg, router, x2d)
+            rec = self.layers.setdefault(router.data_ptr(), {
+                "calls": 0, "aux": [], "dropped": [], "assignments": 0, "flips": [],
+                "tokens": 0})
+            if rec["calls"] % 2 == 0:
+                rec["idx"], self.forward = idx, rec
+                rec["aux"].append(aux.detach())
+            else:
+                rec["flips"].append((idx != rec.pop("idx")).any(dim=-1).sum())
+                rec["tokens"] += idx.shape[0]
+                self.forward = None
+            rec["calls"] += 1
+            return idx, weights, aux
+
+        def logged_dispatch(idx, n_experts, cap):
+            pos = dispatch(idx, n_experts, cap)
+            if self.forward is not None:
+                self.forward["dropped"].append((pos < 0).sum())
+                self.forward["assignments"] += pos.numel()
+            return pos
+        moe.route, moe.dispatch_indices = logged_route, logged_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch_indices = self.saved
+
+    def read(self):
+        """Per MoE layer in depth order: forwards, recomputes, the dropped
+        share, the aux loss of each forward and the recompute's flips."""
+        out = []
+        for i, rec in enumerate(self.layers.values()):
+            dropped = int(sum(int(d) for d in rec["dropped"]))
+            out.append({"layer": i, "forwards": len(rec["aux"]),
+                        "recomputes": len(rec["flips"]),
+                        "dropped": dropped, "assignments": rec["assignments"],
+                        "dropped_share": dropped / max(rec["assignments"], 1),
+                        "aux": [float(a) for a in rec["aux"]],
+                        "recompute_tokens": rec["tokens"],
+                        "recompute_flips": int(sum(int(f) for f in rec["flips"]))})
+        return out
+
+
+def train_phases(cfg, rt, state, dev):
+    """One more train step (a fresh batch of the same stream), the card
+    synchronised at the bounds of its four phases: forward (the embedding
+    and every layer), loss (the final norm and the chunked cross-entropy),
+    backward (torch.autograd.grad, the recomputes included) and optimizer
+    (AdamW). At each bound the phase's peak device memory is read and the
+    peak reset, after the synchronisation: reset_peak_memory_stats sets it
+    to what is allocated then, so no earlier phase counts in a later one."""
+    from repro_torch.data.pipeline import synth_tokens
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+    host = synth_tokens(cfg, rt.dcfg, 0, 1, TRAIN["steps"] + 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    backbone = lm.backbone(cfg)
+    saved = lm.train_loss, backbone.forward_hidden, adamw.apply_updates
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize(dev)
+        marks.append((name, time.perf_counter(), torch.cuda.max_memory_allocated(dev),
+                      torch.cuda.memory_allocated(dev)))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def train_loss(*a, **kw):
+        mark("start")
+        out = saved[0](*a, **kw)
+        mark("loss")
+        return out
+
+    def forward_hidden(*a, **kw):
+        out = saved[1](*a, **kw)
+        mark("forward")
+        return out
+
+    def apply_updates(*a, **kw):
+        mark("backward")
+        out = saved[2](*a, **kw)
+        mark("optimizer")
+        return out
+    lm.train_loss, backbone.forward_hidden, adamw.apply_updates = (
+        train_loss, forward_hidden, apply_updates)
+    try:
+        make_train_step(cfg, rt.opt_cfg)(state.params, state.opt_state, batch)
+    finally:
+        lm.train_loss, backbone.forward_hidden, adamw.apply_updates = saved
+    names = [m[0] for m in marks]
+    if names != ["start", "forward", "loss", "backward", "optimizer"]:
+        fail(f"train_phases: phase bounds {names}")
+    phases = {name: {"ms": (t1 - t0) * 1e3, "peak_gb": peak / 1e9,
+                     "allocated_after_gb": alloc / 1e9}
+              for (_, t0, _, _), (name, t1, peak, alloc) in zip(marks, marks[1:])}
+    out = {"arch": cfg.arch_id, "allocated_at_start_gb": marks[0][3] / 1e9,
+           "phases": phases, "peak_gb": max(p["peak_gb"] for p in phases.values()),
+           "bound_peak_gb": TRAIN_PEAK_GB}
+    emit("train_phases", out)
+    return out
+
+
+def train_repeat(cfg, rt, state, dev):
+    """One train step's loss and gradients twice from the same params and
+    batch: both bitwise equal, as every kernel's repeat is."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import synth_tokens
+    from repro_torch.runtime.steps import loss_and_grads
+    host = synth_tokens(cfg, rt.dcfg, 0, 1, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    la, _, ga = loss_and_grads(cfg, state.params, batch)
+    ga = tree.leaf_paths(ga)
+    lb, _, gb = loss_and_grads(cfg, state.params, batch)
+    gb = tree.leaf_paths(gb)
+    unequal = [k for k in ga if not torch.equal(ga[k], gb[k])]
+    out = {"arch": cfg.arch_id, "losses": [float(la), float(lb)],
+           "loss_bitwise_equal": bool(torch.equal(la, lb)), "grad_leaves": len(ga),
+           "grad_leaves_unequal": unequal}
+    emit("train_repeat", out)
+    del ga, gb
+    torch.cuda.empty_cache()
+    if not out["loss_bitwise_equal"] or unequal:
+        fail(f"train_repeat: two runs of one step differ: {out}")
 
 
 def run_train(dev, card, arch):
@@ -2148,13 +2365,13 @@ def run_train(dev, card, arch):
     expected = train_expected(cfg, TRAIN["steps"])
     runs = {}
     for feed in TRAIN_FEEDS[arch]:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
+        fresh_peak(dev)
         rt = TrainerRuntime(cfg, dcfg, TrainerConfig(steps=TRAIN["steps"], feed=feed,
                                                      log_every=1, seed=TRAIN["seed"]),
                             device=dev)
+        routes = route_log() if cfg.family == "moe" else contextlib.nullcontext()
         zero_counters()
-        with contextlib.redirect_stdout(sys.stderr):  # the trainer's log lines
+        with contextlib.redirect_stdout(sys.stderr), routes:  # the trainer's log lines
             state = rt.run()
         launches, plain_calls = read_counters()
         want = {name: expected.get(name, 0) for name in launches}
@@ -2168,6 +2385,10 @@ def run_train(dev, card, arch):
             "steps": TRAIN["steps"],
             "losses": losses, "grad_norms": [m["grad_norm"] for m in rt.metrics_log],
             "step_ms": [t * 1e3 for t in rt.step_times_s],
+            # per step: the host's time to issue it, the card's between two events
+            "issue_ms": [t * 1e3 for t in rt.issue_times_s],
+            "device_ms": [t * 1e3 for t in rt.device_times_s],
+            "device_ms_median": _pct(rt.device_times_s, 50) * 1e3,
             "step_ms_median": _pct(rt.step_times_s, 50) * 1e3,
             "step_ms_p99": _pct(rt.step_times_s, 99) * 1e3,
             "tok_per_s": tokens / sum(rt.step_times_s),
@@ -2190,8 +2411,19 @@ def run_train(dev, card, arch):
         if len(losses) != TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
             fail(f"train ({feed} feed): losses {losses}")
         runs[feed] = out
+        if cfg.family == "moe":
+            routing = routes.read()
+            emit("train_routing", {"arch": arch, "capacity_factor": cfg.capacity_factor,
+                                   "layers": routing})
+            if any(r["recompute_flips"] or r["recomputes"] != r["forwards"]
+                   or r["forwards"] != TRAIN["steps"] for r in routing):
+                fail(f"train ({feed} feed): a recompute routed otherwise than its forward: "
+                     f"{routing}")
         if feed == "bypass":
             trace_train(cfg, rt, state, dev)
+            if cfg.family == "moe":
+                train_phases(cfg, rt, state, dev)
+                train_repeat(cfg, rt, state, dev)
         del state, rt
     if len(runs) > 1:
         same = runs["bypass"]["losses"] == runs["kernel"]["losses"]
@@ -2218,18 +2450,24 @@ def run_train_vs_plain(dev, arch):
     from repro_torch.data.pipeline import DataConfig, synth_tokens
     from repro_torch.launch import serve
     from repro_torch.runtime.steps import loss_and_grads
-    cfg = train_config(arch, n_layers=4, param_dtype="float32", compute_dtype="float32")
+    cfg = train_config(arch, n_layers=TRAIN_VS_PLAIN_LAYERS.get(arch, 4),
+                       param_dtype="float32", compute_dtype="float32")
     params = serve.init_params(cfg, 0, dev)
     seq_len, global_batch = train_shape(arch)
     host = synth_tokens(cfg, DataConfig(seq_len=seq_len, global_batch=global_batch, seed=1),
                         0, 1, 0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    # in MoE layers the plain run takes the kernels' run's expert choices, in
+    # the same order (each layer's forward, then its recompute), as
+    # serve_vs_plain does
+    experts = forced_experts()
     zero_counters()
-    loss_k, _, gk = loss_and_grads(cfg, params, batch)
+    with experts.mode(replay=False):
+        loss_k, _, gk = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
     launches, plain_calls = read_counters()
     want = {name: train_expected(cfg, 1).get(name, 0) for name in launches}
-    with plain_kernels():
+    with plain_kernels(), experts.mode(replay=True):
         loss_p, _, gp = loss_and_grads(cfg, params, batch)
     gk, gp = tree.leaf_paths(gk), tree.leaf_paths(gp)
     worst, ok = {}, True
@@ -2251,6 +2489,8 @@ def run_train_vs_plain(dev, arch):
            "kernel_grads_nonzero": all(bool(gk[k].abs().max() > 0) for k in gk
                                        if k.split("/")[-1] in leaves),
            "launches": launches, "expected_launches": want, "plain_calls": plain_calls}
+    if cfg.family == "moe":
+        out["expert_flips"] = {"tokens": experts.tokens, "flipped": experts.flipped}
     emit("train_vs_plain", out)
     if not (ok and loss_ok and out["kernel_grads_nonzero"]) or launches != want \
             or plain_calls:
@@ -2931,6 +3171,8 @@ def run_times(launches, errs, card, dev):
             time_decode("internvl2-26b", launches, errs, card, dev),
             time_flash(HUBERT_TRAIN_LABEL, launches, errs, card, dev),
             time_flash_bwd(FLASH_TRAIN_HUBERT, HUBERT_TRAIN_LABEL, launches, errs, card, dev),
+            time_flash(MIXTRAL_TRAIN_LABEL, launches, errs, card, dev),
+            time_flash_bwd(FLASH_TRAIN_MIXTRAL, MIXTRAL_TRAIN_LABEL, launches, errs, card, dev),
             time_gather(launches, errs, card, dev, gather_host(dev, card)["launch_floor_ms"]),
             time_epoch_pass(launches, errs, card, dev)]
     gather_sweep(dev, card)
@@ -2975,7 +3217,7 @@ def run_arch(arch, dev, card):
     cfg = get_config(arch)
     if arch in DEPTH:
         cfg = cfg.replace(n_layers=DEPTH[arch])
-    torch.cuda.reset_peak_memory_stats(dev)
+    fresh_peak(dev)
     params = serve.init_params(cfg, SERVE["seed"], dev)
     served = run_serve(cfg, params, dev, card)
     run_trace(cfg, params, dev)
@@ -3051,7 +3293,7 @@ def run_encode(dev, card):
     from repro_torch.models import lm
     from repro_torch.models.registry import get_config
     cfg = get_config(ENCODE["arch"])
-    torch.cuda.reset_peak_memory_stats(dev)
+    fresh_peak(dev)
     params = serve.init_params(cfg, SERVE["seed"], dev)
     gen = torch.Generator().manual_seed(1)
     # f32 frames, as the pipeline gives them; lm casts them to the compute dtype
@@ -3131,6 +3373,41 @@ def rglru_bwd_bits():
     emit("rglru_bwd_time", {"ms": time_ms(kern, iters=20),
                             "device_ms": device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
                             "card": card})
+
+
+def moe_train_bits():
+    """mixtral-8x7b's train cell alone, in the tree whose repro_torch this
+    process imports: the flash checks at its train shape (f32 and bf16), its
+    8 train steps with the routing, trace, phase and repeat lines
+    (run_train), train_vs_plain, and the flash forward's and backward's time
+    rows at its train shape. Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.moe_train_bits()'
+
+    (a git archive of another tree: PYTHONPATH=<archive>/src first)."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    global FLASH_BWD_CASES
+    saved, FLASH_BWD_CASES = FLASH_BWD_CASES, [FLASH_TRAIN_MIXTRAL]
+    try:
+        errs = run_flash_bwd_checks(dev)
+    finally:
+        FLASH_BWD_CASES = saved
+    launches = {MIXTRAL_TRAIN_LABEL: run_train(dev, card, "mixtral-8x7b")}
+    run_train_vs_plain(dev, "mixtral-8x7b")
+    for row in (time_flash(MIXTRAL_TRAIN_LABEL, launches, errs, card, dev),
+                time_flash_bwd(FLASH_TRAIN_MIXTRAL, MIXTRAL_TRAIN_LABEL, launches, errs, card,
+                               dev)):
+        emit("time", row)
 
 
 def epoch_pass_bits():

@@ -16,11 +16,13 @@ The one change of layout: the JAX package stores an MoE layer's expert
 weights blocked for its sharding, ``(tp, E/ep, D, F/fp)`` and ``(tp, E/ep,
 F/fp, D)`` with ``(ep, fp) = _ep_fp(cfg, tp)``, and the port stores whole
 experts, ``(E, D, F)`` and ``(E, F, D)`` (``repro_torch.models.moe``);
-``params_from_jax`` re-blocks them once, here.
+``params_from_jax`` and ``opt_state_from_jax`` re-block them once, here
+(``unblock_experts``), and ``block_experts`` is its exact inverse, for a
+port tree written in the JAX package's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -45,24 +47,64 @@ def _convert(node: Any, device, allowed) -> Any:
     return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=dtype)
 
 
+def _regroup(w: Any, shape, axes, out_shape) -> Any:
+    """``w`` reshaped to ``shape``, its axes permuted, reshaped to
+    ``out_shape``: a numpy array stays numpy, a tensor a tensor."""
+    if isinstance(w, torch.Tensor):
+        return w.reshape(shape).permute(axes).reshape(out_shape)
+    return np.asarray(w).reshape(shape).transpose(axes).reshape(out_shape)
+
+
 def unblock_experts(moe: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """An MoE layer's params, stacked over units (leading axis n), with the
     expert leaves re-blocked from JAX's ``(n, tp, E/ep, D, F/fp)`` and ``(n,
     tp, E/ep, F/fp, D)`` to ``(n, E, D, F)`` and ``(n, E, F, D)``, as
     ``_moe_compute_local`` reassembles them: block ``b·fp + f`` holds F slice
     ``f`` of experts ``b·E/ep`` up to ``(b+1)·E/ep``. Other leaves pass as
-    they are."""
-    n, tp = np.shape(moe["w_gate"])[:2]
+    they are. Numpy leaves give numpy leaves, tensors tensors."""
+    n, tp = moe["w_gate"].shape[:2]
     ep, fp = ep_fp(cfg, tp)
     E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
     e_loc, f_loc = E // ep, F // fp
     out = dict(moe)
     for name in ("w_gate", "w_up"):
-        w = np.asarray(moe[name]).reshape(n, ep, fp, e_loc, D, f_loc)
-        out[name] = w.transpose(0, 1, 3, 4, 2, 5).reshape(n, E, D, F)
-    w = np.asarray(moe["w_down"]).reshape(n, ep, fp, e_loc, f_loc, D)
-    out["w_down"] = w.transpose(0, 1, 3, 2, 4, 5).reshape(n, E, F, D)
+        out[name] = _regroup(moe[name], (n, ep, fp, e_loc, D, f_loc), (0, 1, 3, 4, 2, 5),
+                             (n, E, D, F))
+    out["w_down"] = _regroup(moe["w_down"], (n, ep, fp, e_loc, f_loc, D), (0, 1, 3, 2, 4, 5),
+                             (n, E, F, D))
     return out
+
+
+def block_experts(moe: Dict[str, Any], cfg: ModelConfig, tp: int) -> Dict[str, Any]:
+    """The exact inverse of ``unblock_experts``: an MoE layer's params (or
+    an optimizer moment of them) stacked over units, from the port's ``(n,
+    E, D, F)`` and ``(n, E, F, D)`` to the JAX package's layout blocked for a
+    model axis of ``tp`` shards (its ``init_moe_layer`` takes ``tp_hint=16``).
+    A permutation of the values: bit for bit."""
+    n = moe["w_gate"].shape[0]
+    ep, fp = ep_fp(cfg, tp)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    e_loc, f_loc = E // ep, F // fp
+    out = dict(moe)
+    for name in ("w_gate", "w_up"):
+        out[name] = _regroup(moe[name], (n, ep, e_loc, D, fp, f_loc), (0, 1, 4, 2, 3, 5),
+                             (n, tp, e_loc, D, f_loc))
+    out["w_down"] = _regroup(moe["w_down"], (n, ep, e_loc, fp, f_loc, D), (0, 1, 3, 2, 4, 5),
+                             (n, tp, e_loc, f_loc, D))
+    return out
+
+
+def map_experts(tree: Any, fn) -> Any:
+    """A param-shaped tree (params, gradients, a moment or the master copy)
+    with ``fn`` applied to the ``moe`` dict of every unit that has one; the
+    rest as it is."""
+    units = [{**u, "moe": fn(u["moe"])} if "moe" in u else u
+             for u in tree["backbone"]["units"]]
+    return {**tree, "backbone": {**tree["backbone"], "units": units}}
+
+
+def _has_experts(tree: Any) -> bool:
+    return any("moe" in u for u in tree.get("backbone", {}).get("units", ()))
 
 
 def params_from_jax(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
@@ -71,22 +113,32 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device="cpu") -> Any:
     leaves are re-blocked (``unblock_experts``)."""
     if set(tree) != {"embed", "backbone", "final_norm"}:
         raise ValueError(f"not an lm param tree: top-level keys {sorted(tree)}")
-    if cfg.n_experts > 0:
-        units = [{**u, "moe": unblock_experts(u["moe"], cfg)} if "moe" in u else u
-                 for u in tree["backbone"]["units"]]
-        tree = {**tree, "backbone": {**tree["backbone"], "units": units}}
+    if _has_experts(tree):
+        tree = map_experts(tree, lambda moe: unblock_experts(moe, cfg))
     allowed = {torch.float32, getattr(torch, cfg.param_dtype)}
     return _convert(tree, torch.device(device), allowed)
 
 
-def opt_state_from_jax(state: Any, device="cpu") -> OptState:
+def opt_state_from_jax(state: Any, cfg: Optional[ModelConfig] = None,
+                       device="cpu") -> OptState:
     """The port's ``OptState`` from a numpy copy of a JAX ``OptState`` (any
     object with ``step``, ``master``, ``m`` and ``v``): an int32 step and f32
-    trees (``master`` is ``()`` when the f32 master copy is off)."""
+    trees (``master`` is ``()`` when the f32 master copy is off). The trees
+    mirror the params, so a model with experts needs its ``cfg``: their
+    expert leaves are re-blocked as ``params_from_jax`` re-blocks the
+    params'."""
     device = torch.device(device)
     f32 = {torch.float32}
+
+    def tree(t):
+        if _has_experts(t):
+            if cfg is None:
+                raise ValueError("an optimizer state with MoE leaves needs the model's "
+                                 "config to re-block its experts")
+            t = map_experts(t, lambda moe: unblock_experts(moe, cfg))
+        return _convert(t, device, f32)
     master = state.master
     return OptState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
-        master=() if isinstance(master, tuple) and not master else _convert(master, device, f32),
-        m=_convert(state.m, device, f32), v=_convert(state.v, device, f32))
+        master=() if isinstance(master, tuple) and not master else tree(master),
+        m=tree(state.m), v=tree(state.v))

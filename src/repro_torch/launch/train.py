@@ -7,9 +7,10 @@ asked, the CPU).
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``). Without a CUDA device the default raises; ``--device cpu`` runs the
 plain kernel versions on the CPU, which is meant for small configs. ``--arch``
-takes the registry's ids; the dense, encoder, vlm, hybrid and ssm families
-train (qwen3-1.7b, granite-8b, phi4-mini-3.8b, llama3.2-3b, hubert-xlarge,
-internvl2-26b, recurrentgemma-9b, mamba2-1.3b), the moe one raises.
+takes the registry's ids, and every family trains: dense (qwen3-1.7b,
+granite-8b, phi4-mini-3.8b, llama3.2-3b), moe (mixtral-8x7b,
+llama4-maverick-400b-a17b), encoder (hubert-xlarge), vlm (internvl2-26b),
+hybrid (recurrentgemma-9b) and ssm (mamba2-1.3b), each on one device.
 ``--mesh`` other than ``none`` raises: sharding is not ported (ROADMAP.md,
 Queue 1, "Sharding").
 """

@@ -1,6 +1,6 @@
 """LM facade over every family: serving over the dense, moe, vlm, hybrid and
 ssm families (the encoder prefills only: it has no decode step), training
-over the dense, encoder, vlm, hybrid and ssm families.
+over all six.
 
 * ``init_params(cfg, generator, device)`` — the parameter dict (JAX layout)
 * ``train_loss(cfg, params, batch)`` — scalar loss + metrics
@@ -90,15 +90,10 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
 
 def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean cross-entropy of ``batch`` against its labels (-100 ignored),
-    with per-layer recompute. Returns (loss, {loss, xent, aux, tokens}), f32
-    scalars. Every family but moe trains; moe training is a later slice
-    (ROADMAP.md)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the {cfg.family!r} family is not ported yet; "
-            "repro_torch trains the dense, encoder, vlm, hybrid and ssm families "
-            "(ROADMAP.md)")
+    """Mean cross-entropy of ``batch`` against its labels (-100 ignored)
+    plus the aux loss summed over the MoE layers (0 without experts), with
+    per-layer recompute (``src/repro/models/lm.py:87-95``). Returns (loss,
+    {loss, xent, aux, tokens}), f32 scalars."""
     x, positions, labels = _embed_inputs(cfg, params, batch)
     hidden, aux = backbone(cfg).forward_hidden(cfg, params["backbone"], x, positions)
     hidden = apply_norm(cfg, params["final_norm"], hidden)

@@ -15,7 +15,13 @@ semantics of the JAX package's path without a mesh
 * drops: buffer slots go token-major, then in k order, by each expert's
   running count; assignments past capacity are dropped and weigh 0;
 * expert FFN: products in the compute dtype, silu in f32, the k outputs
-  combined in f32 and cast back.
+  combined in f32 and cast back;
+* training: the router's gradient reaches the logits through the combine
+  weights (``torch.sort``'s backward, as ``jax.lax.top_k``'s) and the aux
+  term's mean probabilities (the expert counts carry none); a dropped
+  assignment gives no gradient to any expert or token. Dispatch and combine
+  are gathers whose backward is the inverse gather (``_MoveRows``), so a
+  train step on the card adds no float atomically and repeats bit for bit.
 
 Expert weights are stored whole, ``(E, D, F)`` and ``(E, F, D)``. The JAX
 package keeps them blocked for its expert × FFN sharding, ``(tp_hint, E/ep, D,
@@ -117,6 +123,30 @@ def expert_ffn(cfg: ModelConfig, wg: torch.Tensor, wu: torch.Tensor, wd: torch.T
     return torch.bmm(h, wd.to(c))
 
 
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along dim 0, where idx == len(x) reads a zero row."""
+    return torch.cat([x, x.new_zeros((1, *x.shape[1:]))])[idx]
+
+
+class _MoveRows(torch.autograd.Function):
+    """``_take_rows(x, idx)`` where each row of x lands in at most one output
+    row, and ``inv`` maps each row of x to that output row (or past the
+    output's end). Autograd's backward of an index adds the gradient rows
+    into a zero tensor (a scatter-add); here it is the gather ``grad[inv]``:
+    each row receives at most one term, so the numbers are the same, and
+    there is no addition whose order could vary between runs."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv, = ctx.saved_tensors
+        return _take_rows(grad, inv), None, None
+
+
 def moe_local(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All experts on this device. x (B,S,D) → (y (B,S,D), aux loss)."""
@@ -127,15 +157,18 @@ def moe_local(cfg: ModelConfig, p: Params, x: torch.Tensor
     E, k, c = cfg.n_experts, cfg.experts_per_token, cdt(cfg)
     cap = capacity(cfg, T)
     buf_pos = dispatch_indices(idx, E, cap)
-    # dropped assignments write, and later read, one scratch row past the buffer
-    safe_pos = torch.where(buf_pos >= 0, buf_pos, E * cap)
-    buf = x2d.new_zeros((E * cap + 1, D), dtype=c)
-    buf[safe_pos] = x2d.to(c).repeat_interleave(k, dim=0)
+    # assignment → buffer row, a dropped one to the zero row past the buffer;
+    # buffer row → assignment, an empty row to the zero row past the T·k
+    # assignments (the dropped ones all write the scratch row E·cap, cut off)
+    pos = torch.where(buf_pos >= 0, buf_pos, E * cap)
+    src = torch.full((E * cap + 1,), T * k, dtype=pos.dtype, device=pos.device)
+    src[pos] = torch.arange(T * k, dtype=pos.dtype, device=pos.device)
+    src = src[:-1]
+    buf = _MoveRows.apply(x2d.to(c).repeat_interleave(k, dim=0), src, pos)
     out = expert_ffn(cfg, p["w_gate"], p["w_up"], p["w_down"],
-                     buf[:-1].view(E, cap, D)).reshape(-1, D)
-    out = torch.cat([out, out.new_zeros((1, D))])
+                     buf.view(E, cap, D)).reshape(-1, D)
     w = torch.where(buf_pos[:, None] >= 0, weights.reshape(-1, 1), 0.0)
-    y = (out[safe_pos].float() * w).view(T, k, D).sum(dim=1)
+    y = (_MoveRows.apply(out, pos, src).float() * w).view(T, k, D).sum(dim=1)
     return y.view(B, S, D).to(x.dtype), aux
 
 

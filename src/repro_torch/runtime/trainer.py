@@ -58,6 +58,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _step_events(device: torch.device):
+    """(start, end) CUDA events around a step, the start recorded now; ()
+    off CUDA."""
+    if device.type != "cuda":
+        return ()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    return start, end
+
+
 class TrainerRuntime:
     def __init__(self, cfg: ModelConfig, dcfg: DataConfig, tcfg: TrainerConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None, *,
@@ -71,6 +81,10 @@ class TrainerRuntime:
         self.metrics_log: List[dict] = []
         self.step_times_s: List[float] = []  # host time of each step, synchronised
         self.feed_times_s: List[float] = []  # host time of each step's next_batch
+        # host time to issue each step's work (its train_step call, unsynchronised)
+        self.issue_times_s: List[float] = []
+        # device time of each train_step call between two CUDA events (CUDA only)
+        self.device_times_s: List[float] = []
         self.straggler_events = 0
         self.feed = None
 
@@ -119,11 +133,18 @@ class TrainerRuntime:
                     batch = feed.next_batch(timeout_s=tcfg.step_deadline_s)
                 if batch is None:
                     break
-                self.feed_times_s.append(time.perf_counter() - t0)
+                t_issue = time.perf_counter()
+                self.feed_times_s.append(t_issue - t0)
+                events = _step_events(self.device)
                 params, opt_state, metrics = step_fn(state.params, state.opt_state, batch)
                 state = TrainerState(params=params, opt_state=opt_state, step=state.step + 1)
+                if events:
+                    events[1].record()
+                self.issue_times_s.append(time.perf_counter() - t_issue)
                 _sync(self.device)
                 self.step_times_s.append(time.perf_counter() - t0)
+                if events:
+                    self.device_times_s.append(events[0].elapsed_time(events[1]) / 1e3)
                 if state.step % tcfg.log_every == 0 or state.step == 1:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["step"] = state.step

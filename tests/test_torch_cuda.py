@@ -1043,6 +1043,60 @@ def test_loss_backward_through_the_kernels_reaches_attention_weights(dev, monkey
             assert float(got[key].abs().max()) > 0, key
 
 
+def test_mixtral_smoke_train_step_vs_plain_and_repeated_bitwise(dev, monkeypatch):
+    """A mixtral-8x7b smoke train step in f32 (4 MoE layers, a 32-key
+    window over S 40): through the flash kernels (each layer's forward and
+    its recompute, one backward; no plain call) the loss within 1e-5
+    relative and every gradient within 1e-4 of its largest magnitude of the
+    plain versions', whose expert choices are forced to the kernels' run's
+    in the same order; run again, the loss and every gradient bit-equal."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synth_tokens
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_smoke_config
+    from repro_torch.runtime.steps import loss_and_grads
+    cfg = get_smoke_config("mixtral-8x7b").replace(param_dtype="float32",
+                                                   compute_dtype="float32")
+    params = serve.init_params(cfg, 0, dev)
+    host = synth_tokens(cfg, DataConfig(seq_len=40, global_batch=2, seed=2), 0, 1, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    route, chosen = moe.route, []
+
+    def recorded(c, router, x2d):
+        out = route(c, router, x2d)
+        chosen.append(out[0])
+        return out
+    monkeypatch.setattr(moe, "route", recorded)
+    flash_attention.launches = flash_attention_bwd.launches = ref.calls = 0
+    loss, _, got = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches, ref.calls) == (8, 4, 0)
+    assert len(chosen) == 2 * cfg.n_layers
+    loss2, _, again = loss_and_grads(cfg, params, batch)
+    assert torch.equal(loss, loss2)
+    got, again = tree.leaf_paths(got), tree.leaf_paths(again)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    forced = iter(chosen[:2 * cfg.n_layers])
+
+    def replayed(c, router, x2d):
+        _, _, aux = route(c, router, x2d)
+        idx = next(forced)
+        logits = x2d.float() @ router.float()
+        return idx, torch.softmax(logits.gather(1, idx), dim=-1), aux
+    monkeypatch.setattr(moe, "route", replayed)
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, **kw: ref.mha(q, k, v, **kw))
+    loss_p, _, want = loss_and_grads(cfg, params, batch)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    want = tree.leaf_paths(want)
+    for key in want:
+        bound = 1e-4 * float(want[key].abs().max())
+        assert float((got[key] - want[key]).abs().max()) <= bound, key
+        if key.split("/")[-1] in ("wq", "wk", "wv", "w_gate", "router"):
+            assert float(got[key].abs().max()) > 0, key
+
+
 def test_bypass_dataplane_on_cuda(dev):
     """Pinned buffers, side-stream copies and event polling deliver the
     kernel feed's batches on the card, and the ring drains cleanly."""

@@ -43,7 +43,7 @@ from repro_torch.core.dataplane import BypassDataplane, KernelStackFeed, make_fe
 from repro_torch.data.pipeline import DataConfig, stream_factory, synth_tokens
 from repro_torch.kernels import _build
 from repro_torch.launch import train as train_launch
-from repro_torch.models import layers, lm
+from repro_torch.models import layers
 from repro_torch.models.registry import get_smoke_config
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps
@@ -138,14 +138,6 @@ def test_train_loss_and_every_gradient_match_jax():
     loss, _ = steps.make_loss_fn(tcfg)(tp, {k: torch.from_numpy(v) for k, v in host.items()})
     assert float(loss) == float(tl)
     assert not any(p.requires_grad for p in tree.leaf_paths(tp).values())
-
-
-@pytest.mark.parametrize("over", [dict(family="moe", n_experts=4, experts_per_token=2)])
-def test_train_loss_of_unported_families_raises(over):
-    cfg = SMOKE_CONFIG.replace(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.train_loss(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                                "labels": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 # -- the autograd guard of kernels without a backward ---------------------------
