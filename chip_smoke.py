@@ -198,6 +198,19 @@ Phases, each printed as one JSON object per line:
    expert choices, recomputes included, the tokens whose own choice differs
    counted), with non-zero gradients on the leaves that only the backward
    kernels reach;
+   sharding (after mixtral-8x7b's train cell): the port's mesh layer on a
+   process group of this process alone (NCCL on a free local port), a (1, 1)
+   ("data", "model") mesh from launch.mesh.make_smoke_mesh and
+   single_pod_rules, so that every param is a DTensor gathered where it is
+   read and the MoE layers take the sharded path; one mixtral-8x7b MoE layer
+   at full width on 2 x 4608 bf16 tokens in the gather and the
+   weight-stationary mode against moe_local (outputs, aux loss and one
+   backward's gradients bitwise equal), then the train cell again on the
+   mesh with the counters set to 0 just before (8 losses and grad norms
+   bitwise equal to the unsharded run's, 32 flash forwards and 16
+   backwards, 0 plain calls), its step, device and issue times and peak
+   beside the unsharded run's and one traced step; the group is destroyed
+   at the end of the phase;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
 6. times: each kernel at the shapes of its main path (serve, train, the
@@ -2187,6 +2200,7 @@ def trace_train(cfg, rt, state, dev):
     if any(c["ms"] <= 0 for c in counted.values()):
         fail(f"trace_train: a kernel family of {cfg.arch_id} reads no device time: "
              f"{ {f: c['ms'] for f, c in counted.items()} }")
+    return out
 
 
 KERNEL_KINDS = {  # by name part of the kernel's name, lower case
@@ -2265,6 +2279,200 @@ class route_log:
                         "recompute_tokens": rec["tokens"],
                         "recompute_flips": int(sum(int(f) for f in rec["flips"]))})
         return out
+
+
+# --------------------------------------------------------------------------
+# sharding: the port's mesh path on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+SHARDING_ARCH = "mixtral-8x7b"
+
+
+def free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_world(dev):
+    """A process group of this process alone (NCCL on a free local port),
+    destroyed on the way out."""
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def _whole_grads(grads):
+    """Gradients of DTensor params as whole tensors in the port's whole
+    expert layout."""
+    from repro_torch import tree
+    from repro_torch.convert import experts_whole
+    from repro_torch.parallel.specs import whole
+    return tree.leaf_paths(experts_whole(tree.tree_map(whole, grads)))
+
+
+def sharding_layer(dev, mesh, rules):
+    """One mixtral-8x7b MoE layer at full width (d 4096, d_ff 14 336, 8
+    experts, top 2, capacity factor 1.25), bf16, on the train cell's 2 x
+    4608 tokens: ``moe_local`` against ``apply_moe`` on the (1, 1) mesh in
+    each mode; outputs, aux loss and the gradients of x, the router and the
+    experts of one backward, bitwise."""
+    from repro_torch import tree
+    from repro_torch.models import moe
+    from repro_torch.models.layers import layer_of
+    from repro_torch.models.registry import get_config
+    from repro_torch.parallel import axes
+    from repro_torch.parallel.specs import expert_blocks, make_param_specs, make_shardings, place_tree
+    from repro_torch.runtime.steps import _laid_out_as
+    cfg = get_config(SHARDING_ARCH)
+    seq_len, batch = train_shape(SHARDING_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    p = moe.init_moe_layer(cfg, gen, dev)
+    x = torch.randn((batch, seq_len, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def run(params, leaves, **kw):
+        xr = x.clone().requires_grad_(True)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        # the layer's leaves are taken after they require grad
+        layer = layer_of(params["moe"], 0) if "moe" in params else params
+        y, aux = moe.apply_moe(cfg, layer, xr, **kw)
+        grads = torch.autograd.grad((y, aux), [xr, *leaves.values()],
+                                    (dy, torch.ones_like(aux)))
+        for t in leaves.values():
+            t.requires_grad_(False)
+        return y.detach(), aux.detach(), grads[0], dict(zip(leaves, grads[1:]))
+
+    y0, aux0, dx0, g0 = run(p, tree.leaf_paths(p))
+    stacked = {"moe": tree.tree_map(lambda t: t[None], p)}  # the model's paths and ranks
+    out = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.n_experts,
+           "top_k": cfg.experts_per_token, "capacity_factor": cfg.capacity_factor,
+           "tokens": batch * seq_len, "modes": {}}
+    with axes.axis_rules(rules, mesh):
+        blocked = expert_blocks(stacked, mesh)
+        placed = place_tree(blocked, make_shardings(make_param_specs(blocked, rules, mesh), mesh))
+        leaves = tree.leaf_paths(placed)
+        for mode, force in (("gather", True), ("stationary", False)):
+            y, aux, dx, g = run(placed, leaves, force_gather=force)
+            g = _whole_grads(tree.unflatten_like(
+                placed, {k: _laid_out_as(v, leaves[k]) for k, v in g.items()}))
+            out["modes"][mode] = {
+                "output_bitwise_equal": bool(torch.equal(y, y0)),
+                "aux_bitwise_equal": bool(torch.equal(aux, aux0)),
+                "dx_bitwise_equal": bool(torch.equal(dx, dx0)),
+                "grad_leaves_unequal": [k for k in g0 if not torch.equal(g["moe/" + k][0], g0[k])],
+                "aux": float(aux)}
+            del y, dx, g
+    del p, stacked, blocked, placed, leaves, g0, dx0
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharding_train(dev, mesh, rules):
+    """mixtral-8x7b's train cell (TRAIN_SHAPE: full width, 2 of 32 layers, 2
+    x 4608 tokens, 8 steps, bypass feed) on the (1, 1) mesh, the counters
+    set to 0 just before: its train line's numbers, and one more step
+    traced (trace_train, under the rules)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.parallel import axes
+    from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
+    cfg = train_config(SHARDING_ARCH)
+    seq_len, global_batch = train_shape(SHARDING_ARCH)
+    dcfg = DataConfig(seq_len=seq_len, global_batch=global_batch, seed=TRAIN["seed"])
+    fresh_peak(dev)
+    rt = TrainerRuntime(cfg, dcfg, TrainerConfig(steps=TRAIN["steps"], feed="bypass",
+                                                 log_every=1, seed=TRAIN["seed"]),
+                        device=dev, mesh=mesh, rules=rules)
+    zero_counters()
+    with contextlib.redirect_stdout(sys.stderr):  # the trainer's log lines
+        state = rt.run()
+    launches, plain_calls = read_counters()
+    out = {"losses": [m["loss"] for m in rt.metrics_log],
+           "grad_norms": [m["grad_norm"] for m in rt.metrics_log],
+           "step_ms_median": _pct(rt.step_times_s, 50) * 1e3,
+           "step_ms_p99": _pct(rt.step_times_s, 99) * 1e3,
+           "device_ms_median": _pct(rt.device_times_s, 50) * 1e3,
+           "issue_ms": [t * 1e3 for t in rt.issue_times_s],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "expected_launches":
+               {n: train_expected(cfg, TRAIN["steps"]).get(n, 0) for n in launches},
+           "plain_calls": plain_calls}
+    with axes.axis_rules(rules, mesh):
+        trace = trace_train(cfg, rt, state, dev)
+    out["trace"] = {k: trace[k] for k in ("host_ms", "device_busy_ms_corrected",
+                                          "device_idle_share_corrected", "top_kernels_ms")}
+    del state, rt
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_sharding(dev, card, unsharded):
+    """The port's sharding layer on the card: a one-rank NCCL group, the
+    (1, 1) mesh of ``make_smoke_mesh`` and ``single_pod_rules``, under which
+    the rules do nothing to the numbers, as the JAX package's do on one
+    device. One full-width MoE layer in both modes against ``moe_local``
+    (``sharding_layer``), then mixtral-8x7b's train cell on the mesh against
+    its unsharded run (``unsharded``, run_train's line): losses and grad
+    norms bitwise, the same flash launches, 0 plain calls; its times and
+    peak beside the unsharded run's. One ``sharding`` line; a check that
+    fails exits non-zero."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.axes import single_pod_rules
+    with one_rank_world(dev) as dist:
+        mesh = make_smoke_mesh(1, device_type="cuda")
+        rules = single_pod_rules()
+        layer = sharding_layer(dev, mesh, rules)
+        train = sharding_train(dev, mesh, rules)
+        backend, world = dist.get_backend(), dist.get_world_size()
+    keys = ("step_ms_median", "step_ms_p99", "device_ms_median", "peak_mem_gb")
+    out = {"card": card, "backend": backend, "world_size": world,
+           "mesh_shape": list(mesh.shape), "mesh_axes": list(mesh.mesh_dim_names),
+           "rules": "single_pod_rules", "moe_layer": layer,
+           "train": {"arch": SHARDING_ARCH, **train,
+                     "losses_bitwise_equal": train["losses"] == unsharded["losses"],
+                     "grad_norms_bitwise_equal": train["grad_norms"] == unsharded["grad_norms"]},
+           "unsharded": {**{k: unsharded[k] for k in keys},
+                         "issue_ms": unsharded["issue_ms"]}}
+    emit("sharding", out)
+    bad = [m for m, r in layer["modes"].items()
+           if not (r["output_bitwise_equal"] and r["aux_bitwise_equal"]
+                   and r["dx_bitwise_equal"]) or r["grad_leaves_unequal"]]
+    if bad:
+        fail(f"sharding: the MoE layer on the mesh differs from moe_local in {bad}")
+    t = out["train"]
+    if not (t["losses_bitwise_equal"] and t["grad_norms_bitwise_equal"]):
+        fail(f"sharding: mesh train losses {t['losses']} / grad norms {t['grad_norms']} "
+             f"!= unsharded {unsharded['losses']} / {unsharded['grad_norms']}")
+    if t["launches"] != t["expected_launches"] or t["plain_calls"]:
+        fail(f"sharding: launches {t['launches']} (expected {t['expected_launches']}), "
+             f"{t['plain_calls']} plain calls")
+
+
+def sharding_bits():
+    """mixtral-8x7b's train cell (run_train) and then the sharding phase
+    alone, in the tree whose repro_torch this process imports. Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.sharding_bits()'"""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    run_sharding(dev, card, run_train(dev, card, SHARDING_ARCH))
 
 
 def train_phases(cfg, rt, state, dev):
@@ -2352,7 +2560,7 @@ def train_repeat(cfg, rt, state, dev):
 def run_train(dev, card, arch):
     """``arch`` at full width (depth cut where TRAIN_SHAPE says), bf16, 8
     steps with each of its feeds (TRAIN_FEEDS) on the same batches. Returns
-    the bypass run's launch counts."""
+    the bypass run's ``train`` line (its launch counts under "launches")."""
     import contextlib
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime.trainer import TrainerConfig, TrainerRuntime
@@ -2439,7 +2647,7 @@ def run_train(dev, card, arch):
             fail(f"the two feeds gave different losses: {runs['bypass']['losses']} vs "
                  f"{runs['kernel']['losses']}")
     torch.cuda.empty_cache()
-    return runs["bypass"]["launches"]
+    return runs["bypass"]
 
 
 def run_train_vs_plain(dev, arch):
@@ -3402,7 +3610,7 @@ def moe_train_bits():
         errs = run_flash_bwd_checks(dev)
     finally:
         FLASH_BWD_CASES = saved
-    launches = {MIXTRAL_TRAIN_LABEL: run_train(dev, card, "mixtral-8x7b")}
+    launches = {MIXTRAL_TRAIN_LABEL: run_train(dev, card, "mixtral-8x7b")["launches"]}
     run_train_vs_plain(dev, "mixtral-8x7b")
     for row in (time_flash(MIXTRAL_TRAIN_LABEL, launches, errs, card, dev),
                 time_flash_bwd(FLASH_TRAIN_MIXTRAL, MIXTRAL_TRAIN_LABEL, launches, errs, card,
@@ -3565,8 +3773,11 @@ def main():
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
     launches[f"{ENCODE['arch']} encode"] = run_encode(dev, card)
     for arch in TRAIN_FEEDS:
-        launches[f"{arch} train"] = run_train(dev, card, arch)
+        train = run_train(dev, card, arch)
+        launches[f"{arch} train"] = train["launches"]
         run_train_vs_plain(dev, arch)
+        if arch == SHARDING_ARCH:
+            run_sharding(dev, card, train)
     for arch in TRAIN_VS_PLAIN_ONLY:
         run_train_vs_plain(dev, arch)
     run_restart(dev)

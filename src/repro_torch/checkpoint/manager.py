@@ -15,7 +15,13 @@ that checkpoints cross-load between the two packages in both directions:
 * ``save`` snapshots the tensors to host memory, then writes on a background
   thread (one outstanding save at a time: a second save waits);
 * a torn step (no manifest) is skipped, the directory is published with an
-  atomic rename, and only the newest ``keep`` steps are kept.
+  atomic rename, and only the newest ``keep`` steps are kept;
+* a tree on a mesh (DTensor leaves) is saved whole: every rank gathers each
+  leaf, the MoE experts go back to the port's whole layout
+  (``convert.experts_whole``), rank 0 writes, and the other ranks wait for
+  its write to be published (``wait``). ``restore`` with ``shardings``
+  re-blocks the experts for the restoring mesh's model size and places
+  every leaf by its sharding, so a checkpoint moves between meshes.
 """
 from __future__ import annotations
 
@@ -28,7 +34,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.convert import experts_blocked, experts_whole
+from repro_torch.parallel.specs import place, whole
 from repro_torch.tree import leaf_paths, tree_map, unflatten_like
 
 
@@ -56,17 +66,25 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(ckpt_dir, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
+        self._mesh_save = False  # a save from a mesh is pending: the ranks meet in wait
 
     # -- save ------------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[Dict[str, Any]] = None,
              block: bool = False) -> None:
-        """Snapshot now (a host copy of every leaf), write asynchronously."""
+        """Snapshot now (a host copy of every leaf), write asynchronously. A
+        tree with DTensor leaves is a collective: every rank of its mesh
+        calls ``save``, and rank 0 writes."""
         self.wait()  # back-pressure: one outstanding save max
-        host = tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
-        t = threading.Thread(target=self._write, args=(step, host, extra or {}),
-                             daemon=True, name=f"ckpt-{step}")
-        self._pending = t
-        t.start()
+        on_mesh = any(isinstance(t, DTensor) for t in leaf_paths(tree).values())
+        if on_mesh:
+            tree = experts_whole(tree_map(whole, tree))
+            self._mesh_save = True
+        if not on_mesh or dist.get_rank() == 0:
+            host = tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+            t = threading.Thread(target=self._write, args=(step, host, extra or {}),
+                                 daemon=True, name=f"ckpt-{step}")
+            self._pending = t
+            t.start()
         if block:
             self.wait()
 
@@ -74,6 +92,9 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._mesh_save:  # the other ranks wait for rank 0's write
+            self._mesh_save = False
+            dist.barrier()
 
     def _write(self, step: int, host_tree: Any, extra: Dict[str, Any]) -> None:
         tmp = os.path.join(self.dir, f".tmp_step_{step:09d}")
@@ -117,9 +138,14 @@ class CheckpointManager:
                 return int(c.split("_")[1])
         return None
 
-    def restore(self, step: Optional[int], like: Any) -> Tuple[Any, int, Dict[str, Any]]:
+    def restore(self, step: Optional[int], like: Any, shardings: Optional[Any] = None
+                ) -> Tuple[Any, int, Dict[str, Any]]:
         """Load into the structure of ``like`` (a tree of tensors), each leaf in
-        its ``like`` leaf's dtype and on its device. Verifies digests and
+        its ``like`` leaf's dtype and on its device. With ``shardings`` (a
+        tree like ``like`` of ``parallel.axes.NamedSharding``, or None for a
+        leaf kept whole, as ``parallel.specs.make_shardings`` gives) the MoE
+        experts are blocked as ``like``'s and every leaf is placed by its
+        sharding: each rank keeps its own chunks. Verifies digests and
         raises on corruption (IOError), a shape mismatch (ValueError) or a
         missing leaf (KeyError). Returns (tree, step, extra)."""
         if step is None:
@@ -130,6 +156,12 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         like_leaves = leaf_paths(like)
+        # experts blocked in ``like`` (a mesh's layout) are stored whole: check
+        # and load them whole, then block them as ``like``'s
+        shapes = leaf_paths(experts_whole(tree_map(
+            lambda t: torch.empty(t.shape, device="meta"), like)))
+        tps = {t.shape[1] for k, t in like_leaves.items()
+               if k.endswith("moe/w_gate") and t.dim() == 5}
         loaded: Dict[str, torch.Tensor] = {}
         for key, meta in manifest["leaves"].items():
             if key not in like_leaves:
@@ -138,12 +170,17 @@ class CheckpointManager:
             if _digest(arr) != meta["digest"]:
                 raise IOError(f"checkpoint corruption in {key} @ step {step}")
             target = like_leaves[key]
-            if list(arr.shape) != list(target.shape):
+            if list(arr.shape) != list(shapes[key].shape):
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != model "
-                                 f"{tuple(target.shape)}")
+                                 f"{tuple(shapes[key].shape)}")
             t = _logical(arr, meta["dtype"])
             loaded[key] = t.to(device=target.device, dtype=target.dtype)
         missing = set(like_leaves) - set(loaded)
         if missing:
             raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
-        return unflatten_like(like, loaded), manifest["step"], manifest.get("extra", {})
+        out = unflatten_like(like, loaded)
+        if tps:
+            out = experts_blocked(out, tps.pop())
+        if shardings is not None:
+            out = tree_map(place, out, shardings)
+        return out, manifest["step"], manifest.get("extra", {})

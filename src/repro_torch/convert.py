@@ -18,17 +18,21 @@ F/fp, D)`` with ``(ep, fp) = _ep_fp(cfg, tp)``, and the port stores whole
 experts, ``(E, D, F)`` and ``(E, F, D)`` (``repro_torch.models.moe``);
 ``params_from_jax`` and ``opt_state_from_jax`` re-block them once, here
 (``unblock_experts``), and ``block_experts`` is its exact inverse, for a
-port tree written in the JAX package's layout.
+port tree written in the JAX package's layout. On a mesh the port holds the
+experts blocked for the mesh's model size (``parallel.specs``):
+``experts_blocked`` and ``experts_whole`` turn any tree (params, an
+optimizer state, a checkpoint's) between the two layouts, the expert count
+read from each layer's router.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import ep_fp
 from repro_torch.optim.adamw import OptState
 
 
@@ -55,17 +59,15 @@ def _regroup(w: Any, shape, axes, out_shape) -> Any:
     return np.asarray(w).reshape(shape).transpose(axes).reshape(out_shape)
 
 
-def unblock_experts(moe: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """An MoE layer's params, stacked over units (leading axis n), with the
-    expert leaves re-blocked from JAX's ``(n, tp, E/ep, D, F/fp)`` and ``(n,
-    tp, E/ep, F/fp, D)`` to ``(n, E, D, F)`` and ``(n, E, F, D)``, as
-    ``_moe_compute_local`` reassembles them: block ``b·fp + f`` holds F slice
-    ``f`` of experts ``b·E/ep`` up to ``(b+1)·E/ep``. Other leaves pass as
-    they are. Numpy leaves give numpy leaves, tensors tensors."""
-    n, tp = moe["w_gate"].shape[:2]
-    ep, fp = ep_fp(cfg, tp)
-    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
-    e_loc, f_loc = E // ep, F // fp
+def _ep_fp(n_experts: int, tp: int):
+    ep = math.gcd(n_experts, tp)  # models.moe.ep_fp's factoring
+    return ep, tp // ep
+
+
+def _unblock(moe: Dict[str, Any], n_experts: int) -> Dict[str, Any]:
+    n, tp, e_loc, D, f_loc = moe["w_gate"].shape
+    ep, fp = _ep_fp(n_experts, tp)
+    E, F = n_experts, f_loc * fp
     out = dict(moe)
     for name in ("w_gate", "w_up"):
         out[name] = _regroup(moe[name], (n, ep, fp, e_loc, D, f_loc), (0, 1, 3, 4, 2, 5),
@@ -75,15 +77,9 @@ def unblock_experts(moe: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def block_experts(moe: Dict[str, Any], cfg: ModelConfig, tp: int) -> Dict[str, Any]:
-    """The exact inverse of ``unblock_experts``: an MoE layer's params (or
-    an optimizer moment of them) stacked over units, from the port's ``(n,
-    E, D, F)`` and ``(n, E, F, D)`` to the JAX package's layout blocked for a
-    model axis of ``tp`` shards (its ``init_moe_layer`` takes ``tp_hint=16``).
-    A permutation of the values: bit for bit."""
-    n = moe["w_gate"].shape[0]
-    ep, fp = ep_fp(cfg, tp)
-    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+def _block(moe: Dict[str, Any], tp: int) -> Dict[str, Any]:
+    n, E, D, F = moe["w_gate"].shape
+    ep, fp = _ep_fp(E, tp)
     e_loc, f_loc = E // ep, F // fp
     out = dict(moe)
     for name in ("w_gate", "w_up"):
@@ -94,13 +90,55 @@ def block_experts(moe: Dict[str, Any], cfg: ModelConfig, tp: int) -> Dict[str, A
     return out
 
 
+def unblock_experts(moe: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """An MoE layer's params, stacked over units (leading axis n), with the
+    expert leaves re-blocked from JAX's ``(n, tp, E/ep, D, F/fp)`` and ``(n,
+    tp, E/ep, F/fp, D)`` to ``(n, E, D, F)`` and ``(n, E, F, D)``, as
+    ``_moe_compute_local`` reassembles them: block ``b·fp + f`` holds F slice
+    ``f`` of experts ``b·E/ep`` up to ``(b+1)·E/ep``. Other leaves pass as
+    they are. Numpy leaves give numpy leaves, tensors tensors."""
+    return _unblock(moe, cfg.n_experts)
+
+
+def block_experts(moe: Dict[str, Any], cfg: ModelConfig, tp: int) -> Dict[str, Any]:
+    """The exact inverse of ``unblock_experts``: an MoE layer's params (or
+    an optimizer moment of them) stacked over units, from the port's ``(n,
+    E, D, F)`` and ``(n, E, F, D)`` to the JAX package's layout blocked for a
+    model axis of ``tp`` shards (its ``init_moe_layer`` takes ``tp_hint=16``).
+    A permutation of the values: bit for bit."""
+    if moe["w_gate"].shape[1] != cfg.n_experts:
+        raise ValueError(f"{moe['w_gate'].shape[1]} experts in the leaves, "
+                         f"{cfg.n_experts} in the config")
+    return _block(moe, tp)
+
+
 def map_experts(tree: Any, fn) -> Any:
-    """A param-shaped tree (params, gradients, a moment or the master copy)
-    with ``fn`` applied to the ``moe`` dict of every unit that has one; the
-    rest as it is."""
-    units = [{**u, "moe": fn(u["moe"])} if "moe" in u else u
-             for u in tree["backbone"]["units"]]
-    return {**tree, "backbone": {**tree["backbone"], "units": units}}
+    """A tree (params, gradients, a moment, the master copy, or any nesting
+    of them in dicts, lists and NamedTuples) with ``fn`` applied to every MoE
+    layer's dict (the one holding ``router`` and ``w_gate``); the rest as it
+    is."""
+    if isinstance(tree, dict):
+        if "router" in tree and "w_gate" in tree:
+            return fn(tree)
+        return {k: map_experts(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_experts(getattr(tree, f), fn) for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_experts(v, fn) for v in tree)
+    return tree
+
+
+def experts_whole(tree: Any) -> Any:
+    """``tree`` with every blocked MoE layer (rank-5 experts) in the port's
+    whole layout; the expert count is the router's."""
+    return map_experts(tree, lambda m: _unblock(m, m["router"].shape[-1])
+                       if m["w_gate"].dim() == 5 else m)
+
+
+def experts_blocked(tree: Any, tp: int) -> Any:
+    """``tree`` with every whole MoE layer (rank-4 experts) blocked for a
+    model axis of ``tp`` shards, the layout on a mesh of that model size."""
+    return map_experts(tree, lambda m: _block(m, tp) if m["w_gate"].dim() == 4 else m)
 
 
 def _has_experts(tree: Any) -> bool:

@@ -7,7 +7,10 @@ with the reference's key names and layouts (``wq (D,H,Dh)``, ``wk``/``wv
 (D,Hkv,Dh)``, ``wo (H,Dh,D)``, ``w_gate``/``w_up (D,F)``, ``w_down (F,D)``,
 the GELU MLP's ``b_up (F,)``, ``b_down (D,)``, LayerNorm's ``bias (D,)``,
 ``tok (V,D)``), and ``apply_*`` consumes it. The projections and the MLP are
-plain matrix products; attention goes through ``kernels.ops``.
+plain matrix products; attention goes through ``kernels.ops``. Every param
+is read through ``parallel.axes.gather_weight`` and activations pass
+``shard`` where the JAX package constrains them; both return their input
+without a mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.axes import gather_weight, shard
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -95,8 +99,9 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
-    return rms_head_norm(x, p["scale"], cfg.norm_eps)
+        return (y * gather_weight(p["scale"]).float()
+                + gather_weight(p["bias"]).float()).to(x.dtype)
+    return rms_head_norm(x, gather_weight(p["scale"]), cfg.norm_eps)
 
 
 def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -153,28 +158,33 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.T
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj_heads(x, p["wq"], cdt(cfg))
-    k = _proj_heads(x, p["wk"], cdt(cfg))
-    v = _proj_heads(x, p["wv"], cdt(cfg))
+    q = _proj_heads(x, gather_weight(p["wq"]), cdt(cfg))
+    k = _proj_heads(x, gather_weight(p["wk"]), cdt(cfg))
+    v = _proj_heads(x, gather_weight(p["wv"]), cdt(cfg))
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_head_norm(q, gather_weight(p["q_norm"]), cfg.norm_eps)
+        k = rms_head_norm(k, gather_weight(p["k_norm"]), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
 def _out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor) -> torch.Tensor:
     """out (..., H, Dh) times wo (H,Dh,D) → (..., D)."""
     H, Dh, D = p["wo"].shape
-    return out.reshape(*out.shape[:-2], H * Dh) @ p["wo"].to(cdt(cfg)).reshape(H * Dh, D)
+    w = gather_weight(p["wo"]).to(cdt(cfg)).reshape(H * Dh, D)
+    return out.reshape(*out.shape[:-2], H * Dh) @ w
 
 
 def _attend(cfg: ModelConfig, p: Params, q, k, v,
             window_override: Optional[int]) -> torch.Tensor:
     window = cfg.window if window_override is None else window_override
     out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
-    return _out_proj(cfg, p, out)
+    out = shard(out, "batch", None, "heads", None)
+    return shard(_out_proj(cfg, p, out), "batch", None, None)
 
 
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -238,9 +248,12 @@ def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
     bidx = torch.arange(B, device=x_t.device)
     k_cache[bidx, slot] = k[:, 0]
     v_cache[bidx, slot] = v[:, 0]
+    k_cache = shard(k_cache, "batch", "kv_seq", None, None)
+    v_cache = shard(v_cache, "batch", "kv_seq", None, None)
     cache_len = torch.clamp(pos + 1, max=C).to(torch.int32)
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, cache_len)
-    return _out_proj(cfg, p, out)[:, None], k_cache, v_cache
+    out = shard(out, "batch", "heads", None)
+    return shard(_out_proj(cfg, p, out)[:, None], "batch", None, None), k_cache, v_cache
 
 
 # =============================================================================
@@ -274,13 +287,14 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     default, the erf form, differs by up to 4.7e-4 over [-6, 6])."""
     c = cdt(cfg)
     if cfg.act == "silu":
-        g = x @ p["w_gate"].to(c)
-        u = x @ p["w_up"].to(c)
-        h = F.silu(g.float()).to(c) * u
-        return h @ p["w_down"].to(c)
-    u = x @ p["w_up"].to(c) + p["b_up"]
-    h = F.gelu(u.float(), approximate="tanh").to(c)
-    return h @ p["w_down"].to(c) + p["b_down"]
+        g = x @ gather_weight(p["w_gate"]).to(c)
+        u = x @ gather_weight(p["w_up"]).to(c)
+        h = shard(F.silu(g.float()).to(c) * u, "batch", None, "ffn")
+        return shard(h @ gather_weight(p["w_down"]).to(c), "batch", None, None)
+    u = x @ gather_weight(p["w_up"]).to(c) + gather_weight(p["b_up"])
+    h = shard(F.gelu(u.float(), approximate="tanh").to(c), "batch", None, "ffn")
+    y = h @ gather_weight(p["w_down"]).to(c) + gather_weight(p["b_down"])
+    return shard(y, "batch", None, None)
 
 
 # =============================================================================
@@ -298,22 +312,24 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not indexing: its CUDA backward sums each row's gradient in
     # a fixed order, where indexing's accumulating scatter need not
-    return F.embedding(tokens, p["tok"].to(cdt(cfg)))
+    x = F.embedding(tokens, gather_weight(p["tok"]).to(cdt(cfg)))
+    return shard(x, "batch", None, None)
 
 
 def unembed_matrix(cfg: ModelConfig, p: Params) -> torch.Tensor:
     w = p["tok"] if cfg.tie_embeddings else p["unembed"]
-    return w.to(cdt(cfg))
+    return gather_weight(w).to(cdt(cfg))
 
 
 def logits_for(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Full logits (..., V) — use only for single-position outputs."""
-    return x @ unembed_matrix(cfg, p).t()
+    out = x @ unembed_matrix(cfg, p).t()
+    return shard(out, "batch", "vocab") if out.dim() == 2 else shard(out, "batch", None, "vocab")
 
 
 def _xent_chunk(x_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = (x_c @ w.t()).float()
+    logits = shard((x_c @ w.t()).float(), "batch", None, "vocab")
     lse = torch.logsumexp(logits, dim=-1)
     valid = l_c != -100
     safe = torch.where(valid, l_c, 0).long()

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.axes import batch_axes, batch_shards, shard, sum_over
 from . import mamba2, rglru, transformer
 from .config import ModelConfig
 from .layers import (
@@ -85,7 +86,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    return x, positions, labels
+    return shard(x, "batch", None, None), positions, labels
 
 
 def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
@@ -93,15 +94,29 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     """Mean cross-entropy of ``batch`` against its labels (-100 ignored)
     plus the aux loss summed over the MoE layers (0 without experts), with
     per-layer recompute (``src/repro/models/lm.py:87-95``). Returns (loss,
-    {loss, xent, aux, tokens}), f32 scalars."""
+    {loss, xent, aux, tokens}), f32 scalars.
+
+    Under axis rules that split the batch over n > 1 ranks, ``batch`` is
+    this rank's rows: the token count is the global one, the returned loss
+    is this rank's share (its cross-entropy sum over the global count, plus
+    1/n of the aux loss, which the MoE layers average over the mesh), whose
+    gradients the param gathers sum over the ranks, and the metrics are the
+    global loss, cross-entropy and aux loss."""
     x, positions, labels = _embed_inputs(cfg, params, batch)
     hidden, aux = backbone(cfg).forward_hidden(cfg, params["backbone"], x, positions)
     hidden = apply_norm(cfg, params["final_norm"], hidden)
     loss_sum, n_valid = chunked_softmax_xent(cfg, params["embed"], hidden, labels)
-    n_valid = torch.clamp_min(n_valid, 1.0)
+    rows = batch_axes()
+    n_valid = torch.clamp_min(sum_over(n_valid, rows), 1.0)
     xent = loss_sum / n_valid
-    loss = xent + aux
-    return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": n_valid}
+    n = batch_shards()
+    if n == 1:
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": n_valid}
+    share = xent + aux / n
+    xent = sum_over(xent, rows)
+    aux = aux.detach()
+    return share, {"loss": xent + aux, "xent": xent, "aux": aux, "tokens": n_valid}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:

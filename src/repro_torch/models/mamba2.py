@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.axes import gather_weight, shard
 from .config import ModelConfig
 from .layers import (Params, _normal, apply_norm, cdt, dt, init_norm, init_stacked,
                      layer_of)
@@ -60,15 +61,15 @@ def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
 
 
 def _dt(p: Params, dt_raw: torch.Tensor) -> torch.Tensor:
-    return F.softplus(dt_raw.float() + p["dt_bias"].float())
+    return F.softplus(dt_raw.float() + gather_weight(p["dt_bias"]).float())
 
 
 def _gated_out(cfg: ModelConfig, p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Gated RMSNorm + out projection. y, z (..., d_inner)."""
     yf = y.float() * F.silu(z.float())
     ms = (yf * yf).mean(-1, keepdim=True)
-    yn = yf * torch.rsqrt(ms + cfg.norm_eps) * p["out_norm"].float()
-    return yn.to(cdt(cfg)) @ p["out_proj"].to(cdt(cfg))
+    yn = yf * torch.rsqrt(ms + cfg.norm_eps) * gather_weight(p["out_norm"]).float()
+    return yn.to(cdt(cfg)) @ gather_weight(p["out_proj"]).to(cdt(cfg))
 
 
 def _conv_silu(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, S: int) -> torch.Tensor:
@@ -83,16 +84,17 @@ def _block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor
     state (B,H,P,N) f32, conv tail (B,K-1,conv_dim) f32)."""
     B, S, _ = x.shape
     H, P, K = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.conv_width
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"].to(cdt(cfg)))
+    z, xbc, dt_raw = _split_proj(cfg, x @ gather_weight(p["in_proj"]).to(cdt(cfg)))
     conv_tail = xbc[:, -(K - 1):].float()
-    xbc = _conv_silu(F.pad(xbc, (0, 0, K - 1, 0)), p["conv_w"], p["conv_b"], S)
+    xbc = _conv_silu(F.pad(xbc, (0, 0, K - 1, 0)), gather_weight(p["conv_w"]),
+                     gather_weight(p["conv_b"]), S)
     xs, Bmat, Cmat = _split_xbc(cfg, xbc)
-    xh = xs.reshape(B, S, H, P).contiguous()
-    y, h_final = ops.ssd_scan(xh, _dt(p, dt_raw), -torch.exp(p["a_log"]),
+    xh = shard(xs.reshape(B, S, H, P).contiguous(), "batch", None, "ssm_heads", None)
+    y, h_final = ops.ssd_scan(xh, _dt(p, dt_raw), -torch.exp(gather_weight(p["a_log"])),
                               Bmat.contiguous(), Cmat.contiguous(), chunk=cfg.ssm_chunk)
-    y = y.float() + p["d_skip"].float()[None, None, :, None] * xh.float()
+    y = y.float() + gather_weight(p["d_skip"]).float()[None, None, :, None] * xh.float()
     out = _gated_out(cfg, p, y.reshape(B, S, cfg.d_inner).to(cdt(cfg)), z)
-    return out, h_final, conv_tail
+    return shard(out, "batch", None, None), h_final, conv_tail
 
 
 def _layer(cfg: ModelConfig, p_block: Params, p_norm: Params, x: torch.Tensor) -> torch.Tensor:
@@ -111,6 +113,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
         x = torch.utils.checkpoint.checkpoint(_layer, cfg, layer_of(params["blocks"], i),
                                               layer_of(params["norms"], i), x,
                                               use_reentrant=False, preserve_rng_state=False)
+        x = shard(x, "batch", None, None)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.axes import gather_weight, shard
 from .config import ModelConfig
 from .layers import (
     Params,
@@ -91,9 +92,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _rglru_gates(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (a_log (B,S,W) <= 0, gated input (B,S,W)), both f32."""
-    r = torch.sigmoid(_block_diag_matmul(xc, p["w_a"]).float() + p["b_a"].float())
-    i = torch.sigmoid(_block_diag_matmul(xc, p["w_i"]).float() + p["b_i"].float())
-    a_log = -C_RGLRU * F.softplus(p["lam"]) * r
+    r = torch.sigmoid(_block_diag_matmul(xc, gather_weight(p["w_a"])).float()
+                      + gather_weight(p["b_a"]).float())
+    i = torch.sigmoid(_block_diag_matmul(xc, gather_weight(p["w_i"])).float()
+                      + gather_weight(p["b_i"]).float())
+    a_log = -C_RGLRU * F.softplus(gather_weight(p["lam"])) * r
     return a_log, i * xc.float()
 
 
@@ -102,12 +105,13 @@ def _rglru_mix(cfg: ModelConfig, p: Params, x: torch.Tensor
     """Full-sequence RG-LRU mixing. x (B,S,D) → (out (B,S,D), last state
     (B,W) in the compute dtype, conv input xb (B,S,W))."""
     c = cdt(cfg)
-    gate = _gelu((x @ p["w_gate"].to(c)).float())
-    xb = x @ p["w_x"].to(c)
-    a_log, gated = _rglru_gates(p, _causal_conv(xb, p["conv_w"], p["conv_b"]))
+    gate = _gelu((x @ gather_weight(p["w_gate"]).to(c)).float())
+    xb = shard(x @ gather_weight(p["w_x"]).to(c), "batch", None, "ffn")
+    xc = _causal_conv(xb, gather_weight(p["conv_w"]), gather_weight(p["conv_b"]))
+    a_log, gated = _rglru_gates(p, xc)
     hs, h_last = ops.rglru_scan(gated.to(c), a_log)
-    out = (hs.float() * gate).to(c) @ p["w_out"].to(c)
-    return out, h_last, xb
+    out = (hs.float() * gate).to(c) @ gather_weight(p["w_out"]).to(c)
+    return shard(out, "batch", None, None), h_last, xb
 
 
 def apply_rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -200,6 +204,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
         # the layers draw no random numbers: no RNG state to replay
         x = torch.utils.checkpoint.checkpoint(_layer, cfg, kind, p, x, positions,
                                               use_reentrant=False, preserve_rng_state=False)
+        x = shard(x, "batch", None, None)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

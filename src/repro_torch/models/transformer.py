@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.parallel.axes import shard
 from .config import ModelConfig
 from .layers import (
     Params,
@@ -115,6 +116,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
         x, a = torch.utils.checkpoint.checkpoint(_layer, cfg, p, x, positions,
                                                  use_reentrant=False,
                                                  preserve_rng_state=False)
+        x = shard(x, "batch", None, None)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -149,6 +151,7 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
         cache["k"][i, pos].copy_(k)
         cache["v"][i, pos].copy_(v)
         x, _ = _ffn(cfg, p, x + h)
+        x = shard(x, "batch", None, None)
     return x, cache
 
 

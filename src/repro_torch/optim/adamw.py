@@ -7,6 +7,11 @@ two packages name every leaf alike. One difference: ``apply_updates`` writes
 the new params, master copy and moments into the given tensors, in place,
 where the JAX train step donates them; at qwen3-1.7b's width that saves the
 24 GB a second copy of the optimizer state would take.
+
+On a mesh the params, master copy, moments and gradients are DTensors laid
+out alike (the step stays a plain tensor): ``global_norm`` is the norm over
+the whole mesh, and the update runs leaf by leaf on each rank's local
+shards.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.tree import leaf_paths, tree_map
 
@@ -54,7 +61,8 @@ def schedule(cfg: AdamWConfig, step: Union[int, torch.Tensor]) -> torch.Tensor:
 
 def init(cfg: AdamWConfig, params: Params) -> OptState:
     device = next(iter(leaf_paths(params).values())).device
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                                 memory_format=torch.contiguous_format),
                      params)
     # clone: the master copy must never alias an f32 param (both are updated)
     master = (tree_map(lambda p: p.detach().to(torch.float32).clone(), params)
@@ -63,9 +71,28 @@ def init(cfg: AdamWConfig, params: Params) -> OptState:
                     m=zeros, v=tree_map(torch.clone, zeros))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in leaf_paths(tree).values()])))
+    """The L2 norm over every leaf, a plain f32 scalar. A DTensor leaf's
+    square sum is its shards' sum over the mesh axes it is split on (a
+    replicated axis holds copies, counted once); the leaves' sums are then
+    added in leaf order, as without a mesh."""
+    leaves = list(leaf_paths(tree).values())
+    sq = [torch.sum(torch.square(_local(x).float())) for x in leaves]
+    meshes = {x.device_mesh for x in leaves if isinstance(x, DTensor)}
+    for mesh in meshes:
+        for dim in range(mesh.ndim):
+            split = [i for i, x in enumerate(leaves) if isinstance(x, DTensor)
+                     and x.device_mesh == mesh and isinstance(x.placements[dim], Shard)]
+            if split:
+                part = torch.stack([sq[i] for i in split])
+                dist.all_reduce(part, group=mesh.get_group(dim))
+                for j, i in enumerate(split):
+                    sq[i] = part[j]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
@@ -110,12 +137,12 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: OptSta
     g_leaves, m_leaves, v_leaves = (leaf_paths(t) for t in (grads, state.m, state.v))
     master_leaves = leaf_paths(state.master) if cfg.master_fp32 else {}
     for key, p in p_leaves.items():
-        g = g_leaves[key]
+        g = _local(g_leaves[key])
         g = (g * scale.to(g.dtype)).to(torch.float32)
-        m, v = m_leaves[key], v_leaves[key]
+        p, m, v = _local(p), _local(m_leaves[key]), _local(v_leaves[key])
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        base = master_leaves[key] if cfg.master_fp32 else p.to(torch.float32)
+        base = _local(master_leaves[key]) if cfg.master_fp32 else p.to(torch.float32)
         new = base - lr * ((m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
                            + cfg.weight_decay * base)
         if cfg.master_fp32:

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -21,20 +22,30 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
     The param leaves require grad only for the duration of the call. A leaf
     the loss does not reach (hubert-xlarge's ``embed.tok``: its frames are
     not tokens) gets a zero gradient of its shape and dtype, as
-    ``jax.value_and_grad`` gives it, so AdamW still decays it."""
+    ``jax.value_and_grad`` gives it, so AdamW still decays it.
+
+    On a mesh (DTensor params) each gradient is laid out as its param: a
+    replicated param's gradient comes back partial over the batch axes
+    (``parallel.axes.gather_weight``) and is summed here."""
     named = leaf_paths(params)
     for p in named.values():
         p.requires_grad_(True)
     try:
         loss, metrics = lm.train_loss(cfg, params, batch)
         grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
                  for p, g in zip(named.values(), grads)]
     finally:
         for p in named.values():
             p.requires_grad_(False)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten_like(params, dict(zip(named, grads)))
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig) -> Callable:

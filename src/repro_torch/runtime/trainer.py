@@ -1,6 +1,6 @@
 """Trainer runtime: the bypass-fed step loop with checkpoint/restart and
 straggler handling (port of ``src/repro/runtime/trainer.py:60``), on one
-device.
+device or on a mesh.
 
 * **feed choice** — ``feed="bypass"`` (polling, multi-port, copies issued
   ahead on a side stream) or ``feed="kernel"`` (blocking baseline); one
@@ -13,16 +13,23 @@ device.
   in-flight transfers, refills from the staging rings, retries once, and
   counts the event in ``straggler_events``.
 
-There is no mesh or sharding rule: the port runs on one device (sharding is
-a later slice, ROADMAP.md).
+* **mesh** — given a DeviceMesh and axis rules, the params and optimizer
+  state are DTensors laid out by ``parallel.specs`` (the MoE experts blocked
+  for the mesh's model size), the steps run under the rules, each rank
+  trains on its rows of the global batch the deterministic pipeline draws
+  (so the data equal the unsharded run's), and a restore re-shards the
+  checkpoint onto the mesh it finds (``src/repro/runtime/trainer.py:64-131``).
+  Only rank 0 prints.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.dataplane import BypassDataplane, make_feed
@@ -30,6 +37,9 @@ from repro_torch.data.pipeline import DataConfig, stream_factory
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.parallel import axes
+from repro_torch.parallel.specs import (batch_rows, expert_blocks, make_param_specs,
+                                        make_shardings, place_tree)
 from repro_torch.runtime.steps import make_train_step
 
 
@@ -71,12 +81,14 @@ def _step_events(device: torch.device):
 class TrainerRuntime:
     def __init__(self, cfg: ModelConfig, dcfg: DataConfig, tcfg: TrainerConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-                 device: torch.device):
+                 device: torch.device, mesh=None, rules: Optional[axes.AxisRules] = None):
         self.cfg = cfg
         self.dcfg = dcfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.rules = rules
         self.ckpt = CheckpointManager(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
         self.metrics_log: List[dict] = []
         self.step_times_s: List[float] = []  # host time of each step, synchronised
@@ -89,9 +101,42 @@ class TrainerRuntime:
         self.feed = None
 
     # -- setup ------------------------------------------------------------------
+    def _on_mesh(self) -> bool:
+        return self.mesh is not None and self.rules is not None
+
+    def _ctx(self):
+        if self.rules is not None:
+            return axes.axis_rules(self.rules, self.mesh)
+        return contextlib.nullcontext()
+
+    def _log(self, msg: str) -> None:
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(msg)
+
+    def _shardings(self, params):
+        """(param shardings, optimizer-state shardings) of the mesh's
+        layout of ``params`` (whole or already placed), or (None, None)
+        without a mesh; the step count stays a plain tensor."""
+        if not self._on_mesh():
+            return None, None
+        pshard = make_shardings(make_param_specs(expert_blocks(params, self.mesh), self.rules,
+                                                 self.mesh), self.mesh)
+        oshard = adamw.OptState(step=None, master=pshard if self.opt_cfg.master_fp32 else (),
+                                m=pshard, v=pshard)
+        return pshard, oshard
+
+    def place(self, params):
+        """Whole params (the same on every rank) laid out on the mesh: the
+        experts blocked for its model size, each leaf a DTensor holding this
+        rank's chunk. As they are without a mesh."""
+        pshard, _ = self._shardings(params)
+        if pshard is None:
+            return params
+        return place_tree(expert_blocks(params, self.mesh), pshard)
+
     def init_state(self) -> TrainerState:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = lm.init_params(self.cfg, gen, self.device)
+        params = self.place(lm.init_params(self.cfg, gen, self.device))
         return TrainerState(params=params, opt_state=adamw.init(self.opt_cfg, params))
 
     def maybe_restore(self, state: TrainerState) -> TrainerState:
@@ -100,18 +145,26 @@ class TrainerRuntime:
         latest = self.ckpt.latest_step()
         if latest is None:
             return state
+        pshard, oshard = self._shardings(state.params)
         tree = {"params": state.params, "opt": state.opt_state}
-        restored, step, _ = self.ckpt.restore(latest, tree)
-        print(f"[trainer] restored checkpoint @ step {step}")
+        shardings = {"params": pshard, "opt": oshard} if pshard is not None else None
+        restored, step, _ = self.ckpt.restore(latest, tree, shardings)
+        self._log(f"[trainer] restored checkpoint @ step {step}")
         return TrainerState(params=restored["params"], opt_state=restored["opt"], step=step)
 
     # -- run -------------------------------------------------------------------
     def run(self, state: Optional[TrainerState] = None) -> TrainerState:
         """Train from ``state`` (or a fresh, possibly restored, one) up to
-        ``tcfg.steps``. The given state's tensors are updated in place."""
+        ``tcfg.steps``. The given state's tensors are updated in place; on a
+        mesh, a given state is laid out as ``place`` lays it out."""
+        with self._ctx():
+            return self._run(state)
+
+    def _run(self, state: Optional[TrainerState]) -> TrainerState:
         tcfg = self.tcfg
         if state is None:
             state = self.maybe_restore(self.init_state())
+        n_rows, own_rows = axes.batch_shards(), axes.batch_index()
         step_fn = make_train_step(self.cfg, self.opt_cfg)
         factory = stream_factory(self.cfg, self.dcfg, start_step=state.step,
                                  n_steps=tcfg.steps - state.step)
@@ -133,6 +186,8 @@ class TrainerRuntime:
                     batch = feed.next_batch(timeout_s=tcfg.step_deadline_s)
                 if batch is None:
                     break
+                if n_rows > 1:
+                    batch = batch_rows(batch, n_rows, own_rows)
                 t_issue = time.perf_counter()
                 self.feed_times_s.append(t_issue - t0)
                 events = _step_events(self.device)
@@ -150,8 +205,8 @@ class TrainerRuntime:
                     m["step"] = state.step
                     m["wall_s"] = round(time.perf_counter() - t_start, 2)
                     self.metrics_log.append(m)
-                    print(f"[trainer] step {state.step}: loss={m['loss']:.4f} "
-                          f"gnorm={m['grad_norm']:.3f} ({m['wall_s']}s)")
+                    self._log(f"[trainer] step {state.step}: loss={m['loss']:.4f} "
+                              f"gnorm={m['grad_norm']:.3f} ({m['wall_s']}s)")
                 if self.ckpt is not None and state.step % tcfg.ckpt_every == 0:
                     self.ckpt.save(state.step, {"params": state.params,
                                                 "opt": state.opt_state},

@@ -2,14 +2,18 @@
 in the order ``jax.tree_util`` walks them (dict keys sorted, sequences and
 NamedTuple fields in order), with the leaf keys the JAX package's checkpoint
 manager gives them (``params/backbone/units/0/attn/wq``, ``opt/m/...``,
-``opt/step``), so that the two packages name every leaf alike."""
+``opt/step``), so that the two packages name every leaf alike. As in
+``jax.tree_util``, ``is_leaf`` marks nodes to take whole (a spec, which is
+a tuple, in a tree of specs)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
-def _children(node: Any):
+def _children(node: Any, is_leaf: Optional[Callable[[Any], bool]] = None):
     """(key, child) pairs of an inner node, or None for a leaf."""
+    if is_leaf is not None and is_leaf(node):
+        return None
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -19,12 +23,13 @@ def _children(node: Any):
     return None
 
 
-def leaf_paths(tree: Any) -> Dict[str, Any]:
+def leaf_paths(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+               ) -> Dict[str, Any]:
     """{"a/b/0/c": leaf} in flatten order."""
     out: Dict[str, Any] = {}
 
     def walk(node: Any, prefix: str) -> None:
-        kids = _children(node)
+        kids = _children(node, is_leaf)
         if kids is None:
             out[prefix] = node
             return
@@ -35,17 +40,22 @@ def leaf_paths(tree: Any) -> Dict[str, Any]:
     return out
 
 
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``
     (trees of the same structure); returns a tree of that structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, getattr(tree, f), *(getattr(r, f) for r in rest))
-                            for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, c, *(r[i] for r in rest)) for i, c in enumerate(tree))
-    return fn(tree, *rest)
+    def walk(node: Any, *others: Any) -> Any:
+        if is_leaf is not None and is_leaf(node):
+            return fn(node, *others)
+        if isinstance(node, dict):
+            return {k: walk(node[k], *(r[k] for r in others)) for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(getattr(node, f), *(getattr(r, f) for r in others))
+                                for f in node._fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(c, *(r[i] for r in others)) for i, c in enumerate(node))
+        return fn(node, *others)
+    return walk(tree, *rest)
 
 
 def unflatten_like(like: Any, by_key: Dict[str, Any]) -> Any:

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.checkpoint.manager import CheckpointManager as JaxCheckpointManager
 from repro.configs.qwen3_1p7b import SMOKE_CONFIG as JAX_SMOKE
@@ -583,10 +584,18 @@ def test_train_main_runs_on_the_cpu(tmp_path):
     assert CheckpointManager(str(tmp_path)).latest_step() == 2
 
 
-def test_train_main_refuses_without_a_gpu_and_with_a_mesh(monkeypatch):
+def test_train_main_refuses_without_a_gpu_and_with_a_mesh(monkeypatch, tmp_path):
+    """Without a GPU the default device raises; ``--mesh`` in a one-rank
+    world raises naming the ranks its production mesh needs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_launch.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match='Queue 1, "Sharding"'):
-        train_launch.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
-                           "--mesh", "single"])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'world'}", rank=0,
+                            world_size=1)
+    try:
+        for mesh, ranks in (("single", 256), ("multi", 512)):
+            with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+                train_launch.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                                   "--mesh", mesh])
+    finally:
+        dist.destroy_process_group()
