@@ -213,6 +213,18 @@ Phases, each printed as one JSON object per line:
    at the end of the phase;
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
+   dryrun (run_dryrun): both digests through the kernels' torch.library ops
+   equal to the bare launchers' and their pins (ops_bits); the host us of a
+   qwen3-1.7b decode call through the wrapper, the op and the bare launcher
+   (decode_host); qwen3-1.7b and mixtral-8x7b (16 of 32 layers) prefilled
+   and decoded 32 greedy steps on a (1, 1) NCCL mesh, logits and tokens
+   bitwise the unsharded run's, launches, TTFT and TPOT of both
+   (mesh_serve); five real steps (CALIBRATION) counted by the dry run's op
+   counter, their counts equal to the same steps on fake tensors
+   (fake_calibration, a process of its own), each roofline bound under its
+   CUDA-event time, the predicted peak beside the measured one
+   (calibration); and the production cells of DRYRUN_CELLS through
+   python -m repro_torch.launch.dryrun (dryrun_cell, dryrun_summary);
 6. times: each kernel at the shapes of its main path (serve, train, the
    gather's benchmark; the flash backward and the RG-LRU backward also at
    recurrentgemma-9b's train shape, the flash backward's yardstick there
@@ -267,6 +279,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -734,11 +747,12 @@ def run_checks(dev):
     return worst
 
 
-def forward_digest(dev):
+def forward_digest(dev, through_op=False):
     """sha256 over the bytes of the flash forward's output and logsumexp, f32
     and bf16, at the first DIGEST_CASES of FLASH_CASES and the train shape:
     two trees whose digests agree on one card compute bitwise-equal
-    forwards."""
+    forwards. The launcher is called bare, or through its ``torch.library``
+    op (``through_op``)."""
     from repro_torch.kernels import flash_attention as kflash
     h = hashlib.sha256()
     cases = FLASH_CASES[:DIGEST_CASES] + [FLASH_TRAIN]
@@ -746,8 +760,12 @@ def forward_digest(dev):
         causal, window, q_offset = case[6:]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(case, dtype, dev)
-            for t in kflash._forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                     softmax_scale=case[5] ** -0.5, with_lse=True):
+            scale = case[5] ** -0.5
+            outs = (kflash.forward_op(q, k, v, causal, window, q_offset, scale, True)
+                    if through_op else
+                    kflash._forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                    softmax_scale=scale, with_lse=True))
+            for t in outs:
                 h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
             del q, k, v
     return {"cases": len(cases), "dtypes": ["float32", "bfloat16"], "sha256": h.hexdigest()}
@@ -1719,13 +1737,14 @@ def run_rglru_bwd_checks(dev):
     return worst
 
 
-def rglru_bwd_digest(dev):
+def rglru_bwd_digest(dev, through_op=False):
     """sha256 over the bytes of the RG-LRU backward kernel's dx, da_log and
     dh0 (where h0 is given), f32 and bf16, at every RGLRU_BWD_CASES case (the
     train shape first), each on the forward's workspace of its inputs: two
     trees whose digests agree on one card compute bitwise-equal gradients.
     Each case's own digest too (its first 16 hex digits), to name a case
-    where two trees differ."""
+    where two trees differ. The launcher is called bare, or through its
+    ``torch.library`` op (``through_op``)."""
     from repro_torch.kernels import rglru_scan as krglru
     from repro_torch.kernels import rglru_scan_bwd as kbwd
     h, per_case = hashlib.sha256(), []
@@ -1734,7 +1753,9 @@ def rglru_bwd_digest(dev):
             x, a_log, h0, dy, dh = rglru_bwd_inputs(case, dtype, dev, seed=7)
             _, _, ws = krglru._forward(x, a_log, h0)
             hc = hashlib.sha256()
-            for t in kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws):
+            grads = (kbwd.backward_op(x, a_log, h0, dy, dh, ws) if through_op else
+                     kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws))
+            for t in grads:
                 if t is not None:
                     raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
                     h.update(raw)
@@ -2752,6 +2773,12 @@ def bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def work_bound(w):
+    """``bound`` of a kernel call's ``kernels.costs.Work``: the function the
+    dry run's op counter reads too."""
+    return bound(w.bytes, w.flops, F32_FLOP_PER_S if w.f32 else BF16_FLOP_PER_S)
+
+
 def _row(name, arch, launches, errs, card, **kw):
     src = {"flash_attention": ("flash_attention.cu", "flash_attention.py:92"),
            "decode_attention": ("decode_attention.cu", "decode_attention.py:62"),
@@ -2773,14 +2800,6 @@ def _row(name, arch, launches, errs, card, **kw):
             **kw, "card": card}
 
 
-def visible_pairs(S, causal, window):
-    """Visible (q, k) pairs per (b, h) of a square S x S attention under the
-    causal and window masks."""
-    if not causal:
-        return S * S
-    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
-
-
 def padded_head_dim(Dh):
     """The head dim of the bf16 flash body that runs Dh, with zero columns
     past Dh (the dispatch of both flash sources): Dh 80 and 96 run the Dh 128
@@ -2790,6 +2809,7 @@ def padded_head_dim(Dh):
 
 
 def time_flash(arch, launches, errs, card, dev):
+    from repro_torch.kernels import costs
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
@@ -2799,10 +2819,10 @@ def time_flash(arch, launches, errs, card, dev):
     B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
-    pairs = visible_pairs(S, causal, window)
-    flops = 4 * Dh * pairs * B * H
-    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel())
-                       + (4 * B * H * S if with_lse else 0), flops)
+    work = costs.flash_forward(q.shape, k.shape, 2, causal=causal, window=window,
+                               with_lse=with_lse)
+    flops = work.flops
+    b_ms, b_by = work_bound(work)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window:  # SDPA takes the window only as a mask, built outside the timing
@@ -2835,6 +2855,7 @@ def time_flash(arch, launches, errs, card, dev):
 
 
 def time_flash_bwd(case, label, launches, errs, card, dev):
+    from repro_torch.kernels import costs
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
@@ -2845,11 +2866,11 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
     dout = randn(torch.Generator().manual_seed(9), q.shape, torch.bfloat16, dev)
     out, lse = kflash._forward(q, k, v, softmax_scale=scale, with_lse=True, **mask)
-    pairs = visible_pairs(S, causal, window)
     # read q, o, dO and k, v once, write dq, dk, dv; 5 products of 2*Dh FLOP per
     # visible pair and head: the scores again, dP, dV, dK and dQ
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, 10 * Dh * pairs * B * H)
+    work = costs.flash_backward(q.shape, k.shape, 2, causal=causal, window=window)
+    nbytes = work.bytes
+    b_ms, b_by = work_bound(work)
     kern = lambda: kbwd.flash_attention_bwd_cuda(  # noqa: E731
         q, k, v, out, lse, dout, softmax_scale=scale, **mask)
     # plain: autograd's backward through ref.mha (in blocks of query rows where
@@ -2873,7 +2894,7 @@ def time_flash_bwd(case, label, launches, errs, card, dev):
     lib_ms = time_ms(sdpa_fb, iters=20) - time_ms(sdpa, iters=20)
     got = kern()
     rr = max(rel_rms(a, b.transpose(1, 2)) for a, b in zip(got, sdpa_fb()))
-    flops = 10 * Dh * pairs * B * H
+    flops = work.flops
     ms = time_ms(kern, iters=10)
     p = kbwd.plan(B, S, S, H, Hkv, Dh, torch.bfloat16)
     # the call's kernels by name part: the row dots, dK/dV, the sum of its head
@@ -3142,6 +3163,7 @@ def time_epoch_pass(launches, errs, card, dev):
 
 
 def time_decode(arch, launches, errs, card, dev):
+    from repro_torch.kernels import costs
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
@@ -3156,7 +3178,8 @@ def time_decode(arch, launches, errs, card, dev):
     scale = Dh ** -0.5
     valid = n * B
     kv_bytes = 2 * 2 * valid * Hkv * Dh
-    b_ms, b_by = bound(2 * 2 * q1.numel() + kv_bytes + 4 * B, 4 * Dh * H * valid)
+    # this run's valid slots (the dry run's counter counts every slot)
+    b_ms, b_by = work_bound(costs.decode(q1.shape, kc.shape, 2, valid))
     plan = kdec.plan_splits(B, C, Hkv, H // Hkv, Dh, q1.dtype, kdec._sm_count(dev.index))
     # every row has the same length n, so SDPA on the first n slots, unmasked,
     # computes the same function
@@ -3187,18 +3210,15 @@ def time_decode(arch, launches, errs, card, dev):
 
 
 def time_ssd(launches, errs, card, dev):
+    from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     case = SSD_CASES[0]
     B, S, H, P, N, Q, _ = case
     x, dt, A, Bm, Cm, _ = ssd_inputs(case, torch.bfloat16, dev, seed=5)
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
-              + B * H * P * N * 4)
-    # the chunked form's products, lower triangles only: C.B^T per (b, chunk),
-    # the intra-chunk, carried and state products per (b, chunk, head)
-    nc, tri = -(-S // Q), Q * (Q + 1) // 2
-    flops = B * nc * (2 * tri * N + H * (2 * tri * P + 2 * 2 * Q * P * N))
-    b_ms, b_by = bound(nbytes, flops)
+    work = costs.ssd_forward(B, S, H, P, N, Q, 2)
+    nbytes, flops = work.bytes, work.flops
+    b_ms, b_by = work_bound(work)
     kern = lambda: kssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
     return _row("ssd_scan", "mamba2-1.3b", launches, errs, card,
                 ms=time_ms(kern, iters=10), device_ms=device_ms(kern, SSD_KERNELS, iters=10),
@@ -3214,18 +3234,9 @@ def time_ssd(launches, errs, card, dev):
                        "dtype": "bfloat16", "flops": flops, "bytes": nbytes})
 
 
-def ssd_bwd_flops(B, S, H, P, N, Q):
-    """The chunked form's products in the SSD gradient, lower triangles
-    only: per (row, chunk, head) four P x N-by-chunk products (the chunk's
-    state gradient, g B, dY^T h_c, XDT^T g) and two over the triangle (G and
-    (L o S)^T dY); per (row, chunk) M B and M^T C."""
-    nc, tri = -(-S // Q), Q * (Q + 1) // 2
-    return B * nc * (4 * tri * N + H * (8 * Q * P * N + 4 * tri * P))
-
-
 def ssd_bwd_mma_flops(B, S, H, P, N, Q):
-    """The products of ssd_bwd_flops that the bf16 backward kernels run on
-    the tensor cores, lower triangles only: G (two raw bf16 operands),
+    """The products of ``kernels.costs.ssd_backward`` that the bf16 backward
+    kernels run on the tensor cores, lower triangles only: G (two raw bf16 operands),
     (L o S)^T dY, g B, dY^T h_c and X^T g (an f32 operand split into hi + lo,
     so two bf16 products each). Returns (their bf16 FLOP, split terms
     counted; their FLOP counted once). The chunk's state gradient and M B,
@@ -3237,6 +3248,7 @@ def ssd_bwd_mma_flops(B, S, H, P, N, Q):
 
 
 def time_ssd_bwd(launches, errs, card, dev):
+    from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.kernels import ssd_scan_bwd as kbwd
@@ -3244,11 +3256,10 @@ def time_ssd_bwd(launches, errs, card, dev):
     x, dt, A, Bm, Cm, _ = ssd_inputs(SSD_TRAIN[:7], torch.bfloat16, dev, seed=5)
     dy = randn(torch.Generator().manual_seed(6), x.shape, torch.bfloat16, dev)
     # read x, dy, dt, A, B, C once, write dx, ddt, dA, dB, dC
-    nbytes = (3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * A.numel() * 4
-              + 4 * Bm.numel() * 2)
-    flops = ssd_bwd_flops(B, S, H, P, N, Q)
+    work = costs.ssd_backward(B, S, H, P, N, Q, 2)
+    nbytes, flops = work.bytes, work.flops
     mma_flops, mma_flops_once = ssd_bwd_mma_flops(B, S, H, P, N, Q)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = work_bound(work)
     _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=Q, h0=None)
     kern = lambda: kbwd.ssd_scan_bwd_cuda(  # noqa: E731
         x, dt, A, Bm, Cm, None, dy, None, chunk=Q, fwd_workspace=ws)
@@ -3279,15 +3290,15 @@ def time_ssd_bwd(launches, errs, card, dev):
 
 
 def time_rglru(launches, errs, card, dev):
+    from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as krglru
     case = RGLRU_CASES[0]
     B, S, W, _ = case
     x, a_log, _ = rglru_inputs(case, torch.bfloat16, dev, seed=6)
-    nbytes = x.numel() * (2 + 4 + 2) + B * W * 2
-    # per element: exp, a*a, 1 - a^2, max, sqrt, the product with x, one FMA
-    flops = 7 * x.numel()
-    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    work = costs.rglru_forward(B, S, W, 2)
+    nbytes = work.bytes
+    b_ms, b_by = work_bound(work)
     p = krglru.plan(B, S, W)
     # what this design moves: x and a_log read by the chunk kernel (all chunks
     # but the last) and again by the out kernel, y and h_last written, and the
@@ -3323,16 +3334,15 @@ def rglru_bwd_train_call(dev):
 
 
 def time_rglru_bwd(launches, errs, card, dev):
+    from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan_bwd as kbwd
     B, S, W = RGLRU_TRAIN[:3]
     x, a_log, dy, kern = rglru_bwd_train_call(dev)
     # read x, a_log and dy once, write dx and da_log: 14 bytes an element
-    nbytes = x.numel() * (2 + 4 + 2 + 2 + 4)
-    # per element: exp, a*a, 1 - a^2, max, sqrt, the carry's add and product,
-    # s g, a x / s, the difference, two products, and the forward step's three
-    flops = 16 * x.numel()
-    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    work = costs.rglru_backward(B, S, W, 2)
+    nbytes = work.bytes
+    b_ms, b_by = work_bound(work)
     p = kbwd.plan(B, S, W)
     # what this design moves, were none of it held in the L2: x, a_log and dy
     # read once, dx and da_log written once; for each (b, chunk 1 .. nc - 1,
@@ -3576,7 +3586,8 @@ def rglru_bwd_bits():
     emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
     _build.build_all(["rglru_scan", "rglru_scan_bwd", "flash_attention", "flash_attention_bwd"])
     run_train(dev, card, "recurrentgemma-9b")
-    emit("rglru_bwd_digest", rglru_bwd_digest(dev))
+    digests["rglru_bwd_digest"] = rglru_bwd_digest(dev)
+    emit("rglru_bwd_digest", digests["rglru_bwd_digest"])
     kern = rglru_bwd_train_call(dev)[3]
     emit("rglru_bwd_time", {"ms": time_ms(kern, iters=20),
                             "device_ms": device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
@@ -3736,6 +3747,397 @@ def epoch_tile_sweep():
     return rows
 
 
+# --------------------------------------------------------------------------
+# dry run: the kernels as torch.library ops, serving on a mesh, the op
+# counter's counts of real steps against the same steps on fake tensors,
+# and the production cells
+# --------------------------------------------------------------------------
+
+# the first 8 hex digits of each digest since it was first recorded: the
+# ops around the launchers must change no bit
+DIGEST_PINS = {"flash_forward_digest": "bd0afc5c", "rglru_bwd_digest": "e372b405"}
+MESH_SERVE = ("qwen3-1.7b", "mixtral-8x7b")  # depth as in serve (DEPTH)
+# (label, arch, step, seq_len, global batch, layers or None for all, on the
+# (1, 1) mesh): one step each, on the card and on fake tensors
+CALIBRATION = [
+    ("qwen3-1.7b train", "qwen3-1.7b", "train", 2048, 4, None, False),
+    ("qwen3-1.7b prefill", "qwen3-1.7b", "prefill", 512, 4, None, False),
+    # a decode step over a cache of prompt + gen slots, every slot valid
+    ("qwen3-1.7b decode", "qwen3-1.7b", "decode", 544, 4, None, False),
+    ("mamba2-1.3b train", "mamba2-1.3b", "train", 2048, 4, None, False),
+    ("mixtral-8x7b train", "mixtral-8x7b", "train", 4608, 2, 2, True),
+]
+# the production cells run here: qwen3-1.7b and mixtral-8x7b at every shape on
+# both meshes, then every other arch's train_4k on (16, 16); the longest first
+DRYRUN_CELLS = ([(a, s, "both") for a in MESH_SERVE
+                 for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                + [(a, "train_4k", "single") for a in PROMPT if a not in MESH_SERVE]
+                + [("hubert-xlarge", "train_4k", "single")])
+DRYRUN_WORKERS = 8  # dry-run processes at once: the host's 8 cores, this process waiting
+
+
+def ops_bits(dev, digests):
+    """The seven kernels' ``torch.library`` ops change no bit: both digests
+    through the ops equal the bare launchers' (``digests``, this run's) and
+    their pins."""
+    got = {"flash_forward_digest": forward_digest(dev, through_op=True)["sha256"],
+           "rglru_bwd_digest": rglru_bwd_digest(dev, through_op=True)["sha256"]}
+    out = {k: {"through_op": got[k], "bare": digests[k], "pin": DIGEST_PINS[k],
+               "ok": got[k] == digests[k] and got[k].startswith(DIGEST_PINS[k])}
+           for k in got}
+    emit("ops_bits", out)
+    if not all(v["ok"] for v in out.values()):
+        fail(f"ops_bits: a digest through the ops differs: {out}")
+
+
+def decode_host(dev, card):
+    """Host us of one qwen3-1.7b decode call (its serve shape, every row's
+    cache at the middle decode step) through ``decode_attention_cuda`` (the
+    checks and the op), through the op alone, and through the bare launcher
+    the op wraps (``planned_launch``), in turns, in this process."""
+    from repro_torch.kernels import decode_attention as kdec
+    B, C, H, Hkv, Dh, _ = DECODE_SERVE["qwen3-1.7b"]
+    n = PROMPT["qwen3-1.7b"] + SERVE["gen_len"] // 2 + 1
+    q, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, (n,) * B), torch.bfloat16, dev, seed=4)
+    scale = Dh ** -0.5
+    calls = {"wrapper": lambda: kdec.decode_attention_cuda(q, kc, vc, cl, softmax_scale=scale),
+             "op": lambda: kdec.decode_op(q, kc, vc, cl, scale),
+             "bare": lambda: kdec.planned_launch(q, kc, vc, cl, scale)}
+    us = {k: [] for k in calls}
+    for _ in range(3):
+        for k, fn in calls.items():
+            us[k].append(host_us(fn))
+    med = {k: sorted(v)[1] for k, v in us.items()}
+    return {"card": card, "shape": {"B": B, "C": C, "H": H, "Hkv": Hkv, "Dh": Dh,
+                                    "cache_len": n},
+            "host_us_median": med, "host_us_runs": us,
+            "op_minus_bare_us": med["op"] - med["bare"]}
+
+
+def greedy(cfg, params, prompt, gen):
+    """Prefill ``prompt`` (B, S) and ``gen`` greedy decode steps, each ended by
+    a synchronise: (every step's logits, the tokens, TTFT ms, each decode
+    step's ms)."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    B, S = prompt.shape
+    prefill, decode = make_prefill_step(cfg, S + gen), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ttft = (time.perf_counter() - t0) * 1e3
+    out, toks, tpot = [logits], [tok], []
+    pos = torch.full((B,), S, dtype=torch.int32, device=prompt.device)
+    for _ in range(gen):
+        t0 = time.perf_counter()
+        tok, logits, cache = decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        tpot.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+        toks.append(tok)
+        pos = pos + 1
+    return out, toks, ttft, tpot
+
+
+def mesh_serve(dev, card):
+    """qwen3-1.7b (28 layers) and mixtral-8x7b (16 of 32) at full width: a
+    batch of 4 prompts (PROMPT), prefill and 32 greedy decode steps without a
+    mesh and on a (1, 1) NCCL mesh under ``single_pod_rules`` (params
+    DTensors gathered where read, MoE layers on the sharded path), the
+    counters zeroed before each; every logit and token bitwise equal, the
+    launches of a prefill and 32 steps, 0 plain calls, TTFT and TPOT of
+    both. Returns qwen3-1.7b's unsharded TPOT median."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import place_params
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.parallel import axes
+    from repro_torch.parallel.axes import single_pod_rules
+    tpot = None
+    for arch in MESH_SERVE:
+        cfg = get_config(arch)
+        if arch in DEPTH:
+            cfg = cfg.replace(n_layers=DEPTH[arch])
+        fresh_peak(dev)
+        params = serve.init_params(cfg, SERVE["seed"], dev)
+        gen = torch.Generator().manual_seed(2)
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE["batch"], PROMPT[arch]),
+                               generator=gen).to(dev, torch.int32)
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * SERVE["gen_len"]}
+        runs = {}
+        with one_rank_world(dev):
+            mesh, rules = make_smoke_mesh(1, device_type="cuda"), single_pod_rules()
+            with axes.axis_rules(rules, mesh):
+                placed = place_params(params, rules, mesh)
+            for name in ("unsharded", "mesh"):
+                on_mesh = name == "mesh"
+                p = placed if on_mesh else params
+                with axes.axis_rules(rules, mesh) if on_mesh else contextlib.nullcontext():
+                    greedy(cfg, p, prompt, 2)  # warm-up at the run's shapes
+                    zero_counters()
+                    logits, toks, ttft, steps = greedy(cfg, p, prompt, SERVE["gen_len"])
+                launches, plain = read_counters()
+                runs[name] = {"logits": logits, "tokens": toks, "ttft_ms": ttft,
+                              "tpot_ms_median": _pct(steps, 50), "tpot_ms": steps,
+                              "launches": {k: v for k, v in launches.items() if v},
+                              "plain_calls": plain}
+        a, b = runs["unsharded"], runs["mesh"]
+        out = {"card": card, "arch": arch, "n_layers": cfg.n_layers,
+               "batch": SERVE["batch"], "prompt_len": PROMPT[arch],
+               "gen_len": SERVE["gen_len"], "mesh": [1, 1], "rules": "single_pod_rules",
+               "logits_bitwise_equal": all(torch.equal(x, y)
+                                           for x, y in zip(a["logits"], b["logits"])),
+               "tokens_bitwise_equal": all(torch.equal(x, y)
+                                           for x, y in zip(a["tokens"], b["tokens"])),
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               **{f"{n}_{k}": r[k] for n, r in runs.items()
+                  for k in ("ttft_ms", "tpot_ms_median", "launches", "plain_calls")},
+               "expected_launches": want}
+        emit("mesh_serve", out)
+        if not (out["logits_bitwise_equal"] and out["tokens_bitwise_equal"]):
+            fail(f"mesh_serve: {arch} on the (1, 1) mesh differs from the unsharded run")
+        if any(r["launches"] != want or r["plain_calls"] for r in runs.values()):
+            fail(f"mesh_serve: {arch} launches {[r['launches'] for r in runs.values()]} "
+                 f"(expected {want}) or plain calls")
+        if arch == "qwen3-1.7b":
+            tpot = a["tpot_ms_median"]
+        del params, placed, runs, a, b
+        torch.cuda.empty_cache()
+    return tpot
+
+
+def calibration_config(arch, layers):
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def calibration_inputs(cfg, kind, seq_len, batch, dev):
+    """A step's real inputs at the dry run's shapes and dtypes
+    (``launch/inputs.step_specs``): random tokens and labels, a zeroed cache
+    at position seq_len - 1 for decode."""
+    from repro_torch.models import lm
+    gen = torch.Generator().manual_seed(3)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen).to(dev, torch.int32)
+    if kind == "train":
+        return ({"tokens": tokens(batch, seq_len), "labels": tokens(batch, seq_len)},)
+    if kind == "prefill":
+        return ({"tokens": tokens(batch, seq_len)},)
+    return (lm.init_cache(cfg, batch, seq_len, dev), tokens(batch),
+            torch.full((batch,), seq_len - 1, dtype=torch.int32, device=dev))
+
+
+def fake_calibration():
+    """The CALIBRATION steps on fake tensors (the dry run's ``count_step``),
+    the mesh's in a fake world of one rank: one JSON line of counts, per-op
+    tallies and memory. Runs in a process of its own:
+
+        python3 -c 'import chip_smoke; chip_smoke.fake_calibration()'"""
+    from repro_torch.launch.dryrun import count_step, fake_world
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.axes import single_pod_rules
+    out = {}
+    for label, arch, kind, seq_len, batch, layers, on_mesh in CALIBRATION:
+        cfg = calibration_config(arch, layers)
+        with fake_world(1) if on_mesh else contextlib.nullcontext():
+            mesh = make_smoke_mesh(1, device_type="cuda") if on_mesh else None
+            got = count_step(cfg, kind, seq_len, batch, mesh=mesh,
+                             rules=single_pod_rules() if on_mesh else None)
+        out[label] = {"counts": got["cost"].counts(), "by_op": got["cost"].by_op,
+                      "memory": got["memory"], "flop_counter": got["flop_counter"],
+                      "trace_s": got["trace_s"]}
+    print(json.dumps(out))
+
+
+def calibrate(dev, card):
+    """Each CALIBRATION step on the card: its device ms (CUDA events, the
+    median of 3 after a warm-up) and peak (``fresh_peak`` with the step's
+    arguments allocated), then once more under the op counter."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import count_step, place_params
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import axes
+    from repro_torch.parallel.axes import single_pod_rules
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step, make_train_step
+    rows = []
+    for label, arch, kind, seq_len, batch, layers, on_mesh in CALIBRATION:
+        cfg = calibration_config(arch, layers)
+        fresh_peak(dev)
+        with one_rank_world(dev) if on_mesh else contextlib.nullcontext():
+            mesh = make_smoke_mesh(1, device_type="cuda") if on_mesh else None
+            rules = single_pod_rules() if on_mesh else None
+
+            def on_rules():
+                return axes.axis_rules(rules, mesh) if on_mesh else contextlib.nullcontext()
+            opt_cfg, opt_state = adamw.AdamWConfig(), None
+            params = serve.init_params(cfg, SERVE["seed"], dev)
+            with on_rules():
+                if on_mesh:
+                    params = place_params(params, rules, mesh)
+                if kind == "train":
+                    opt_state = adamw.init(opt_cfg, params)
+            inputs = calibration_inputs(cfg, kind, seq_len, batch, dev)
+            args = (params, opt_state, *inputs) if kind == "train" else (params, *inputs)
+            step = (make_train_step(cfg, opt_cfg) if kind == "train" else
+                    make_prefill_step(cfg, seq_len) if kind == "prefill" else
+                    make_decode_step(cfg))
+            times = []
+            with on_rules():
+                step(*args)  # warm-up
+                fresh_peak(dev)
+                for _ in range(3):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(*args)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated(dev)
+            counted = count_step(cfg, kind, seq_len, batch, mesh=mesh, rules=rules, device=dev,
+                                 params=params, opt_state=opt_state, inputs=inputs)
+            del params, opt_state, inputs, args
+            gc.collect()
+            torch.cuda.empty_cache()
+        rows.append({"label": label, "cfg": cfg, "on_mesh": on_mesh, "seq_len": seq_len,
+                     "batch": batch, "times": times, "peak": peak, "counted": counted})
+    return rows
+
+
+def check_calibration(rows, fake, card):
+    """Each calibration step's counts on the card against ``fake``'s
+    (fake_calibration's), its roofline bound beside its device ms and its
+    predicted peak beside the measured one: one ``calibration`` line each.
+    Fails where the counts differ or a bound exceeds its measured time."""
+    from repro_torch.parallel import analysis
+    out = []
+    for r in rows:
+        cost, want = r["counted"]["cost"], fake[r["label"]]
+        counts = cost.counts()
+        roof = analysis.Roofline(cost.dot_flops, cost.hbm_bytes, cost.total_wire_bytes, 1,
+                                 nvlink_wire_bytes_per_device=cost.nvlink_wire_bytes)
+        device_ms = sorted(r["times"])[1]
+        bound_ms = roof.step_time_lower_bound * 1e3
+        mem = want["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        row = {"card": card, "label": r["label"], "seq_len": r["seq_len"],
+               "global_batch": r["batch"], "n_layers": r["cfg"].n_layers,
+               "mesh": [1, 1] if r["on_mesh"] else None,
+               "counts_equal": counts == want["counts"], "counts": counts,
+               "fake_counts": "equal" if counts == want["counts"] else want["counts"],
+               "ops_that_differ": {k: (cost.by_op.get(k), want["by_op"].get(k))
+                                   for k in set(cost.by_op) | set(want["by_op"])
+                                   if cost.by_op.get(k) != want["by_op"].get(k)},
+               "flop_counter": r["counted"]["flop_counter"], "device_ms": device_ms,
+               "device_ms_runs": r["times"], "bound_ms": bound_ms,
+               "bound_over_measured": bound_ms / device_ms,
+               "t_compute_ms": roof.t_compute * 1e3, "t_memory_ms": roof.t_memory * 1e3,
+               "bottleneck": roof.bottleneck, "peak_gb_measured": r["peak"] / 1e9,
+               "peak_gb_predicted": predicted / 1e9,
+               "peak_predicted_over_measured": predicted / r["peak"],
+               "fake_trace_s": want["trace_s"], "counted_step_s": r["counted"]["trace_s"]}
+        emit("calibration", row)
+        out.append(row)
+    bad = [r["label"] for r in out if not r["counts_equal"]]
+    if bad:
+        fail(f"calibration: fake counts differ from the card's in {bad}")
+    over = [r["label"] for r in out if r["bound_ms"] > r["device_ms"]]
+    if over:
+        fail(f"calibration: the roofline bound exceeds the measured device time in {over}")
+    return out
+
+
+def _subprocess_env():
+    """This tree's src first on PYTHONPATH, as chip_smoke imports it."""
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                               else []))}
+
+
+def dryrun_cells(pool):
+    """DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, one
+    process a cell (its fake world cannot share this process with an NCCL
+    group), on ``pool``: futures of (cell, records, exit code, stderr tail,
+    wall s)."""
+    def one(cell):
+        arch, shape, mesh = cell
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", mesh]
+        out = subprocess.run(cmd, capture_output=True, text=True, env=_subprocess_env(),
+                             cwd=str(ROOT), timeout=900)
+        recs = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+        return cell, recs, out.returncode, out.stderr[-2000:], time.perf_counter() - t0
+    return [pool.submit(one, cell) for cell in DRYRUN_CELLS]
+
+
+def run_dryrun(dev, card, digests):
+    """The ``dryrun`` phase: ops_bits; the decode host us through the op
+    beside the bare launcher, with qwen3-1.7b's TPOT; mesh_serve; the
+    calibration steps on the card, then, in processes of their own,
+    DRYRUN_WORKERS at once, the same steps on fake tensors and the
+    production cells."""
+    from concurrent.futures import ThreadPoolExecutor
+    ops_bits(dev, digests)
+    host = decode_host(dev, card)
+    tpot = mesh_serve(dev, card)
+    emit("decode_host", {**host, "qwen3_tpot_ms_median": tpot})
+    rows = calibrate(dev, card)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        cmd = [sys.executable, "-c", "import chip_smoke; chip_smoke.fake_calibration()"]
+        fake = pool.submit(subprocess.run, cmd, capture_output=True, text=True, cwd=str(ROOT),
+                           env=_subprocess_env(), timeout=900)
+        cells = [f.result() for f in dryrun_cells(pool)]
+        fake = fake.result()
+    if fake.returncode:
+        fail(f"fake_calibration: {fake.stderr[-3000:]}")
+    checked = check_calibration(rows, json.loads(fake.stdout.strip().splitlines()[-1]), card)
+    failed = []
+    for (arch, shape, mesh), recs, code, err, wall in cells:
+        if code or not recs:
+            failed.append((arch, shape, mesh, code, err))
+        for r in recs:
+            emit("dryrun_cell", {**{k: r.get(k) for k in (
+                "arch", "shape", "mesh", "layout", "status", "reason", "n_devices",
+                "roofline", "memory", "collective_counts", "collective_wire_bytes",
+                "kernel_calls", "trace_s", "batch", "cache_layout")}, "process_s": wall})
+    emit("dryrun_summary", {"processes_s": time.perf_counter() - t0, "cells": len(cells),
+                            "workers": DRYRUN_WORKERS,
+                            "calibration_bound_and_device_ms": {
+                                r["label"]: [r["bound_ms"], r["device_ms"]] for r in checked}})
+    if failed:
+        fail(f"dryrun: cells failed: {failed}")
+
+
+def dryrun_bits():
+    """The dryrun phase alone, after the two digests it compares with, in the
+    tree whose repro_torch this process imports. Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.dryrun_bits()'"""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    t0 = time.perf_counter()
+    _build.build_all(SOURCES)
+    digests = {"flash_forward_digest": forward_digest(dev)["sha256"],
+               "rglru_bwd_digest": rglru_bwd_digest(dev)["sha256"]}
+    run_dryrun(dev, card, digests)
+    emit("dryrun_bits_s", time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3759,7 +4161,8 @@ def main():
     emit("build", {"seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
     errs = run_checks(dev)
-    emit("flash_forward_digest", forward_digest(dev))
+    digests = {"flash_forward_digest": forward_digest(dev)}
+    emit("flash_forward_digest", digests["flash_forward_digest"])
     launches = {}
     launches["bench"], errs[("burst_gather", "bench")] = run_gather(dev)
     errs[("epoch_pass", SIM_LABEL)] = run_epoch_checks(dev)
@@ -3769,7 +4172,8 @@ def main():
     errs.update(run_flash_bwd_checks(dev))
     errs[("ssd_scan_bwd", SSM_TRAIN_LABEL)] = run_ssd_bwd_checks(dev)
     errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)
-    emit("rglru_bwd_digest", rglru_bwd_digest(dev))
+    digests["rglru_bwd_digest"] = rglru_bwd_digest(dev)
+    emit("rglru_bwd_digest", digests["rglru_bwd_digest"])
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
     launches[f"{ENCODE['arch']} encode"] = run_encode(dev, card)
     for arch in TRAIN_FEEDS:
@@ -3781,6 +4185,7 @@ def main():
     for arch in TRAIN_VS_PLAIN_ONLY:
         run_train_vs_plain(dev, arch)
     run_restart(dev)
+    run_dryrun(dev, card, {k: v["sha256"] for k, v in digests.items()})
     rows = run_times(launches, errs, card, dev)
 
     emit("total_s", time.perf_counter() - t_start)

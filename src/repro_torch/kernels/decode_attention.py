@@ -6,7 +6,10 @@ the note at the top of the CUDA source. Each call runs two kernels on the
 current stream: the partial pass over the cache's splits, which ``plan_splits``
 plans here on the host, and the combine of the splits in a fixed order.
 ``launches`` counts calls of the wrapper (one partial pass and one combine
-each).
+each). The plan and the launch run inside a ``torch.library`` op,
+``repro_torch::decode_attention`` (``decode_op``), whose CUDA implementation
+reads the card's SM count and whose fake implementation gives the output's
+shape and dtype, so that a decode step traces on fake tensors.
 """
 from __future__ import annotations
 
@@ -135,7 +138,29 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     _build.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     if q.numel() == 0:
         return torch.empty_like(q)
-    plan = plan_splits(B, C, Hkv, H // Hkv, Dh, q.dtype, _sm_count(dev.index))
+    return decode_op(q, k_cache, v_cache, cache_len, softmax_scale)
+
+
+def planned_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   cache_len: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+    """The split plan from the card's SM count, then both kernels: the
+    launcher that ``decode_op`` wraps, on inputs ``decode_attention_cuda``
+    checked."""
+    B, H, Dh = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    plan = plan_splits(B, C, Hkv, H // Hkv, Dh, q.dtype, _sm_count(q.device.index))
     if plan.body == "mma":
         check_aligned("decode_attention_cuda", q=q, k_cache=k_cache, v_cache=v_cache)
     return _launch(q, k_cache, v_cache, cache_len, softmax_scale, plan)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+              cache_len: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+    """``planned_launch`` as an op."""
+    return planned_launch(q, k_cache, v_cache, cache_len, softmax_scale)
+
+
+@decode_op.register_fake
+def _decode_fake(q, k_cache, v_cache, cache_len, softmax_scale):
+    return torch.empty_like(q)

@@ -11,17 +11,24 @@ grad), the call goes through ``FlashAttention``, an ``autograd.Function``
 whose forward also writes the logsumexp and whose backward is the CUDA
 backward kernel (``flash_attention_bwd.py``). Otherwise the forward runs
 alone, without the logsumexp.
+
+Both directions launch through ``torch.library`` ops,
+``repro_torch::flash_attention_fwd`` here and ``repro_torch::flash_attention_bwd``
+(``flash_attention_bwd.backward_op``), whose CUDA implementations are the
+launchers (``_forward``, ``flash_attention_bwd_cuda``) and whose fake
+implementations give the outputs' shapes and dtypes, so that a step traces
+on fake tensors (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .flash_attention_bwd import flash_attention_bwd_cuda
+from .flash_attention_bwd import backward_op
 
 launches = 0
 
@@ -92,6 +99,23 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out, lse
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               window: int, q_offset: int, softmax_scale: float, with_lse: bool
+               ) -> List[torch.Tensor]:
+    """``_forward`` as an op: [out], or [out, lse] with the logsumexp."""
+    out, lse = _forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                        softmax_scale=softmax_scale, with_lse=with_lse)
+    return [out] if lse is None else [out, lse]
+
+
+@forward_op.register_fake
+def _forward_fake(q, k, v, causal, window, q_offset, softmax_scale, with_lse):
+    B, Sq, H, _ = q.shape
+    out = torch.empty_like(q)
+    return [out, q.new_empty((B, H, Sq), dtype=torch.float32)] if with_lse else [out]
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the CUDA backward kernel as its gradient. The
     forward saves q, k, v, the output and the logsumexp; the backward
@@ -99,8 +123,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, softmax_scale):
-        out, lse = _forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                            softmax_scale=softmax_scale, with_lse=True)
+        out, lse = forward_op(q, k, v, causal, window, q_offset, softmax_scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset, softmax_scale)
         return out
@@ -110,12 +133,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset, scale = ctx.mask
-        dout = dout.contiguous()
-        if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
-            dout = dout.clone()  # a view into another buffer: bf16 rows move 16 bytes at a time
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, lse, dout, causal=causal, window=window,
-            q_offset=q_offset, softmax_scale=scale)
+        dq, dk, dv = backward_op(q, k, v, out, lse, dout.contiguous(), causal, window,
+                                 q_offset, scale)
         return dq, dk, dv, None, None, None, None
 
 
@@ -126,5 +145,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differentiable through the backward kernel."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset, softmax_scale)
-    return _forward(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                    softmax_scale=softmax_scale, with_lse=False)[0]
+    return forward_op(q, k, v, causal, window, q_offset, softmax_scale, False)[0]

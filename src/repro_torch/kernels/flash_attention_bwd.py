@@ -9,13 +9,15 @@ design does about it is in the note at the top of the CUDA source.
 (row dots, dK/dV, dQ), and a fourth where the plan spreads a GQA group over
 several dK/dV blocks (the sum of their partials). ``plan`` works out the
 grids, the head subsets, the f32 workspace and each kernel's dynamic shared
-memory on the host, from the shapes and the dtype alone.
+memory on the host, from the shapes and the dtype alone. ``backward_op``
+(``repro_torch::flash_attention_bwd``) is the launcher as a ``torch.library``
+op, with a fake implementation for tracing on fake tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -168,3 +170,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     _build.check(lib, "flash_attention_bwd", err)
     return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: int,
+                q_offset: int, softmax_scale: float) -> List[torch.Tensor]:
+    """``flash_attention_bwd_cuda`` as an op: [dq, dk, dv]. A bf16 ``dout``
+    off a 16-byte boundary (a view into another buffer) is copied first: the
+    bf16 bodies move rows 16 bytes at a time."""
+    if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
+        dout = dout.clone()
+    return list(flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         softmax_scale=softmax_scale))
+
+
+@backward_op.register_fake
+def _backward_fake(q, k, v, out, lse, dout, causal, window, q_offset, softmax_scale):
+    return [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]

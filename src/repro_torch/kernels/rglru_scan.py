@@ -12,13 +12,16 @@ counts forward calls (up to three kernels each).
 When autograd needs a gradient (grad mode on and an input that requires
 grad), the call goes through ``RGLRUScan``, an ``autograd.Function`` whose
 backward is the CUDA backward (``rglru_scan_bwd.py``). Otherwise the forward
-runs alone and its workspace is freed.
+runs alone and its workspace is freed. Both directions launch through
+``torch.library`` ops (``forward_op``, ``repro_torch::rglru_scan_fwd``, and
+``rglru_scan_bwd.backward_op``), whose fake implementations give the outputs'
+shapes and dtypes, the workspace's from ``plan``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -120,6 +123,21 @@ def _forward(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch.Tensor]
     return y, h_last, ws
 
 
+@torch.library.custom_op("repro_torch::rglru_scan_fwd", mutates_args=())
+def forward_op(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """``_forward`` as an op: [y, h_last, workspace]."""
+    return list(_forward(x, a_log, h0))
+
+
+@forward_op.register_fake
+def _forward_fake(x, a_log, h0):
+    B, S, W = x.shape
+    floats = plan(B, S, W).workspace_floats if x.numel() else 0
+    return [torch.empty_like(x), x.new_empty((B, W)),
+            x.new_empty((floats,), dtype=torch.float32)]
+
+
 class RGLRUScan(torch.autograd.Function):
     """The RG-LRU scan with the CUDA backward kernels as its gradient. The
     forward keeps its f32 workspace (the states entering each chunk) for the
@@ -127,7 +145,7 @@ class RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, a_log, h0):
-        y, h_last, ws = _forward(x, a_log, h0)
+        y, h_last, ws = forward_op(x, a_log, h0)
         ctx.save_for_backward(x, a_log, h0, ws)
         ctx.set_materialize_grads(False)  # no gradient on an output: no zeros made
         return y, h_last
@@ -135,11 +153,12 @@ class RGLRUScan(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dh_last):
-        from .rglru_scan_bwd import rglru_scan_bwd_cuda
+        from .rglru_scan_bwd import backward_op
         x, a_log, h0, ws = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         dh_last = None if dh_last is None else dh_last.contiguous()
-        return rglru_scan_bwd_cuda(x, a_log, h0, dy, dh_last, fwd_workspace=ws)
+        grads = backward_op(x, a_log, h0, dy, dh_last, ws)
+        return grads[0], grads[1], grads[2] if h0 is not None else None
 
 
 def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
@@ -151,4 +170,5 @@ def rglru_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, *,
     ts = (x, a_log) + ((h0,) if h0 is not None else ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return RGLRUScan.apply(x, a_log, h0)
-    return _forward(x, a_log, h0)[:2]
+    y, h_last, _ = forward_op(x, a_log, h0)
+    return y, h_last

@@ -15,13 +15,15 @@ stops, so the outputs do not depend on the order the blocks ran in and are
 bitwise those of the three kernels the pass replaced; what bounds the kernel
 on the H100 is in the note at the top of the CUDA source. ``plan`` works out
 the blocks, the workspace, the flags and the shared memory here on the host,
-from the shapes alone, on the forward's chunks. ``launches`` counts calls.
+from the shapes alone, on the forward's chunks. ``launches`` counts calls. ``backward_op``
+(``repro_torch::rglru_scan_bwd``) is the wrapper as a ``torch.library`` op,
+with a fake implementation for tracing on fake tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -163,3 +165,20 @@ def rglru_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch
     launches += 1
     _build.check(lib, "rglru_scan_bwd", err)
     return dx, da_log, dh0
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def backward_op(x: torch.Tensor, a_log: torch.Tensor, h0: Optional[torch.Tensor],
+                dy: torch.Tensor, dh_last: Optional[torch.Tensor],
+                fwd_workspace: torch.Tensor) -> List[torch.Tensor]:
+    """``rglru_scan_bwd_cuda`` as an op: [dx, da_log], and dh0 after them where
+    h0 is given."""
+    dx, da_log, dh0 = rglru_scan_bwd_cuda(x, a_log, h0, dy, dh_last,
+                                          fwd_workspace=fwd_workspace)
+    return [dx, da_log] + ([dh0] if h0 is not None else [])
+
+
+@backward_op.register_fake
+def _backward_fake(x, a_log, h0, dy, dh_last, fwd_workspace):
+    out = [torch.empty_like(x), torch.empty_like(a_log)]
+    return out + ([torch.empty_like(h0)] if h0 is not None else [])

@@ -11,13 +11,16 @@ here on the host from the shapes alone. ``launches`` counts forward calls
 When autograd needs a gradient (grad mode on and an input that requires
 grad), the call goes through ``SSDScan``, an ``autograd.Function`` whose
 backward is the CUDA backward (``ssd_scan_bwd.py``). Otherwise the forward
-runs alone and its workspace is freed.
+runs alone and its workspace is freed. Both directions launch through
+``torch.library`` ops (``forward_op``, ``repro_torch::ssd_scan_fwd``, and
+``ssd_scan_bwd.backward_op``), whose fake implementations give the outputs'
+shapes and dtypes, the workspace's from ``plan``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -143,6 +146,23 @@ def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Ten
     return y, h_final, ws
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def forward_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+               Cmat: torch.Tensor, h0: Optional[torch.Tensor], chunk: int
+               ) -> List[torch.Tensor]:
+    """``_forward`` as an op: [y, final state, workspace]."""
+    return list(_forward(x, dt, A, Bmat, Cmat, chunk=chunk, h0=h0))
+
+
+@forward_op.register_fake
+def _forward_fake(x, dt, A, Bmat, Cmat, h0, chunk):
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    floats = plan(B, S, H, P, N, chunk).workspace_floats if x.numel() else 0
+    return [torch.empty_like(x), x.new_empty((B, H, P, N), dtype=torch.float32),
+            x.new_empty((floats,), dtype=torch.float32)]
+
+
 class SSDScan(torch.autograd.Function):
     """The SSD scan with the CUDA backward kernels as its gradient. The
     forward keeps its f32 workspace (cum, the C·Bᵀ tiles and the entering
@@ -150,7 +170,7 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bmat, Cmat, h0, chunk):
-        y, h_final, ws = _forward(x, dt, A, Bmat, Cmat, chunk=chunk, h0=h0)
+        y, h_final, ws = forward_op(x, dt, A, Bmat, Cmat, h0, chunk)
         ctx.save_for_backward(x, dt, A, Bmat, Cmat, h0, ws)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)  # no gradient on the final state: no zeros made
@@ -159,13 +179,12 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dh_final):
-        from .ssd_scan_bwd import ssd_scan_bwd_cuda
+        from .ssd_scan_bwd import backward_op
         x, dt, A, Bmat, Cmat, h0, ws = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         dh_final = None if dh_final is None else dh_final.contiguous()
-        dx, ddt, dA, dB, dC, dh0 = ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, h0, dy, dh_final,
-                                                     chunk=ctx.chunk, fwd_workspace=ws)
-        return dx, ddt, dA, dB, dC, dh0, None
+        grads = backward_op(x, dt, A, Bmat, Cmat, h0, dy, dh_final, ctx.chunk, ws)
+        return (*grads[:5], grads[5] if h0 is not None else None, None)
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
@@ -178,4 +197,5 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torc
     ts = (x, dt, A, Bmat, Cmat) + ((h0,) if h0 is not None else ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return SSDScan.apply(x, dt, A, Bmat, Cmat, h0, chunk)
-    return _forward(x, dt, A, Bmat, Cmat, chunk=chunk, h0=h0)[:2]
+    y, h_final, _ = forward_op(x, dt, A, Bmat, Cmat, h0, chunk)
+    return y, h_final

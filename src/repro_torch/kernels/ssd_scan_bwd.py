@@ -9,13 +9,15 @@ top of the CUDA source. Each call runs eight kernels on the current stream
 tile pair and head group, dB and dC per head group, their sum over the
 groups, dx, ddt, dA), whose grids and f32 workspace ``plan`` works out here
 on the host from the shapes alone. ``launches`` counts calls of the wrapper
-(eight kernels each).
+(eight kernels each). ``backward_op`` (``repro_torch::ssd_scan_bwd``) is the
+wrapper as a ``torch.library`` op, with a fake implementation for tracing on
+fake tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -182,3 +184,21 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     launches += 1
     _build.check(lib, "ssd_scan_bwd", err)
     return dx, ddt, dA, dB, dC, dh0
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def backward_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+                Cmat: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                dh_final: Optional[torch.Tensor], chunk: int, fwd_workspace: torch.Tensor
+                ) -> List[torch.Tensor]:
+    """``ssd_scan_bwd_cuda`` as an op: [dx, ddt, dA, dB, dC], and dh0 after
+    them where h0 is given."""
+    grads = ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, h0, dy, dh_final, chunk=chunk,
+                              fwd_workspace=fwd_workspace)
+    return list(grads[:5]) + ([grads[5]] if h0 is not None else [])
+
+
+@backward_op.register_fake
+def _backward_fake(x, dt, A, Bmat, Cmat, h0, dy, dh_final, chunk, fwd_workspace):
+    out = [torch.empty_like(t) for t in (x, dt, A, Bmat, Cmat)]
+    return out + ([torch.empty_like(h0)] if h0 is not None else [])

@@ -90,6 +90,13 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch run 500k-token contexts? (SSM/hybrid/SWA)"""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.attention_kind == "sliding" and self.window > 0
+
+    @property
     def has_decode(self) -> bool:
         return self.causal  # encoder-only archs have no autoregressive decode
 

@@ -152,16 +152,17 @@ def decode_hidden(cfg: ModelConfig, params: Params, cache: Params, x_t: torch.Te
     for i in range(cfg.n_layers):
         p = layer_of(params["blocks"], i)
         h_in = apply_norm(cfg, layer_of(params["norms"], i), x)
-        z, xbc, dt_raw = _split_proj(cfg, h_in @ p["in_proj"].to(cdt(cfg)))
+        z, xbc, dt_raw = _split_proj(cfg, h_in @ gather_weight(p["in_proj"]).to(cdt(cfg)))
         conv_tail = cache["conv"][i]
-        yc = _conv_silu(torch.cat([conv_tail.to(xbc.dtype), xbc], 1), p["conv_w"],
-                        p["conv_b"], 1)
+        yc = _conv_silu(torch.cat([conv_tail.to(xbc.dtype), xbc], 1),
+                        gather_weight(p["conv_w"]), gather_weight(p["conv_b"]), 1)
         new_tail = torch.cat([conv_tail[:, 1:], xbc.float()], 1)
         xs, Bmat, Cmat = _split_xbc(cfg, yc)
         xh = xs.reshape(B, H, P)
-        y, h_new = ops.ssd_decode_step(xh, _dt(p, dt_raw)[:, 0], -torch.exp(p["a_log"]),
+        y, h_new = ops.ssd_decode_step(xh, _dt(p, dt_raw)[:, 0],
+                                       -torch.exp(gather_weight(p["a_log"])),
                                        Bmat[:, 0], Cmat[:, 0], cache["ssm"][i])
-        y = y.float() + p["d_skip"].float()[None, :, None] * xh.float()
+        y = y.float() + gather_weight(p["d_skip"]).float()[None, :, None] * xh.float()
         x = x + _gated_out(cfg, p, y.reshape(B, 1, cfg.d_inner).to(cdt(cfg)), z)
         cache["ssm"][i].copy_(h_new)
         cache["conv"][i].copy_(new_tail)

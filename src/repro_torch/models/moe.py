@@ -99,8 +99,11 @@ def route(cfg: ModelConfig, router: torch.Tensor, x2d: torch.Tensor
     weights = torch.softmax(vals, dim=-1)
     # Switch-style load balancing + router z-loss
     me = torch.softmax(logits, dim=-1).mean(dim=0)                # (E,)
-    ce = (torch.bincount(idx.reshape(-1), minlength=cfg.n_experts).float()
-          / (x2d.shape[0] * k))
+    # each expert's count of assignments, of a fixed length (bincount's
+    # length follows the data, which a trace on fake tensors cannot know)
+    flat = idx.reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=flat.dtype, device=flat.device)
+    ce = counts.index_add_(0, flat, torch.ones_like(flat)).float() / (x2d.shape[0] * k)
     aux = cfg.n_experts * torch.sum(me * ce) * cfg.router_aux_coef
     zloss = 1e-4 * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return idx, weights, aux + zloss
@@ -289,9 +292,10 @@ def _local_experts(w, mesh, dim_d: int, gather: bool, rows: Sequence[str]) -> to
     """This model rank's block of an expert leaf (TP, E/ep, ·, ·), the D dim
     ``dim_d`` gathered over ``data`` or kept as this rank's slice, as a
     plain (E/ep, ·, ·) tensor. Its gradient: this block's alone over
-    ``model``, partial over ``data`` where gathered and this slice's alone
-    where not, partial over any other batch axis (pod) and replicated over
-    the rest."""
+    ``model``, partial over ``data`` where gathered (replicated where the
+    batch is: every data rank then computes the whole gradient) and this
+    slice's alone where not, partial over any other batch axis (pod) and
+    replicated over the rest."""
     def on(axis, gathered, kept):
         if axis == "model":
             return Shard(0)
@@ -300,7 +304,8 @@ def _local_experts(w, mesh, dim_d: int, gather: bool, rows: Sequence[str]) -> to
         return kept
     names = mesh.mesh_dim_names
     target = [on(a, Replicate(), Replicate()) for a in names]
-    grads = [on(a, Partial(), Partial() if a in rows else Replicate()) for a in names]
+    grads = [on(a, Partial() if "data" in rows else Replicate(),
+                Partial() if a in rows else Replicate()) for a in names]
     return w.redistribute(mesh, target).to_local(grad_placements=grads)[0]
 
 
@@ -320,7 +325,9 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
       are summed over ``data``, the down projection gives this rank's D slice
       of the outputs, gathered back, and each rank keeps its own rows.
 
-    The combine is summed over ``model`` in the compute dtype; the aux loss
+    A replicated batch (``specs.batch_rules``: no batch axes) is one pool on
+    every rank and runs in the gather mode. The combine is summed over
+    ``model`` in the compute dtype; the aux loss
     is averaged over every mesh axis. Where the pool is the same on every
     model rank, the pool and the combine weights enter the expert work
     through ``_SumGrad`` and the combine's sum passes its gradient as it is;
@@ -332,9 +339,9 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
     names = mesh.mesh_dim_names
     sizes = dict(zip(names, mesh.shape))
     rows = batch_axes()
-    if "data" not in rows:
-        raise ValueError(f"the sharded MoE path needs the batch split over 'data'; the "
-                         f"rules split it over {rows}")
+    if rows and "data" not in rows:
+        raise ValueError(f"the sharded MoE path needs the batch split over 'data' or "
+                         f"replicated; the rules split it over {rows}")
     tp = sizes["model"]
     ep, fp = ep_fp(cfg, tp)
     E, k, c = cfg.n_experts, cfg.experts_per_token, cdt(cfg)
@@ -355,6 +362,8 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
     gather = gather_bytes * (n_dp - 1) / n_dp < act_bytes
     if force_gather is not None:
         gather = force_gather
+    if not rows:  # a replicated batch: every data rank holds these tokens already
+        gather = True
     g_data, g_model = mesh.get_group("data"), mesh.get_group("model")
     pooled = (["model"] if "model" in rows else []) + ([] if gather else ["data"])
 

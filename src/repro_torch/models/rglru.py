@@ -125,13 +125,14 @@ def rglru_block_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
     """One-token RG-LRU step. x_t (B,1,D); state {h (B,W) f32, conv (B,K-1,W)
     f32}. Returns (out (B,1,D), the new state)."""
     c = cdt(cfg)
-    gate = _gelu((x_t @ p["w_gate"].to(c)).float())
-    xb = x_t @ p["w_x"].to(c)
-    xc = _causal_conv(xb, p["conv_w"], p["conv_b"], tail=state["conv"])
+    gate = _gelu((x_t @ gather_weight(p["w_gate"]).to(c)).float())
+    xb = x_t @ gather_weight(p["w_x"]).to(c)
+    xc = _causal_conv(xb, gather_weight(p["conv_w"]), gather_weight(p["conv_b"]),
+                      tail=state["conv"])
     new_conv = torch.cat([state["conv"][:, 1:], xb.float()], 1)
     a_log, gated = _rglru_gates(p, xc)
     h = ops.rglru_decode_step(gated[:, 0], a_log[:, 0], state["h"])
-    out = (h[:, None].float() * gate).to(c) @ p["w_out"].to(c)
+    out = (h[:, None].float() * gate).to(c) @ gather_weight(p["w_out"]).to(c)
     return out, {"h": h, "conv": new_conv}
 
 

@@ -225,15 +225,30 @@ def whole(t: Any) -> Any:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def batch_rules(rules: AxisRules, mesh: Optional[Any], n_rows: int) -> AxisRules:
+    """The rules to run a batch of ``n_rows`` rows under on ``mesh``:
+    ``rules`` as they are where the rows split over the mesh axes the rules
+    give "batch"; else the same rules with the batch replicated, as the JAX
+    package's ``sanitize_spec`` leaves such a batch's spec (a global batch of
+    1 over 16 data ranks). Every rank then holds and runs the whole batch
+    (``batch_rows``), ``axes.batch_axes()`` is empty, and the loss counts the
+    batch once and its gradients are not summed over the ranks."""
+    if mesh is None or n_rows % _axis_size(mesh, rules.resolve("batch")) == 0:
+        return rules
+    return AxisRules(rules={**rules.rules, "batch": None},
+                     gather_weights_at_use=rules.gather_weights_at_use)
+
+
 def batch_rows(batch: Dict[str, torch.Tensor], n: int, i: int) -> Dict[str, torch.Tensor]:
     """Block ``i`` of ``n`` of every leaf's rows: a rank's part of the global
-    batch. The rows must split evenly (the JAX package replicates a batch
-    that does not; the port's activations are always the rank's own rows)."""
+    batch. A batch whose rows do not split into ``n`` blocks is replicated,
+    as the JAX package replicates it: every rank gets the whole batch, which
+    it must run under ``batch_rules`` (where the batch is not split, and
+    ``n`` is 1)."""
+    if any(v.shape[0] % n for v in batch.values()):
+        return dict(batch)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch leaf {k!r} has {v.shape[0]} rows, which do not split "
-                             f"over {n} data-parallel ranks")
         b = v.shape[0] // n
         out[k] = v[i * b:(i + 1) * b]
     return out

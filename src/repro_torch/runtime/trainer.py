@@ -38,8 +38,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.parallel import axes
-from repro_torch.parallel.specs import (batch_rows, expert_blocks, make_param_specs,
-                                        make_shardings, place_tree)
+from repro_torch.parallel.specs import (batch_rows, batch_rules, expert_blocks,
+                                        make_param_specs, make_shardings, place_tree)
 from repro_torch.runtime.steps import make_train_step
 
 
@@ -106,7 +106,8 @@ class TrainerRuntime:
 
     def _ctx(self):
         if self.rules is not None:
-            return axes.axis_rules(self.rules, self.mesh)
+            return axes.axis_rules(batch_rules(self.rules, self.mesh, self.dcfg.global_batch),
+                                   self.mesh)
         return contextlib.nullcontext()
 
     def _log(self, msg: str) -> None:

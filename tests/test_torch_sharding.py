@@ -231,8 +231,12 @@ def test_batch_rows_split_a_global_batch():
     b = {"tokens": torch.arange(24).reshape(8, 3), "labels": torch.arange(8)}
     parts = [specs.batch_rows(b, 4, i) for i in range(4)]
     assert torch.equal(torch.cat([p["tokens"] for p in parts]), b["tokens"])
-    with pytest.raises(ValueError, match="do not split over 3"):
-        specs.batch_rows(b, 3, 0)
+    # rows that do not split over 3 ranks are replicated, as the JAX package
+    # replicates them: every rank gets the whole batch
+    for i in range(3):
+        whole = specs.batch_rows(b, 3, i)
+        assert sorted(whole) == sorted(b)
+        assert all(torch.equal(whole[k], b[k]) for k in b)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b"])
