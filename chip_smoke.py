@@ -551,6 +551,11 @@ FLASH_CASES = [
     (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6, ragged S
     (4, 768, 768, 48, 8, 128, True, 0, 0),    # internvl2-26b prefill: 256 patches + 512 text
     (4, 2048, 2048, 16, 16, 80, False, 0, 0),  # hubert-xlarge encode: 2048 frames, Dh 80
+    # one rank's heads under tensor parallelism over a model axis of 16
+    (4, 512, 512, 2, 1, 128, True, 0, 0),     # granite-8b prefill: 2 q heads on 1 kv head
+    (4, 768, 768, 3, 1, 128, True, 0, 0),     # internvl2-26b prefill: 3 on 1
+    (4, 2048, 2048, 1, 1, 128, True, 0, 0),   # qwen3-1.7b train: 1 on 1
+    (2, 4608, 4608, 2, 1, 128, True, 4096, 0),  # mixtral-8x7b train: 2 on 1, window 4096
 ]
 DIGEST_CASES = 15  # forward_digest's cases: those it covered when first recorded
 FLASH_SERVE = {"qwen3-1.7b": FLASH_CASES[13], "recurrentgemma-9b": FLASH_CASES[14],
@@ -575,7 +580,15 @@ DECODE_CASES = [
     (4, 544, 40, 8, 128, (1, 200, 544, 377)),  # llama4-maverick: group 5
     (4, 4096, 32, 8, 128, (4096, 4096, 4096, 4096)),  # mixtral-8x7b: group 4, full ring
     (4, 800, 48, 8, 128, (1, 300, 800, 785)),  # internvl2-26b: group 6, 768 + 32 slots
+    # one rank's heads under tensor parallelism
+    (4, 544, 2, 1, 128, (1, 200, 544, 377)),  # granite-8b at model 16: 2 q heads on 1 kv head
+    (4, 800, 3, 1, 128, (1, 300, 800, 785)),  # internvl2-26b at model 16: 3 on 1
+    (4, 544, 4, 2, 128, (1, 200, 544, 377)),  # qwen3-1.7b at model 4: 4 on 2
 ]
+# one rank's heads under tensor parallelism (model 16, and 4 for qwen3-1.7b)
+TP_PREFILL = {"granite-8b, model 16": FLASH_CASES[23], "internvl2-26b, model 16": FLASH_CASES[24]}
+TP_DECODE = {"granite-8b, model 16": DECODE_CASES[16], "internvl2-26b, model 16": DECODE_CASES[17],
+             "qwen3-1.7b, model 4": DECODE_CASES[18]}
 DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[9], "recurrentgemma-9b": DECODE_CASES[10],
                 "granite-8b": DECODE_CASES[11], "phi4-mini-3.8b": DECODE_CASES[12],
                 "llama3.2-3b": DECODE_CASES[12], "llama4-maverick-400b-a17b": DECODE_CASES[13],
@@ -683,7 +696,7 @@ def run_checks(dev):
                 out["bound_rel_rms"] = FLASH_FWD_BF16_REL_RMS
                 ok = ok and out["rel_rms"] <= FLASH_FWD_BF16_REL_RMS
             _check("flash_attention", case, dtype, out, ok, "")
-            for arch, c in FLASH_SERVE.items():
+            for arch, c in {**FLASH_SERVE, **TP_PREFILL}.items():
                 if case == c and dtype == torch.bfloat16:
                     worst[("flash_attention", arch)] = err
             del q, k, v, got, want
@@ -702,7 +715,7 @@ def run_checks(dev):
                 out["bound_rel_rms"] = DECODE_BF16_REL_RMS
                 ok = ok and out["rel_rms"] <= DECODE_BF16_REL_RMS
             _check("decode_attention", case, dtype, out, ok and out["empty_rows_zero"], "")
-            for arch, c in DECODE_SERVE.items():
+            for arch, c in {**DECODE_SERVE, **TP_DECODE}.items():
                 if case == c and dtype == torch.bfloat16:
                     worst[("decode_attention", arch)] = err
     for case in SSD_CASES:
@@ -1420,6 +1433,9 @@ FLASH_BWD_CASES = [
     (2, 2112, 2112, 6, 2, 160, True, 512, 0),  # Dh 160, group 3 in subsets of 1 and 2
     (2, 300, 300, 4, 4, 80, False, 0, 0),     # bidirectional MHA at Dh 80, ragged S
     (2, 300, 300, 12, 2, 128, True, 0, 0),    # GQA group 6, ragged S
+    # one rank's heads under tensor parallelism over a model axis of 16
+    (4, 2048, 2048, 1, 1, 128, True, 0, 0),   # qwen3-1.7b train: 1 q head on 1 kv head
+    (2, 4608, 4608, 2, 1, 128, True, 4096, 0),  # mixtral-8x7b train: 2 on 1, window 4096
     # mixtral-8x7b train, full width: group 4 at Dh 128, a window that cuts keys
     (2, 4608, 4608, 32, 8, 128, True, 4096, 0),
     (4, 2048, 2048, 16, 16, 80, False, 0, 0),  # hubert-xlarge train: bidirectional, Dh 80
@@ -1431,6 +1447,8 @@ FLASH_TRAIN = FLASH_BWD_CASES[-1]
 FLASH_TRAIN_RG = FLASH_BWD_CASES[-2]
 FLASH_TRAIN_HUBERT = FLASH_BWD_CASES[-3]
 FLASH_TRAIN_MIXTRAL = FLASH_BWD_CASES[-4]
+TP_TRAIN = {"qwen3-1.7b train, model 16": FLASH_BWD_CASES[-6],
+            "mixtral-8x7b train, model 16": FLASH_BWD_CASES[-5]}
 
 
 def flash_grads(fn, q, k, v, dout):
@@ -1527,7 +1545,7 @@ def run_flash_bwd_checks(dev):
                         "empty_rows": int(empty.sum()), "empty_rows_dq_zero": ok_empty})
             _check("flash_attention_bwd", case, dtype, res,
                    ok and ok_out and ok_lse and ok_empty, "")
-            label = {c: lab for lab, c in flash_train_cases().items()}.get(case)
+            label = {c: lab for lab, c in {**flash_train_cases(), **TP_TRAIN}.items()}.get(case)
             if label is not None and dtype == torch.bfloat16:
                 worst[("flash_attention", label)] = e_out
                 worst[("flash_attention_bwd", label)] = max(r["max_abs"] for r in
@@ -2813,9 +2831,9 @@ def time_flash(arch, launches, errs, card, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
-    train_cases = flash_train_cases()
+    train_cases = {**flash_train_cases(), **TP_TRAIN}
     with_lse = arch in train_cases  # the train path's forward also writes the logsumexp
-    case = train_cases[arch] if with_lse else FLASH_SERVE[arch]
+    case = train_cases[arch] if with_lse else {**FLASH_SERVE, **TP_PREFILL}[arch]
     B, S, _, H, Hkv, Dh, causal, window, _ = case
     scale = Dh ** -0.5
     q, k, v = flash_inputs(case, torch.bfloat16, dev, seed=3)
@@ -3168,11 +3186,12 @@ def time_decode(arch, launches, errs, card, dev):
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
     from repro_torch.models.registry import get_config
-    B, C, H, Hkv, Dh, _ = DECODE_SERVE[arch]
+    B, C, H, Hkv, Dh, _ = {**DECODE_SERVE, **TP_DECODE}[arch]
     # qwen3: the middle decode step over a cache of prompt + gen slots (the
     # vlm's prompt with its patches); recurrentgemma: the ring is full at
     # every decode step
-    prompt = PROMPT[arch] + n_patches(get_config(arch))
+    base = arch.split(",")[0]  # a tensor-parallel label's arch
+    prompt = PROMPT[base] + n_patches(get_config(base))
     n = prompt + SERVE["gen_len"] // 2 + 1 if C > prompt else C
     q1, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, (n,) * B), torch.bfloat16, dev, seed=4)
     scale = Dh ** -0.5
@@ -3426,6 +3445,29 @@ def run_times(launches, errs, card, dev):
     return rows
 
 
+def run_tp_times(errs, card, dev):
+    """The flash forward and backward and decode at one rank's heads under
+    tensor parallelism (TP_PREFILL, TP_TRAIN, TP_DECODE), timed as the
+    full-width rows are and beside them: each with its bound from
+    ``kernels.costs``, its plain version's and SDPA's time. On one card the
+    main path runs whole heads (a model axis of 1), so these shapes have no
+    launches there; they are not rows of the kernels line."""
+    kinds = ("flash_attention", "flash_attention_bwd", "decode_attention")
+    launches = {lab: dict.fromkeys(kinds, 0) for lab in (*TP_PREFILL, *TP_TRAIN, *TP_DECODE)}
+    rows = [time_flash(lab, launches, errs, card, dev) for lab in (*TP_PREFILL, *TP_TRAIN)]
+    rows += [time_flash_bwd(case, lab, launches, errs, card, dev) for lab, case in TP_TRAIN.items()]
+    rows += [time_decode(lab, launches, errs, card, dev) for lab in TP_DECODE]
+    for r in rows:
+        emit("tp_time", r)
+        agree = r.get("library_vs_kernel_max_abs", r.get("library_vs_kernel_rel_rms"))
+        if not agree[1]:
+            fail(f"{r['name']}: the library call disagrees with the kernel")
+    emit("tp_times", [{k: r[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms", "card")}
+                      for r in rows])
+    return rows
+
+
 def run_arch(arch, dev, card):
     """Serve, trace and serve_vs_plain for one arch at full width (depth cut
     where DEPTH says); returns the serve run's launch counts. The served
@@ -3627,6 +3669,37 @@ def moe_train_bits():
                 time_flash_bwd(FLASH_TRAIN_MIXTRAL, MIXTRAL_TRAIN_LABEL, launches, errs, card,
                                dev)):
         emit("time", row)
+
+
+def tp_bits():
+    """The kernels at one rank's heads under tensor parallelism alone, in the
+    tree whose repro_torch this process imports: the flash forward, its
+    backward and decode checked at TP_PREFILL, TP_TRAIN and TP_DECODE (f32
+    and bf16), then their time rows (run_tp_times). Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.tp_bits()'"""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["flash_attention", "flash_attention_bwd", "decode_attention"])
+    global FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
+    saved = FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
+    FLASH_CASES = [*TP_PREFILL.values(), *TP_TRAIN.values()]
+    DECODE_CASES, SSD_CASES, RGLRU_CASES = list(TP_DECODE.values()), [], []
+    FLASH_BWD_CASES = list(TP_TRAIN.values())
+    try:
+        errs = run_checks(dev)
+        errs.update(run_flash_bwd_checks(dev))
+    finally:
+        FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES = saved
+    run_tp_times(errs, card, dev)
 
 
 def epoch_pass_bits():
@@ -4187,6 +4260,7 @@ def main():
     run_restart(dev)
     run_dryrun(dev, card, {k: v["sha256"] for k, v in digests.items()})
     rows = run_times(launches, errs, card, dev)
+    run_tp_times(errs, card, dev)
 
     emit("total_s", time.perf_counter() - t_start)
     print(card)

@@ -28,9 +28,16 @@ Layouts are the JAX package's choices: decode cells and cells whose global
 batch does not split over every rank take "tp", the rest the arch's own;
 ``--layout`` overrides (the JAX package's ``REPRO_FORCE_LAYOUT``). A batch
 that does not split over the data-parallel ranks (long_500k's batch of 1) is
-replicated (``specs.batch_rules``). The port keeps each rank's decode cache
-rows whole over every slot: the JAX package's ``kv_seq`` layout splits the
-cache's sequence over ``model``, which the port's decode does not.
+replicated (``specs.batch_rules``). Under "tp" (``single_pod_rules``,
+``multi_pod_rules``) the dense layers run tensor-parallel over ``model``
+(``models/layers.py``): a record counts what one rank dispatches, its
+heads, ``d_ff / m`` and ``vocab / m`` of the split products (where the
+model axis divides them), the k and v projections at the kv heads its q
+heads read, and the all-reduces and all-gathers over ``model`` that join
+them, with their bytes and groups. The port keeps each rank's decode cache
+rows whole over every slot, of the kv heads that rank reads: the JAX
+package's ``kv_seq`` layout splits the cache's sequence over ``model``,
+which the port's decode does not.
 
 Importing this module sets no environment variable and starts no process
 group: ``run_cell`` makes the world and destroys it. The autograd engine of a
@@ -71,9 +78,10 @@ from repro_torch.runtime.steps import make_decode_step, make_prefill_step, make_
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
-CACHE_LAYOUT = ("rows whole: each rank holds its own batch rows' caches over every slot "
-                "(the JAX package splits the cache's sequence over 'model', kv_seq; the "
-                "port's decode does not)")
+CACHE_LAYOUT = ("rows whole: each rank holds its own batch rows' caches over every slot, "
+                "of the kv heads its q heads read under tensor parallelism (each TP rank "
+                "its own kv heads); the JAX package splits the cache's sequence over "
+                "'model', kv_seq; the port's decode does not")
 
 
 class CudaOnMeta(TorchDispatchMode):

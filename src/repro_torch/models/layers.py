@@ -11,6 +11,19 @@ plain matrix products; attention goes through ``kernels.ops``. Every param
 is read through ``parallel.axes.gather_weight`` and activations pass
 ``shard`` where the JAX package constrains them; both return their input
 without a mesh.
+
+Where the active rules and mesh split a layer's dim over ``model``
+(``axes.tp_split``: the single- and multi-pod rules, a model axis above 1
+that divides the dim), the layer runs tensor-parallel, Megatron-style:
+attention over its q heads (``wq`` column-, ``wo`` row-parallel; ``wk`` and
+``wv`` read whole and projecting only the kv heads the rank's q heads read,
+which are all that the rank's KV cache holds, ``kv_heads_local``), the MLP
+over ``ffn`` (``w_gate``, ``w_up`` column-, ``w_down`` row-parallel; the
+GELU form adds its slice of ``b_up``, and ``b_down`` once after the sum),
+and the embedding, the logits and the cross-entropy over ``vocab``.
+Activations are whole on every model rank between the layers; each
+row-parallel product is summed over ``model``
+(``axes.reduce_from_model``). Elsewhere a layer runs as without a mesh.
 """
 from __future__ import annotations
 
@@ -22,7 +35,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.axes import gather_weight, shard
+from repro_torch.parallel.axes import (copy_to_model, gather_from_model, gather_partial,
+                                       gather_weight, local_weight, max_over_model,
+                                       reduce_from_model, shard, tp_split)
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -155,15 +170,45 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.T
     return (x @ w.to(dtype).reshape(D, h * Dh)).view(*x.shape[:-1], h, Dh)
 
 
+def kv_heads_local(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """(first kv head, count) that this rank's q heads read where attention
+    runs tensor-parallel over ``model``; None where it runs whole. The q
+    heads [r·H/m, (r+1)·H/m) of model rank r read the kv heads h // g (g =
+    H / Hkv). Where they would split a kv head's group unevenly (no
+    registered config does on a mesh of powers of 2) attention runs whole."""
+    m, r = tp_split("heads", cfg.n_heads)
+    if m == 1:
+        return None
+    n, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if n % g and g % n:
+        return None
+    return r * n // g, max(1, n // g)
+
+
+def n_kv_heads_cached(cfg: ModelConfig) -> int:
+    """The kv heads of this rank's KV cache: those its q heads read."""
+    local = kv_heads_local(cfg)
+    return cfg.n_kv_heads if local is None else local[1]
+
+
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj_heads(x, gather_weight(p["wq"]), cdt(cfg))
-    k = _proj_heads(x, gather_weight(p["wk"]), cdt(cfg))
-    v = _proj_heads(x, gather_weight(p["wv"]), cdt(cfg))
+    local = kv_heads_local(cfg)
+    read = read_q = read_kv = gather_weight
+    if local is not None:  # this rank's q heads and the kv heads they read
+        x = copy_to_model(x)
+        lo, n = local
+        read, read_q = gather_partial, local_weight
+
+        def read_kv(w):
+            return gather_partial(w)[:, lo:lo + n]
+    q = _proj_heads(x, read_q(p["wq"]), cdt(cfg))
+    k = _proj_heads(x, read_kv(p["wk"]), cdt(cfg))
+    v = _proj_heads(x, read_kv(p["wv"]), cdt(cfg))
     if cfg.qk_norm:
-        q = rms_head_norm(q, gather_weight(p["q_norm"]), cfg.norm_eps)
-        k = rms_head_norm(k, gather_weight(p["k_norm"]), cfg.norm_eps)
+        q = rms_head_norm(q, read(p["q_norm"]), cfg.norm_eps)
+        k = rms_head_norm(k, read(p["k_norm"]), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = shard(q, "batch", None, "heads", None)
@@ -173,10 +218,15 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _out_proj(cfg: ModelConfig, p: Params, out: torch.Tensor) -> torch.Tensor:
-    """out (..., H, Dh) times wo (H,Dh,D) → (..., D)."""
-    H, Dh, D = p["wo"].shape
-    w = gather_weight(p["wo"]).to(cdt(cfg)).reshape(H * Dh, D)
-    return out.reshape(*out.shape[:-2], H * Dh) @ w
+    """out (..., H, Dh) times wo (H,Dh,D) → (..., D); tensor-parallel, the
+    rank's heads times its rows of wo, summed over ``model``."""
+    if kv_heads_local(cfg) is None:
+        H, Dh, D = p["wo"].shape
+        w = gather_weight(p["wo"]).to(cdt(cfg)).reshape(H * Dh, D)
+        return out.reshape(*out.shape[:-2], H * Dh) @ w
+    w = local_weight(p["wo"]).to(cdt(cfg))
+    H, Dh, D = w.shape
+    return reduce_from_model(out.reshape(*out.shape[:-2], H * Dh) @ w.reshape(H * Dh, D))
 
 
 def _attend(cfg: ModelConfig, p: Params, q, k, v,
@@ -236,7 +286,8 @@ def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                            v_cache: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step. x_t (B,1,D), pos (B,) absolute positions, caches
-    (B,C,Hkv,Dh). Returns (y (B,1,D), k_cache, v_cache).
+    (B,C,Hkv,Dh) of this rank's kv heads (``n_kv_heads_cached``). Returns
+    (y (B,1,D), k_cache, v_cache).
 
     Unlike the JAX version, which returns new caches, the new token's K/V is
     written into the given caches in place (they are views into the stacked
@@ -284,8 +335,15 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu(x·w_gate) in f32, cast, times x·w_up, then ·w_down. GELU:
     u = x·w_up + b_up, gelu(u) in f32, cast, then ·w_down + b_down. The GELU
     is the tanh form, which ``jax.nn.gelu`` computes by default (torch's
-    default, the erf form, differs by up to 4.7e-4 over [-6, 6])."""
+    default, the erf form, differs by up to 4.7e-4 over [-6, 6]).
+
+    Tensor-parallel over ``ffn``: the rank's columns of ``w_gate``, ``w_up``
+    and ``b_up`` and rows of ``w_down``, the products summed over ``model``,
+    then ``b_down``."""
     c = cdt(cfg)
+    m, r = tp_split("ffn", p["w_up"].shape[-1])
+    if m > 1:
+        return _apply_mlp_tp(cfg, p, x, m, r)
     if cfg.act == "silu":
         g = x @ gather_weight(p["w_gate"]).to(c)
         u = x @ gather_weight(p["w_up"]).to(c)
@@ -295,6 +353,21 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = shard(F.gelu(u.float(), approximate="tanh").to(c), "batch", None, "ffn")
     y = h @ gather_weight(p["w_down"]).to(c) + gather_weight(p["b_down"])
     return shard(y, "batch", None, None)
+
+
+def _apply_mlp_tp(cfg: ModelConfig, p: Params, x: torch.Tensor, m: int, r: int
+                  ) -> torch.Tensor:
+    c = cdt(cfg)
+    x = copy_to_model(x)
+    if cfg.act == "silu":
+        g = x @ local_weight(p["w_gate"]).to(c)
+        u = x @ local_weight(p["w_up"]).to(c)
+        h = F.silu(g.float()).to(c) * u
+        return reduce_from_model(h @ local_weight(p["w_down"]).to(c))
+    f = p["w_up"].shape[-1] // m
+    u = x @ local_weight(p["w_up"]).to(c) + gather_partial(p["b_up"])[r * f:(r + 1) * f]
+    h = F.gelu(u.float(), approximate="tanh").to(c)
+    return reduce_from_model(h @ local_weight(p["w_down"]).to(c)) + gather_weight(p["b_down"])
 
 
 # =============================================================================
@@ -309,31 +382,68 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     return p
 
 
+def _vocab_rows(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """[first, end) of the vocab rows this rank holds where the embedding,
+    the logits and the loss run vocab-parallel; None where they run whole."""
+    m, r = tp_split("vocab", cfg.vocab_size)
+    if m == 1:
+        return None
+    n = cfg.vocab_size // m
+    return r * n, (r + 1) * n
+
+
 def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Vocab-parallel: each rank looks the tokens up in its rows of the
+    table, 0 for a token outside them, and the lookups are summed over
+    ``model``."""
+    rows = _vocab_rows(cfg)
     # F.embedding, not indexing: its CUDA backward sums each row's gradient in
     # a fixed order, where indexing's accumulating scatter need not
-    x = F.embedding(tokens, gather_weight(p["tok"]).to(cdt(cfg)))
-    return shard(x, "batch", None, None)
+    if rows is None:
+        x = F.embedding(tokens, gather_weight(p["tok"]).to(cdt(cfg)))
+        return shard(x, "batch", None, None)
+    lo, hi = rows
+    inside = (tokens >= lo) & (tokens < hi)
+    x = F.embedding(torch.where(inside, tokens - lo, 0), local_weight(p["tok"]).to(cdt(cfg)))
+    return reduce_from_model(x.masked_fill(~inside[..., None], 0))
 
 
 def unembed_matrix(cfg: ModelConfig, p: Params) -> torch.Tensor:
+    """(V, D) in the compute dtype; this rank's rows where the logits run
+    vocab-parallel."""
     w = p["tok"] if cfg.tie_embeddings else p["unembed"]
-    return gather_weight(w).to(cdt(cfg))
+    read = gather_weight if _vocab_rows(cfg) is None else local_weight
+    return read(w).to(cdt(cfg))
 
 
 def logits_for(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Full logits (..., V) — use only for single-position outputs."""
+    """Full logits (..., V) — use only for single-position outputs.
+    Vocab-parallel, each rank's block of the vocab gathered over ``model``."""
+    if _vocab_rows(cfg) is not None:
+        return gather_from_model(copy_to_model(x) @ unembed_matrix(cfg, p).t())
     out = x @ unembed_matrix(cfg, p).t()
     return shard(out, "batch", "vocab") if out.dim() == 2 else shard(out, "batch", None, "vocab")
 
 
-def _xent_chunk(x_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _xent_chunk(x_c: torch.Tensor, w: torch.Tensor, l_c: torch.Tensor,
+                lo: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk's token-loss sum and valid count. Vocab-parallel (``lo``,
+    the rank's first vocab row): the logsumexp from the max, the sum of
+    exps and the picked logit, each reduced over ``model``."""
     logits = shard((x_c @ w.t()).float(), "batch", None, "vocab")
-    lse = torch.logsumexp(logits, dim=-1)
     valid = l_c != -100
-    safe = torch.where(valid, l_c, 0).long()
-    picked = logits.gather(-1, safe[..., None])[..., 0]
+    if lo is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        safe = torch.where(valid, l_c, 0).long()
+        picked = logits.gather(-1, safe[..., None])[..., 0]
+    else:
+        # the max only steadies the sum: the logsumexp does not depend on it
+        mx = max_over_model(logits.amax(-1))
+        lse = mx + torch.log(reduce_from_model(torch.exp(logits - mx[..., None]).sum(-1)))
+        local = l_c - lo
+        mine = valid & (local >= 0) & (local < w.shape[0])
+        picked = logits.gather(-1, torch.where(mine, local, 0).long()[..., None])[..., 0]
+        picked = reduce_from_model(torch.where(mine, picked, 0.0))
     tok_loss = torch.where(valid, lse - picked, 0.0)
     return tok_loss.sum(), valid.sum()
 
@@ -348,15 +458,22 @@ def chunked_softmax_xent(cfg: ModelConfig, p_embed: Params, x: torch.Tensor,
     so its logits are recomputed in the backward instead of kept (at
     qwen3-1.7b's width one chunk of 4 x 2048 tokens holds 5 GB of f32 logits).
 
+    Vocab-parallel, each rank makes its block of the logits and no rank
+    holds all of V (``_xent_chunk``).
+
     Returns (sum of the token losses, number of valid tokens) as f32 scalars."""
     S = x.shape[1]
     w = unembed_matrix(cfg, p_embed)
+    rows = _vocab_rows(cfg)
+    lo = None if rows is None else rows[0]
+    if rows is not None:
+        x = copy_to_model(x)
     sc = min(s_chunk, S)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_valid = torch.zeros((), dtype=torch.int64, device=x.device)
     for c0 in range(0, S, sc):
         ls, nv = torch.utils.checkpoint.checkpoint(
-            _xent_chunk, x[:, c0:c0 + sc], w, labels[:, c0:c0 + sc],
+            _xent_chunk, x[:, c0:c0 + sc], w, labels[:, c0:c0 + sc], lo,
             use_reentrant=False, preserve_rng_state=False)
         loss_sum = loss_sum + ls
         n_valid = n_valid + nv

@@ -50,7 +50,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
-from repro_torch.parallel.axes import batch_axes, current_mesh, current_rules, gather_weight
+from repro_torch.parallel.axes import (SumGrad, batch_axes, current_mesh, current_rules,
+                                       gather_weight)
 from .config import ModelConfig
 from .layers import Params, _normal, apply_mlp, cdt, dt, init_mlp
 
@@ -272,22 +273,6 @@ class _Mean(torch.autograd.Function):
         return grad, None
 
 
-class _SumGrad(torch.autograd.Function):
-    """The identity, whose backward sums the gradient over ``group``: a value
-    every rank of the group holds alike enters work that differs by rank."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 def _local_experts(w, mesh, dim_d: int, gather: bool, rows: Sequence[str]) -> torch.Tensor:
     """This model rank's block of an expert leaf (TP, E/ep, ·, ·), the D dim
     ``dim_d`` gathered over ``data`` or kept as this rank's slice, as a
@@ -330,7 +315,7 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
     ``model`` in the compute dtype; the aux loss
     is averaged over every mesh axis. Where the pool is the same on every
     model rank, the pool and the combine weights enter the expert work
-    through ``_SumGrad`` and the combine's sum passes its gradient as it is;
+    through ``SumGrad`` and the combine's sum passes its gradient as it is;
     where the pool is gathered over ``model``, the gather's backward does the
     sum and the combine's sum sums its gradient. The aux loss, which varies
     over the pools, is averaged over the mesh and passes its gradient as it
@@ -381,7 +366,7 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
                           glob - e_lo * cap, -1)
     src = pool.to(c).repeat_interleave(k, dim=0)
     if "model" not in pooled:
-        src, weights = _SumGrad.apply(src, g_model), _SumGrad.apply(weights, g_model)
+        src, weights = SumGrad.apply(src, g_model), SumGrad.apply(weights, g_model)
 
     wg = _local_experts(p["w_gate"], mesh, 2, gather, rows)
     wu = _local_experts(p["w_up"], mesh, 2, gather, rows)

@@ -39,6 +39,7 @@ from .layers import (
     init_norm,
     init_stacked,
     layer_of,
+    n_kv_heads_cached,
 )
 
 N_DIAG_BLOCKS = 8  # RG-LRU gate matrices are block-diagonal (Griffin §2.4)
@@ -219,7 +220,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
     def state(lead: Tuple[int, ...], kind: str) -> Dict[str, Any]:
         if kind == "attn":
-            shape = (*lead, batch, C, cfg.n_kv_heads, cfg.head_dim)
+            # this rank's kv heads under tensor parallelism
+            shape = (*lead, batch, C, n_kv_heads_cached(cfg), cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dt(cfg), device=device),
                     "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
         f32 = dict(dtype=torch.float32, device=device)

@@ -9,7 +9,8 @@ Params keep the JAX layout: layers are grouped into units of ``moe_every``
 consecutive layers (one layer without experts), ``{"units": [params of
 position 0, ..., position unit-1]}`` where every leaf has a leading
 ``(n_units,)`` axis, and the MoE layer is the last of each unit. The KV cache
-is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``.
+is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``, Hkv the kv
+heads of this rank's q heads under tensor parallelism.
 ``jax.lax.scan`` over units becomes a Python loop over layers, and the
 reference's per-unit ``jax.checkpoint`` becomes ``torch.utils.checkpoint``
 per layer.
@@ -36,6 +37,7 @@ from .layers import (
     init_norm,
     init_stacked,
     layer_of,
+    n_kv_heads_cached,
 )
 from .moe import apply_moe, init_moe_layer
 
@@ -133,9 +135,11 @@ def cache_size_for(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
-    """KV caches stacked (n_units, unit, B, C, Hkv, Dh), zero-filled."""
+    """KV caches stacked (n_units, unit, B, C, Hkv, Dh), zero-filled. Where
+    attention runs tensor-parallel over ``model`` each rank's cache holds
+    only the kv heads its q heads read (``layers.n_kv_heads_cached``)."""
     C = cache_size_for(cfg, max_len)
-    shape = (_n_units(cfg), _unit_size(cfg), batch, C, cfg.n_kv_heads, cfg.head_dim)
+    shape = (_n_units(cfg), _unit_size(cfg), batch, C, n_kv_heads_cached(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt(cfg), device=device),
             "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
 

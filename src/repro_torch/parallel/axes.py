@@ -15,14 +15,33 @@ Where the JAX package hands the whole layout to GSPMD, the port is explicit:
   placements on a mesh;
 * params on a mesh are DTensors; activations stay plain tensors holding the
   rank's own batch rows (the batch is split over the mesh axes the rules
-  give "batch", :func:`batch_axes`). The dense layers run no tensor
-  parallelism: their work over any other axis is replicated;
-* :func:`gather_weight` gathers a param where it is read, under every rule
-  set (the JAX package gathers at use only under ``gather_weights_at_use``
-  and leaves the rest to GSPMD). The gathered copy's gradient is taken as
-  partial over the batch axes and replicated over the others, so the
-  backward reduce-scatters over the batch axes and sums no identical copies.
-  A param read without it raises (a DTensor mixed with a plain tensor).
+  give "batch", :func:`batch_axes`);
+* the dense layers of ``models/layers.py`` run tensor-parallel over
+  ``model``, Megatron-style, where the rules put "heads", "ffn" or "vocab"
+  on ``model`` (``single_pod_rules``, ``multi_pod_rules``) and the param's
+  sanitised spec splits that dim (:func:`tp_split`): attention by heads
+  (``wq`` and ``wo`` read as the rank's slice, :func:`local_weight`; ``wk``
+  and ``wv`` whole and sliced to the kv heads the rank's q heads read), the
+  MLP by ``ffn``, the embedding, the logits and the loss by ``vocab``. An
+  activation is whole on every model rank between the layers: it enters a
+  column-parallel product through :func:`copy_to_model` (Megatron's *f*)
+  and leaves a row-parallel one through :func:`reduce_from_model` (*g*). A
+  dim the mesh does not divide (phi4-mini's and llama3.2's 24 heads over
+  16, llama4's 40) keeps the replicated work, and so does a model axis of
+  size 1, with no collective and today's ops. Mamba2's ``ssm_heads``, the
+  RG-LRU's ``ffn`` and the MoE experts (``models/moe.py``, expert-parallel)
+  read their params whole (:func:`gather_weight`) and repeat the work on
+  every model rank, as does context-sharded decode (``kv_seq``), which the
+  port does not run;
+* :func:`gather_weight` gathers a param where it is read whole, under every
+  rule set (the JAX package gathers at use only under
+  ``gather_weights_at_use`` and leaves the rest to GSPMD). The gathered
+  copy's gradient is taken as partial over the batch axes and replicated
+  over the others, so the backward reduce-scatters over the batch axes and
+  sums no identical copies; :func:`gather_partial` takes it as partial over
+  ``model`` too, for a whole param that each model rank reads only in part.
+  A param read without one of these raises (a DTensor mixed with a plain
+  tensor).
 """
 from __future__ import annotations
 
@@ -208,8 +227,8 @@ def sum_over(t: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
 def shard(x: Any, *logical_axes: Optional[str]) -> Any:
     """``with_sharding_constraint`` by logical axes. A DTensor is laid out by
     the active rules; an activation, a plain tensor of the rank's own batch
-    rows, passes as it is (the port runs no tensor parallelism), and so
-    does everything without rules or mesh."""
+    rows (whole over ``model`` between the dense layers), passes as it is,
+    and so does everything without rules or mesh."""
     mesh = _STATE.mesh
     if mesh is None or _STATE.rules is None or not isinstance(x, DTensor):
         return x
@@ -227,6 +246,135 @@ def gather_weight(w: Any) -> Any:
     rows = batch_axes()
     grad = [Partial() if a in rows else Replicate() for a in mesh.mesh_dim_names]
     return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
+
+
+def gather_partial(w: Any) -> Any:
+    """``gather_weight``'s whole param, whose gradient is partial over
+    ``model`` as well as over the batch axes: a replicated param that each
+    model rank reads only in part under tensor parallelism (the kv heads of
+    its q heads, its slice of a bias) or applies to its own share of the
+    work (the qk-norm scales of its heads)."""
+    mesh = _STATE.mesh
+    if mesh is None or _STATE.rules is None or not isinstance(w, DTensor):
+        return w
+    rows = batch_axes()
+    grad = [Partial() if a in rows or a == "model" else Replicate()
+            for a in mesh.mesh_dim_names]
+    return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
+
+
+# -- tensor parallelism over "model" ------------------------------------------------
+
+def tp_split(logical: str, n: int) -> Tuple[int, int]:
+    """(m, r): the ``model`` axis size that splits a dim of size ``n`` named
+    ``logical``, and this rank's block of it; (1, 0) where the dim is not
+    split: no rules or mesh, rules that do not put ``logical`` on ``model``
+    alone, a model axis of size 1, or ``n`` not a multiple of its size (the
+    dim is stored whole, ``specs.sanitize_spec``)."""
+    rules, mesh = _STATE.rules, _STATE.mesh
+    if rules is None or mesh is None or _axes_tuple(rules.resolve(logical)) != ("model",):
+        return 1, 0
+    m = mesh_sizes(mesh).get("model", 1)
+    if m == 1 or n % m:
+        return 1, 0
+    return m, mesh.get_local_rank("model")
+
+
+def local_weight(w: Any) -> torch.Tensor:
+    """This model rank's shard of a param whose spec splits a dim over
+    ``model``, gathered over the other mesh axes (the ``fsdp`` ones), as a
+    plain tensor. Its gradient is that shard's alone over ``model``
+    (``Shard``) and partial over the batch axes."""
+    mesh = _STATE.mesh
+    names = list(mesh.mesh_dim_names)
+    on_model = w.placements[names.index("model")]
+    if not isinstance(on_model, Shard):
+        raise ValueError(f"local_weight: a param of shape {tuple(w.shape)} placed "
+                         f"{w.placements} is not split over 'model'")
+    rows = batch_axes()
+    target = [on_model if a == "model" else Replicate() for a in names]
+    grad = [on_model if a == "model" else Partial() if a in rows else Replicate()
+            for a in names]
+    return w.redistribute(mesh, target).to_local(grad_placements=grad)
+
+
+def _model_group():
+    return _STATE.mesh.get_group("model")
+
+
+class SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``group``: a value
+    every rank of the group holds alike enters work that differs by rank
+    (Megatron's *f* over ``model``, where each rank's column-parallel
+    product gives a part of the gradient; the MoE layer's pool)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the sum over ``model`` of each rank's part, whose
+    gradient passes as it is (every rank uses the sum alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every model rank's block of the last dim, concatenated in rank order;
+    the backward hands each rank the gradient of its own block (every rank
+    uses the whole alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.block, ctx.rank = x.shape[-1], rank
+        m = dist.get_world_size(group)
+        x0 = x.movedim(-1, 0).contiguous()
+        out = x0.new_empty((m * x0.shape[0], *x0.shape[1:]))
+        dist.all_gather_into_tensor(out, x0, group=group)
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.block
+        return grad[..., lo:lo + ctx.block], None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation entering column-parallel products (*f*)."""
+    return SumGrad.apply(x, _model_group())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of a row-parallel product's parts (*g*)."""
+    return _ReduceFromModel.apply(x, _model_group())
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' blocks of the last dim, whole (the logits)."""
+    return _GatherFromModel.apply(x, _model_group(), _STATE.mesh.get_local_rank("model"))
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``model``, with no gradient through it."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_model_group())
+    return out
 
 
 def named_sharding(*logical_axes: Optional[str]) -> Optional[NamedSharding]:

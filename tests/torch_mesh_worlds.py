@@ -207,8 +207,14 @@ def _step_metrics(m) -> Dict[str, float]:
     return {k: float(v) for k, v in m.items()}
 
 
+def mesh_axes(shape) -> tuple:
+    """The production mesh's axis names for a mesh of two or three dims."""
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
 def train_job(rank: int, workdir: str) -> None:
-    """Each case: whole params placed on its mesh under its rules, then a
+    """Each case: whole params placed on its mesh (two dims: data, model;
+    three: pod, data, model) under its rules, then a
     train step on each of the case's batches, each rank on its rows: the
     metrics of each and the first step's whole gradients. Then
     the trainer on a (2, 4) mesh saving a checkpoint every step, and the
@@ -217,7 +223,7 @@ def train_job(rank: int, workdir: str) -> None:
     results: Dict[str, Any] = {}
     for name, case in inp["cases"].items():
         cfg, opt = case["cfg"], case["opt"]
-        mesh = make_auto_mesh(case["mesh"], ("data", "model"), "cpu")
+        mesh = make_auto_mesh(case["mesh"], mesh_axes(case["mesh"]), "cpu")
         with axes.axis_rules(case["rules"], mesh):
             params = placed(case["params"], cfg, case["rules"], mesh)
             state = adamw.init(opt, params)
@@ -229,10 +235,21 @@ def train_job(rank: int, workdir: str) -> None:
                 out["steps"].append(_step_metrics({**metrics, **om}))
                 if "grads" not in out:
                     out["grads"] = whole_tree(grads)
+                    out["grads_laid_out"] = _laid_out_like(grads, params)
         results[name] = out
     if "trainer" in inp:
         results["trainer"] = _trainer_and_restore(inp["trainer"], workdir)
     _save(rank, workdir, results)
+
+
+def _laid_out_like(grads, params) -> bool:
+    """Every gradient a DTensor on its param's mesh with its param's
+    placements (``steps._laid_out_as``)."""
+    g, p = tree.leaf_paths(grads), tree.leaf_paths(params)
+    return sorted(g) == sorted(p) and all(
+        isinstance(g[k], torch.distributed.tensor.DTensor)
+        and g[k].device_mesh == p[k].device_mesh
+        and tuple(g[k].placements) == tuple(p[k].placements) for k in p)
 
 
 def _trainer_and_restore(case, workdir):
@@ -258,6 +275,49 @@ def _trainer_and_restore(case, workdir):
                 a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
             "mesh_shapes": sorted({tuple(t.device_mesh.shape) for t in leaves}),
             "n_dtensor_leaves": len(leaves)}
+
+
+def vocab_job(rank: int, workdir: str) -> None:
+    """Each case: an embedding tree placed on a (2, 4) mesh under the
+    single-pod rules, and on this rank's rows the embedding of ``tokens``,
+    the logits of ``h_last`` (B, D) and the chunked cross-entropy of ``h``
+    (B, S, D) against ``labels``; then the gradients of sum(emb·dy) plus the
+    token-loss sum of the rank's rows. Returns the outputs and the gradients
+    of the hidden states (the ranks' rows gathered) and of the tables
+    (whole), and the vocab rows of this rank's unembedding."""
+    from repro_torch.models import layers
+    inp = _inputs(workdir)
+    results = {}
+    for name, case in inp["cases"].items():
+        cfg = case["cfg"]
+        mesh = make_auto_mesh((2, 4), ("data", "model"), "cpu")
+        rules = single_pod_rules()
+        with axes.axis_rules(rules, mesh):
+            p = placed({"embed": case["embed"]}, cfg, rules, mesh)["embed"]
+            leaves = tree.leaf_paths(p)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            n, i = axes.batch_shards(), axes.batch_index()
+            h = _rows(case["h"], n, i).clone().requires_grad_(True)
+            h_last = _rows(case["h_last"], n, i).clone().requires_grad_(True)
+            emb = layers.embed_tokens(cfg, p, _rows(case["tokens"], n, i))
+            logits = layers.logits_for(cfg, p, h_last)
+            loss_sum, n_valid = layers.chunked_softmax_xent(
+                cfg, p, h, _rows(case["labels"], n, i), s_chunk=case["s_chunk"])
+            share = ((emb * _rows(case["dy"], n, i)).sum() + loss_sum
+                     + (logits * _rows(case["dlogits"], n, i)).sum())
+            grads = torch.autograd.grad(share, [h, h_last] + list(leaves.values()))
+            gp = {k: steps._laid_out_as(g, leaves[k]) for k, g in zip(leaves, grads[2:])}
+            results[name] = {
+                "emb": _gather_rows(emb.detach(), mesh),
+                "logits": _gather_rows(logits.detach(), mesh),
+                "argmax": _gather_rows(torch.argmax(logits, -1), mesh),
+                "loss_sum": axes.sum_over(loss_sum.detach(), axes.batch_axes()),
+                "n_valid": axes.sum_over(n_valid, axes.batch_axes()),
+                "dh": _gather_rows(grads[0], mesh), "dh_last": _gather_rows(grads[1], mesh),
+                "grads": whole_tree(tree.unflatten_like(p, gp)),
+                "local_rows": layers.unembed_matrix(cfg, p).shape[0]}
+    _save(rank, workdir, results)
 
 
 def one_rank_job(rank: int, workdir: str) -> None:

@@ -15,6 +15,7 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.launch.mesh import make_auto_mesh, make_smoke_mesh
+from repro_torch.models.layers import kv_heads_local
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import single_pod_rules
 from repro_torch.parallel.specs import _cache_axes, batch_rows, batch_rules
@@ -42,20 +43,42 @@ def serve(cfg, params, prompt, max_len: int, tokens=None, gen: int = 4):
     return out, fed, cache
 
 
-def _gather_cache(cache: Any, mesh) -> Dict[str, torch.Tensor]:
-    """Every rank's batch rows of every cache leaf, in block order."""
+def _gather_cache(cfg, cache: Any, mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's batch rows of every cache leaf, in block order, and of a
+    KV cache under tensor parallelism every kv head, each from a model rank
+    that holds it (``layers.kv_heads_local``)."""
     out = {}
+    local = kv_heads_local(cfg)
     for path, leaf in tree.leaf_paths(cache).items():
         dim = _cache_axes(path, leaf.dim()).index("batch")
+        if local is not None and path.split("/")[-1] in ("k", "v"):
+            leaf = _whole_heads(leaf, local[0], cfg.n_kv_heads)
         out[path] = _gather_rows(leaf.movedim(dim, 0), mesh).movedim(0, dim)
     return out
 
 
+def _whole_heads(leaf: torch.Tensor, lo: int, n_kv: int) -> torch.Tensor:
+    """A KV cache leaf (..., Hkv_loc, Dh) of this rank's kv heads from ``lo``
+    as (..., n_kv, Dh) whole: the heads of the ranks of this rank's model
+    group, gathered."""
+    group = axes._model_group()
+    m = dist.get_world_size(group)
+    parts = [torch.empty_like(leaf) for _ in range(m)]
+    dist.all_gather(parts, leaf.contiguous(), group=group)
+    firsts = [torch.zeros((), dtype=torch.int64) for _ in range(m)]
+    dist.all_gather(firsts, torch.tensor(lo), group=group)
+    whole = leaf.new_zeros((*leaf.shape[:-2], n_kv, leaf.shape[-1]))
+    for part, first in zip(parts, firsts):
+        whole[..., int(first):int(first) + leaf.shape[-2], :] = part
+    return whole
+
+
 def serve_job(rank: int, workdir: str) -> None:
     """Each case: whole params placed on a (2, 4) mesh under its rules (the
-    batch replicated where its rows do not split), prefill and teacher-forced
-    decode on this rank's rows; every step's logits and the final cache,
-    gathered."""
+    batch replicated where its rows do not split), prefill and decode on this
+    rank's rows, teacher-forced where the case gives tokens, else greedy;
+    every step's logits, the tokens fed and the final cache, gathered, and
+    the kv heads of this rank's cache."""
     inp = _inputs(workdir)
     results = {}
     for name, case in inp["cases"].items():
@@ -66,11 +89,14 @@ def serve_job(rank: int, workdir: str) -> None:
         with axes.axis_rules(rules, mesh):
             params = placed(case["params"], cfg, rules, mesh)
             n, i = axes.batch_shards(), axes.batch_index()
-            tokens = batch_rows({"t": case["tokens"]}, n, i)["t"]
-            logits, _, cache = serve(cfg, params, batch_rows(case["prompt"], n, i),
-                                     case["max_len"], tokens)
+            tokens = (None if case["tokens"] is None  # greedy
+                      else batch_rows({"t": case["tokens"]}, n, i)["t"])
+            logits, fed, cache = serve(cfg, params, batch_rows(case["prompt"], n, i),
+                                       case["max_len"], tokens)
             results[name] = {"logits": [_gather_rows(x, mesh) for x in logits],
-                             "cache": _gather_cache(cache, mesh),
+                             "tokens": [_gather_rows(t, mesh) for t in fed],
+                             "local_kv_heads": cache["k"].shape[-2],
+                             "cache": _gather_cache(cfg, cache, mesh),
                              "replicated": rules is not case["rules"], "shards": n}
     _save(rank, workdir, results)
 
