@@ -211,6 +211,12 @@ Phases, each printed as one JSON object per line:
    backwards, 0 plain calls), its step, device and issue times and peak
    beside the unsharded run's and one traced step; the group is destroyed
    at the end of the phase;
+   recurrent_sharding (after the train cells): one train step each of
+   mamba2-1.3b (48 layers) and recurrentgemma-9b (6 layers) at their train
+   shapes, without a mesh and on a (1, 1) NCCL mesh under single_pod_rules,
+   the counters set to 0 just before each: loss and every gradient bitwise
+   equal, the same launches, 0 plain calls (a model axis of 1 splits no
+   recurrent block);
    restart: 6 steps against 4 steps and a resume to 6 in a fresh runtime
    (smoke config, f32, checkpoints under build/), steps 5 and 6 within 1e-4;
    dryrun (run_dryrun): both digests through the kernels' torch.library ops
@@ -262,12 +268,21 @@ Phases, each printed as one JSON object per line:
    tolist), the pass as the engine calls it (numpy in and out, the copies
    included; engine_pass_ms) with its host-clock split into staging,
    upload, kernel with read-back and download (each step synchronised
-   alone), and the numpy pass, on the host clock.
+   alone), and the numpy pass, on the host clock;
+   then the kernels at one rank's share under tensor parallelism, checked
+   (after the RG-LRU backward's digest: run_tp_scan_checks for the scans)
+   and timed as above (tp_time, tp_times; not in the kernels line): the
+   flash forward, backward and decode at one rank's heads (TP_PREFILL,
+   TP_TRAIN, TP_DECODE) and the SSD and RG-LRU scans and their backward at
+   one rank's share at model 16 (TP_SSD, TP_SSD_TRAIN, TP_RGLRU,
+   TP_RGLRU_TRAIN).
 
 More entry points (see their docstrings): epoch_pass_bits() and
 rglru_bwd_bits(), for the tree whose src is first on PYTHONPATH;
-epoch_tile_sweep(), the epoch pass built at other tile shapes; and
-moe_train_bits(), mixtral-8x7b's train cell alone.
+epoch_tile_sweep(), the epoch pass built at other tile shapes;
+moe_train_bits(), mixtral-8x7b's train cell alone; tp_bits(), the kernels
+at one rank's share alone; and recurrent_sharding_bits(), the
+recurrent_sharding phase alone.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -613,6 +628,13 @@ RGLRU_CASES = [
     (2, 65, 33, True),                        # chunks of 64: the last of one step
     (2, 197, 33, True),                       # 3 chunks of 64 and one of 5
 ]
+# one rank's share of the recurrent blocks under tensor parallelism at model
+# 16 (lists of their own: SSD_TRAIN, RGLRU_TRAIN and rglru_bwd_digest index
+# and pin the lists above): mamba2-1.3b's 4 of 64 SSD heads, and
+# recurrentgemma-9b's 256 of 4096 RG-LRU columns, at their train and
+# prefill shapes
+TP_SSD = {"mamba2-1.3b prefill, model 16": (4, 2048, 4, 64, 128, 256, False)}
+TP_RGLRU = {"recurrentgemma-9b prefill, model 16": (4, 3072, 256, False)}
 
 
 def flash_inputs(case, dtype, dev, seed=0):
@@ -720,44 +742,59 @@ def run_checks(dev):
                     worst[("decode_attention", arch)] = err
     for case in SSD_CASES:
         for dtype in dtypes:
-            x, dt, A, Bm, Cm, h0 = ssd_inputs(case, dtype, dev)
-            y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
-            yo, ho = ref.ssd_sequential(x, dt, A, Bm, Cm, h0=h0)
-            yp, hp = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
-            torch.cuda.synchronize()
-            y_tol = SSD_ORACLE_TOL if dtype == torch.float32 else BF16_TOL
-            ey, oky = max_err(y, yo, y_tol)
-            eh, okh = max_err(hf, ho, SSD_ORACLE_TOL)
-            ep, okp = max_err(y, yp, SSD_ORACLE_TOL)
-            rp = {"y": rel_rms(y, yp), "h_final": rel_rms(hf, hp)}
-            if dtype == torch.bfloat16:
-                okp = max(rp.values()) <= SSD_PLAIN_BF16_REL_RMS
-            out = {"vs_oracle": {"y_max_abs": ey, "y_tol": y_tol, "h_max_abs": eh,
-                                 "h_tol": SSD_ORACLE_TOL},
-                   "vs_plain": {"y_max_abs": ep, "rel_rms": rp,
-                                "bound": ({"max_abs_rel": SSD_ORACLE_TOL}
-                                          if dtype == torch.float32
-                                          else {"rel_rms": SSD_PLAIN_BF16_REL_RMS})},
-                   "finite": bool(torch.isfinite(y).all() and torch.isfinite(hf).all())}
-            _check("ssd_scan", case, dtype, out, oky and okh and okp and out["finite"], "")
+            ep = check_ssd(case, dtype, dev)
             if case == SSD_CASES[0] and dtype == torch.bfloat16:
                 worst[("ssd_scan", "mamba2-1.3b")] = ep
-            del x, Bm, Cm, y, yo, yp
     for case in RGLRU_CASES:
         for dtype in dtypes:
-            tol = RGLRU_TOL[dtype]
-            x, a_log, h0 = rglru_inputs(case, dtype, dev)
-            y, hl = ops.rglru_scan(x, a_log, h0=h0)
-            yp, hp = ref.rglru_scan(x, a_log, h0=h0)
-            torch.cuda.synchronize()
-            ey, oky = max_err(y, yp, tol)
-            eh, okh = max_err(hl, hp, tol)
-            ok = oky and okh and y.dtype == dtype and hl.dtype == dtype
-            _check("rglru_scan", case, dtype,
-                   {"y_max_abs": ey, "h_last_max_abs": eh, "tol": tol}, ok, "")
+            err = check_rglru(case, dtype, dev)
             if case == RGLRU_CASES[0] and dtype == torch.bfloat16:
-                worst[("rglru_scan", "recurrentgemma-9b")] = max(ey, eh)
+                worst[("rglru_scan", "recurrentgemma-9b")] = err
     return worst
+
+
+def check_ssd(case, dtype, dev):
+    """The SSD scan at ``case`` against the sequential oracle and the plain
+    chunked version; returns the max abs error against the plain version."""
+    from repro_torch.kernels import ops, ref
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(case, dtype, dev)
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
+    yo, ho = ref.ssd_sequential(x, dt, A, Bm, Cm, h0=h0)
+    yp, hp = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=case[5], h0=h0)
+    torch.cuda.synchronize()
+    y_tol = SSD_ORACLE_TOL if dtype == torch.float32 else BF16_TOL
+    ey, oky = max_err(y, yo, y_tol)
+    eh, okh = max_err(hf, ho, SSD_ORACLE_TOL)
+    ep, okp = max_err(y, yp, SSD_ORACLE_TOL)
+    rp = {"y": rel_rms(y, yp), "h_final": rel_rms(hf, hp)}
+    if dtype == torch.bfloat16:
+        okp = max(rp.values()) <= SSD_PLAIN_BF16_REL_RMS
+    out = {"vs_oracle": {"y_max_abs": ey, "y_tol": y_tol, "h_max_abs": eh,
+                         "h_tol": SSD_ORACLE_TOL},
+           "vs_plain": {"y_max_abs": ep, "rel_rms": rp,
+                        "bound": ({"max_abs_rel": SSD_ORACLE_TOL}
+                                  if dtype == torch.float32
+                                  else {"rel_rms": SSD_PLAIN_BF16_REL_RMS})},
+           "finite": bool(torch.isfinite(y).all() and torch.isfinite(hf).all())}
+    _check("ssd_scan", case, dtype, out, oky and okh and okp and out["finite"], "")
+    return ep
+
+
+def check_rglru(case, dtype, dev):
+    """The RG-LRU scan at ``case`` against the plain version; returns the
+    larger max abs error of y and h_last."""
+    from repro_torch.kernels import ops, ref
+    tol = RGLRU_TOL[dtype]
+    x, a_log, h0 = rglru_inputs(case, dtype, dev)
+    y, hl = ops.rglru_scan(x, a_log, h0=h0)
+    yp, hp = ref.rglru_scan(x, a_log, h0=h0)
+    torch.cuda.synchronize()
+    ey, oky = max_err(y, yp, tol)
+    eh, okh = max_err(hl, hp, tol)
+    ok = oky and okh and y.dtype == dtype and hl.dtype == dtype
+    _check("rglru_scan", case, dtype, {"y_max_abs": ey, "h_last_max_abs": eh, "tol": tol},
+           ok, "")
+    return max(ey, eh)
 
 
 def forward_digest(dev, through_op=False):
@@ -1615,48 +1652,53 @@ def _grad_errs(got, want, dtype, rel_rms_bound):
 def run_ssd_bwd_checks(dev):
     """Returns the bf16 max abs error of the backward kernels against
     ref.ssd_scan_bwd at the train shape (largest over the gradients)."""
+    worst = None
+    for case, a_scale, dy_scale in [(c, 1.0, 1.0) for c in SSD_BWD_CASES] + SSD_BWD_ADVERSARIAL:
+        dtypes = (torch.bfloat16,) if case == SSD_TRAIN else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
+            err = check_ssd_bwd(case, dtype, dev, a_scale, dy_scale)
+            if case == SSD_TRAIN:
+                worst = err
+    return worst
+
+
+def check_ssd_bwd(case, dtype, dev, a_scale=1.0, dy_scale=1.0):
+    """The SSD backward at ``case`` through autograd against the plain
+    version's, and the kernels alone, twice, against ref.ssd_scan_bwd;
+    returns the largest max abs error of the latter over the gradients."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.kernels import ssd_scan_bwd as kbwd
-    worst = None
-    for case, a_scale, dy_scale in [(c, 1.0, 1.0) for c in SSD_BWD_CASES] + SSD_BWD_ADVERSARIAL:
-        B, S, H, P, N, chunk, with_h0, with_dh = case
-        dtypes = (torch.bfloat16,) if case == SSD_TRAIN else (torch.float32, torch.bfloat16)
-        for dtype in dtypes:
-            x, dt, A, Bm, Cm, h0 = ssd_inputs(case[:7], dtype, dev, seed=7)
-            A = A * a_scale
-            gen = torch.Generator().manual_seed(8)
-            dy = (randn(gen, x.shape, torch.float32, dev) * dy_scale).to(dtype)
-            dh = randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
-            g = ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
-                          x, dt, A, Bm, Cm, h0, dy, dh)
-            gp = ssd_grads(lambda *a: ref.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
-                           x, dt, A, Bm, Cm, h0, dy, dh)
-            torch.cuda.synchronize()
-            res, ok = _grad_errs(g, gp, dtype, SSD_BWD_BF16_REL_RMS)
-            del g, gp
-            # the kernels alone, twice, against ref.ssd_scan_bwd on the same inputs
-            _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
-            gk = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
-                                        fwd_workspace=ws)
-            gk2 = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk,
-                                         fwd_workspace=ws)
-            gm = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
-            torch.cuda.synchronize()
-            res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
-                                            if a is not None)
-            res["dh0_iff_h0"] = (gk[5] is None) == (h0 is None)
-            res["vs_ssd_scan_bwd"], ok_k = _grad_errs(gk, gm, dtype,
-                                                      SSD_BWD_VS_PLAIN_BF16_REL_RMS)
-            ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
-            if (a_scale, dy_scale) != (1.0, 1.0):
-                res["A_factor"], res["dy_factor"] = a_scale, dy_scale
-            _check("ssd_scan_bwd", case, dtype, res, ok, "")
-            if case == SSD_TRAIN:
-                worst = max(v["max_abs"] for v in res["vs_ssd_scan_bwd"].values())
-            del x, dy, Bm, Cm, gk, gk2, gm, ws
-            torch.cuda.empty_cache()
-    return worst
+    B, S, H, P, N, chunk, with_h0, with_dh = case
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(case[:7], dtype, dev, seed=7)
+    A = A * a_scale
+    gen = torch.Generator().manual_seed(8)
+    dy = (randn(gen, x.shape, torch.float32, dev) * dy_scale).to(dtype)
+    dh = randn(gen, (B, H, P, N), torch.float32, dev) if with_dh else None
+    g = ssd_grads(lambda *a: ops.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                  x, dt, A, Bm, Cm, h0, dy, dh)
+    gp = ssd_grads(lambda *a: ref.ssd_scan(*a[:5], chunk=chunk, h0=a[5]),
+                   x, dt, A, Bm, Cm, h0, dy, dh)
+    torch.cuda.synchronize()
+    res, ok = _grad_errs(g, gp, dtype, SSD_BWD_BF16_REL_RMS)
+    del g, gp
+    # the kernels alone, twice, against ref.ssd_scan_bwd on the same inputs
+    _, _, ws = kssd._forward(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    gk = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk, fwd_workspace=ws)
+    gk2 = kbwd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk, fwd_workspace=ws)
+    gm = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
+                                    if a is not None)
+    res["dh0_iff_h0"] = (gk[5] is None) == (h0 is None)
+    res["vs_ssd_scan_bwd"], ok_k = _grad_errs(gk, gm, dtype, SSD_BWD_VS_PLAIN_BF16_REL_RMS)
+    ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
+    if (a_scale, dy_scale) != (1.0, 1.0):
+        res["A_factor"], res["dy_factor"] = a_scale, dy_scale
+    _check("ssd_scan_bwd", case, dtype, res, ok, "")
+    del x, dy, Bm, Cm, gk, gk2, gm, ws
+    torch.cuda.empty_cache()
+    return max(v["max_abs"] for v in res["vs_ssd_scan_bwd"].values())
 
 
 # --------------------------------------------------------------------------
@@ -1675,6 +1717,9 @@ RGLRU_BWD_CASES = [
     (2, 300, 256, False, True, "negative"),  # a_log very negative
 ]
 RGLRU_TRAIN = RGLRU_BWD_CASES[0]
+# the backward at one rank's share under tensor parallelism (model 16)
+TP_SSD_TRAIN = {"mamba2-1.3b train, model 16": (4, 2048, 4, 64, 128, 256, False, False)}
+TP_RGLRU_TRAIN = {"recurrentgemma-9b train, model 16": (4, 3072, 256, False, False, "")}
 
 
 def rglru_bwd_inputs(case, dtype, dev, seed=0):
@@ -1723,36 +1768,44 @@ def _rglru_grad_errs(got, want, dtype, rel_rms_bound):
 def run_rglru_bwd_checks(dev):
     """Returns the bf16 max abs error of the backward kernel against
     ref.rglru_scan_bwd at the train shape (largest over the gradients)."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import rglru_scan as krglru
-    from repro_torch.kernels import rglru_scan_bwd as kbwd
     worst = None
     for case in RGLRU_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            x, a_log, h0, dy, dh = rglru_bwd_inputs(case, dtype, dev, seed=7)
-            g = rglru_grads(ops.rglru_scan, x, a_log, h0, dy, dh)
-            gp = rglru_grads(ref.rglru_scan, x, a_log, h0, dy, dh)
-            torch.cuda.synchronize()
-            res, ok = _rglru_grad_errs(g, gp, dtype, RGLRU_BWD_BF16_REL_RMS)
-            del g, gp
-            # the kernel alone, twice, against ref.rglru_scan_bwd on the forward's workspace
-            _, _, ws = krglru._forward(x, a_log, h0)
-            gk = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
-            gk2 = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
-            gm = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
-            torch.cuda.synchronize()
-            res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
-                                            if a is not None)
-            res["dh0_iff_h0"] = (gk[2] is None) == (h0 is None)
-            res["vs_rglru_scan_bwd"], ok_k = _rglru_grad_errs(gk, gm, dtype,
-                                                              RGLRU_BWD_VS_PLAIN_BF16_REL_RMS)
-            ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
-            _check("rglru_scan_bwd", case, dtype, res, ok, "")
+            err = check_rglru_bwd(case, dtype, dev)
             if case == RGLRU_TRAIN and dtype == torch.bfloat16:
-                worst = max(v["max_abs"] for v in res["vs_rglru_scan_bwd"].values())
-            del x, a_log, dy, gk, gk2, gm, ws
-            torch.cuda.empty_cache()
+                worst = err
     return worst
+
+
+def check_rglru_bwd(case, dtype, dev):
+    """The RG-LRU backward at ``case`` through autograd against the plain
+    version's, and the kernel alone, twice, against ref.rglru_scan_bwd;
+    returns the largest max abs error of the latter over the gradients."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as krglru
+    from repro_torch.kernels import rglru_scan_bwd as kbwd
+    x, a_log, h0, dy, dh = rglru_bwd_inputs(case, dtype, dev, seed=7)
+    g = rglru_grads(ops.rglru_scan, x, a_log, h0, dy, dh)
+    gp = rglru_grads(ref.rglru_scan, x, a_log, h0, dy, dh)
+    torch.cuda.synchronize()
+    res, ok = _rglru_grad_errs(g, gp, dtype, RGLRU_BWD_BF16_REL_RMS)
+    del g, gp
+    # the kernel alone, twice, against ref.rglru_scan_bwd on the forward's workspace
+    _, _, ws = krglru._forward(x, a_log, h0)
+    gk = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    gk2 = kbwd.rglru_scan_bwd_cuda(x, a_log, h0, dy, dh, fwd_workspace=ws)
+    gm = ref.rglru_scan_bwd(x, a_log, h0, dy, dh)
+    torch.cuda.synchronize()
+    res["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(gk, gk2)
+                                    if a is not None)
+    res["dh0_iff_h0"] = (gk[2] is None) == (h0 is None)
+    res["vs_rglru_scan_bwd"], ok_k = _rglru_grad_errs(gk, gm, dtype,
+                                                      RGLRU_BWD_VS_PLAIN_BF16_REL_RMS)
+    ok = ok and ok_k and res["bitwise_repeatable"] and res["dh0_iff_h0"]
+    _check("rglru_scan_bwd", case, dtype, res, ok, "")
+    del x, a_log, dy, gk, gk2, gm, ws
+    torch.cuda.empty_cache()
+    return max(v["max_abs"] for v in res["vs_rglru_scan_bwd"].values())
 
 
 def rglru_bwd_digest(dev, through_op=False):
@@ -2495,6 +2548,102 @@ def run_sharding(dev, card, unsharded):
              f"{t['plain_calls']} plain calls")
 
 
+RECURRENT_SHARDING = ("mamba2-1.3b", "recurrentgemma-9b")
+
+
+def recurrent_sharding_step(dev, arch):
+    """One train step's loss and gradients of ``arch`` (``train_config``:
+    mamba2-1.3b whole, recurrentgemma-9b's 6 layers; its train shape, bf16)
+    without a mesh and on the (1, 1) NCCL mesh under ``single_pod_rules``,
+    the counters set to 0 just before each: bitwise equal, the same
+    launches, 0 plain calls. A model axis of 1 splits no recurrent block
+    (``mamba2.heads_split``, ``rglru.width_share``), so the mesh's step runs
+    today's ops."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, synth_tokens
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import mamba2, rglru
+    from repro_torch.parallel import axes
+    from repro_torch.parallel.axes import single_pod_rules
+    from repro_torch.parallel.specs import make_param_specs, make_shardings, place_tree
+    from repro_torch.runtime.steps import _laid_out_as, loss_and_grads
+    cfg = train_config(arch)
+    params = serve.init_params(cfg, TRAIN["seed"], dev)
+    seq_len, global_batch = train_shape(arch)
+    host = synth_tokens(cfg, DataConfig(seq_len=seq_len, global_batch=global_batch,
+                                        seed=TRAIN["seed"]), 0, 1, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    zero_counters()
+    loss0, _, g0 = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    launches0, plain0 = read_counters()
+    g0 = tree.leaf_paths(g0)
+    with one_rank_world(dev) as dist:
+        mesh = make_smoke_mesh(1, device_type="cuda")
+        rules = single_pod_rules()
+        with axes.axis_rules(rules, mesh):
+            split = {"heads": list(mamba2.heads_split(cfg)),
+                     "width": rglru.width_share(cfg) is not None}
+            placed = place_tree(params, make_shardings(make_param_specs(params, rules, mesh),
+                                                       mesh))
+            zero_counters()
+            loss1, _, g1 = loss_and_grads(cfg, placed, batch)
+            torch.cuda.synchronize()
+            launches1, plain1 = read_counters()
+            leaves = tree.leaf_paths(placed)
+            g1 = _whole_grads(tree.unflatten_like(
+                placed, {k: _laid_out_as(v, leaves[k])
+                         for k, v in tree.leaf_paths(g1).items()}))
+        backend = dist.get_backend()
+    out = {"arch": arch, "n_layers": cfg.n_layers, "seq_len": seq_len,
+           "global_batch": global_batch, "backend": backend, "mesh_shape": [1, 1],
+           "rules": "single_pod_rules", "split_on_mesh": split,
+           "loss": float(loss0), "loss_bitwise_equal": bool(torch.equal(loss0, loss1)),
+           "grad_leaves": len(g0),
+           "grad_leaves_unequal": [k for k in g0 if not torch.equal(g0[k], g1[k])],
+           "launches": launches1, "launches_unsharded": launches0,
+           "plain_calls": plain0 + plain1}
+    del params, placed, g0, g1, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_recurrent_sharding(dev, card):
+    """The ``recurrent_sharding`` phase: recurrent_sharding_step for
+    mamba2-1.3b and recurrentgemma-9b; a check that fails exits non-zero."""
+    for arch in RECURRENT_SHARDING:
+        out = {"card": card, **recurrent_sharding_step(dev, arch)}
+        emit("recurrent_sharding", out)
+        if not out["loss_bitwise_equal"] or out["grad_leaves_unequal"]:
+            fail(f"recurrent_sharding: {arch} on the (1, 1) mesh differs from its unsharded "
+                 f"step: {out}")
+        whole = {"heads": [1, 0], "width": False}
+        if out["launches"] != out["launches_unsharded"] or not any(out["launches"].values()) \
+                or out["plain_calls"] or out["split_on_mesh"] != whole:
+            fail(f"recurrent_sharding: {arch}: {out}")
+
+
+def recurrent_sharding_bits():
+    """The recurrent_sharding phase alone, in the tree whose repro_torch this
+    process imports. Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.recurrent_sharding_bits()'"""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+                      "rglru_scan", "rglru_scan_bwd"])
+    run_recurrent_sharding(dev, card)
+
+
 def sharding_bits():
     """mixtral-8x7b's train cell (run_train) and then the sharding phase
     alone, in the tree whose repro_torch this process imports. Run as
@@ -3228,18 +3377,18 @@ def time_decode(arch, launches, errs, card, dev):
                        "dtype": "bfloat16"})
 
 
-def time_ssd(launches, errs, card, dev):
+def time_ssd(launches, errs, card, dev, label="mamba2-1.3b", case=None):
     from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
-    case = SSD_CASES[0]
+    case = case or SSD_CASES[0]
     B, S, H, P, N, Q, _ = case
     x, dt, A, Bm, Cm, _ = ssd_inputs(case, torch.bfloat16, dev, seed=5)
     work = costs.ssd_forward(B, S, H, P, N, Q, 2)
     nbytes, flops = work.bytes, work.flops
     b_ms, b_by = work_bound(work)
     kern = lambda: kssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
-    return _row("ssd_scan", "mamba2-1.3b", launches, errs, card,
+    return _row("ssd_scan", label, launches, errs, card,
                 ms=time_ms(kern, iters=10), device_ms=device_ms(kern, SSD_KERNELS, iters=10),
                 device_ms_per_kernel={ph: device_ms(kern, SSD_KERNELS + ph, iters=10)
                                       for ph in SSD_PHASES},
@@ -3266,13 +3415,14 @@ def ssd_bwd_mma_flops(B, S, H, P, N, Q):
             B * nc * H * (per_head[0] + per_head[1]))
 
 
-def time_ssd_bwd(launches, errs, card, dev):
+def time_ssd_bwd(launches, errs, card, dev, label=SSM_TRAIN_LABEL, case=None):
     from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.kernels import ssd_scan_bwd as kbwd
-    B, S, H, P, N, Q, _, _ = SSD_TRAIN
-    x, dt, A, Bm, Cm, _ = ssd_inputs(SSD_TRAIN[:7], torch.bfloat16, dev, seed=5)
+    case = case or SSD_TRAIN
+    B, S, H, P, N, Q, _, _ = case
+    x, dt, A, Bm, Cm, _ = ssd_inputs(case[:7], torch.bfloat16, dev, seed=5)
     dy = randn(torch.Generator().manual_seed(6), x.shape, torch.bfloat16, dev)
     # read x, dy, dt, A, B, C once, write dx, ddt, dA, dB, dC
     work = costs.ssd_backward(B, S, H, P, N, Q, 2)
@@ -3290,7 +3440,7 @@ def time_ssd_bwd(launches, errs, card, dev):
     del y_p, leaves
     torch.cuda.empty_cache()
     ms = time_ms(kern, iters=10)
-    return _row("ssd_scan_bwd", SSM_TRAIN_LABEL, launches, errs, card,
+    return _row("ssd_scan_bwd", label, launches, errs, card,
                 ms=ms, device_ms=device_ms(kern, SSD_BWD_KERNELS, iters=10),
                 device_ms_per_kernel={ph: device_ms(kern, SSD_BWD_KERNELS + ph, iters=10)
                                       for ph in SSD_BWD_PHASES},
@@ -3308,11 +3458,11 @@ def time_ssd_bwd(launches, errs, card, dev):
                        "dtype": "bfloat16", "flops": flops, "bytes": nbytes})
 
 
-def time_rglru(launches, errs, card, dev):
+def time_rglru(launches, errs, card, dev, label="recurrentgemma-9b", case=None):
     from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as krglru
-    case = RGLRU_CASES[0]
+    case = case or RGLRU_CASES[0]
     B, S, W, _ = case
     x, a_log, _ = rglru_inputs(case, torch.bfloat16, dev, seed=6)
     work = costs.rglru_forward(B, S, W, 2)
@@ -3327,7 +3477,7 @@ def time_rglru(launches, errs, card, dev):
     design_bytes = (slots * p.chunk * 6 + x.numel() * (6 + 2) + B * W * 2
                     + slots * (8 + 8 + 4 + 4))
     kern = lambda: krglru.rglru_scan_cuda(x, a_log)  # noqa: E731
-    return _row("rglru_scan", "recurrentgemma-9b", launches, errs, card,
+    return _row("rglru_scan", label, launches, errs, card,
                 ms=time_ms(kern, iters=20), device_ms=device_ms(kern, RGLRU_KERNELS, iters=20),
                 device_ms_per_kernel={ph: device_ms(kern, RGLRU_KERNELS + ph, iters=20)
                                       for ph in RGLRU_PHASES},
@@ -3340,24 +3490,25 @@ def time_rglru(launches, errs, card, dev):
                        "plan": p._asdict()})
 
 
-def rglru_bwd_train_call(dev):
+def rglru_bwd_train_call(dev, case=None):
     """(x, a_log, dy, the backward kernel's call on them and the forward's
-    workspace) at recurrentgemma-9b's train shape, bf16, no h0 and no
-    final-state cotangent, as the train step calls it."""
+    workspace) at recurrentgemma-9b's train shape (or ``case``), bf16, no h0
+    and no final-state cotangent, as the train step calls it."""
     from repro_torch.kernels import rglru_scan as krglru
     from repro_torch.kernels import rglru_scan_bwd as kbwd
-    x, a_log, _, dy, _ = rglru_bwd_inputs(RGLRU_TRAIN, torch.bfloat16, dev, seed=6)
+    x, a_log, _, dy, _ = rglru_bwd_inputs(case or RGLRU_TRAIN, torch.bfloat16, dev, seed=6)
     _, _, ws = krglru._forward(x, a_log, None)
     return x, a_log, dy, lambda: kbwd.rglru_scan_bwd_cuda(x, a_log, None, dy, None,
                                                          fwd_workspace=ws)
 
 
-def time_rglru_bwd(launches, errs, card, dev):
+def time_rglru_bwd(launches, errs, card, dev, label=RG_TRAIN_LABEL, case=None):
     from repro_torch.kernels import costs
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan_bwd as kbwd
-    B, S, W = RGLRU_TRAIN[:3]
-    x, a_log, dy, kern = rglru_bwd_train_call(dev)
+    case = case or RGLRU_TRAIN
+    B, S, W = case[:3]
+    x, a_log, dy, kern = rglru_bwd_train_call(dev, case)
     # read x, a_log and dy once, write dx and da_log: 14 bytes an element
     work = costs.rglru_backward(B, S, W, 2)
     nbytes = work.bytes
@@ -3376,7 +3527,7 @@ def time_rglru_bwd(launches, errs, card, dev):
                        iters=2, warmup=1)
     del y_p, leaves
     torch.cuda.empty_cache()
-    return _row("rglru_scan_bwd", RG_TRAIN_LABEL, launches, errs, card,
+    return _row("rglru_scan_bwd", label, launches, errs, card,
                 ms=time_ms(kern, iters=20),
                 device_ms=device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
                 device_ms_per_kernel={ph: device_ms(kern, RGLRU_BWD_KERNELS + ph, iters=20)
@@ -3445,22 +3596,51 @@ def run_times(launches, errs, card, dev):
     return rows
 
 
+def run_tp_scan_checks(dev):
+    """The SSD and RG-LRU scans, forward and backward, at one rank's share
+    under tensor parallelism (TP_SSD, TP_SSD_TRAIN, TP_RGLRU,
+    TP_RGLRU_TRAIN), f32 and bf16, against their plain versions at the
+    full-width cases' bounds; returns the bf16 max abs errors keyed by
+    (kernel, label)."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel, check, cases in (("ssd_scan", check_ssd, TP_SSD),
+                                     ("ssd_scan_bwd", check_ssd_bwd, TP_SSD_TRAIN),
+                                     ("rglru_scan", check_rglru, TP_RGLRU),
+                                     ("rglru_scan_bwd", check_rglru_bwd, TP_RGLRU_TRAIN)):
+            for label, case in cases.items():
+                err = check(case, dtype, dev)
+                if dtype == torch.bfloat16:
+                    errs[(kernel, label)] = err
+    return errs
+
+
 def run_tp_times(errs, card, dev):
     """The flash forward and backward and decode at one rank's heads under
-    tensor parallelism (TP_PREFILL, TP_TRAIN, TP_DECODE), timed as the
-    full-width rows are and beside them: each with its bound from
-    ``kernels.costs``, its plain version's and SDPA's time. On one card the
-    main path runs whole heads (a model axis of 1), so these shapes have no
-    launches there; they are not rows of the kernels line."""
-    kinds = ("flash_attention", "flash_attention_bwd", "decode_attention")
-    launches = {lab: dict.fromkeys(kinds, 0) for lab in (*TP_PREFILL, *TP_TRAIN, *TP_DECODE)}
+    tensor parallelism (TP_PREFILL, TP_TRAIN, TP_DECODE), and the SSD and
+    RG-LRU scans and their backward at one rank's share (TP_SSD,
+    TP_SSD_TRAIN, TP_RGLRU, TP_RGLRU_TRAIN), timed as the full-width rows
+    are and beside them: each with its bound from ``kernels.costs``, its
+    plain version's time and, for attention, SDPA's. On one card the main
+    path runs whole (a model axis of 1), so these shapes have no launches
+    there; they are not rows of the kernels line."""
+    kinds = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+             "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
+    launches = {lab: dict.fromkeys(kinds, 0)
+                for lab in (*TP_PREFILL, *TP_TRAIN, *TP_DECODE, *TP_SSD, *TP_SSD_TRAIN,
+                            *TP_RGLRU, *TP_RGLRU_TRAIN)}
     rows = [time_flash(lab, launches, errs, card, dev) for lab in (*TP_PREFILL, *TP_TRAIN)]
     rows += [time_flash_bwd(case, lab, launches, errs, card, dev) for lab, case in TP_TRAIN.items()]
     rows += [time_decode(lab, launches, errs, card, dev) for lab in TP_DECODE]
+    rows += [time_ssd(launches, errs, card, dev, lab, c) for lab, c in TP_SSD.items()]
+    rows += [time_ssd_bwd(launches, errs, card, dev, lab, c) for lab, c in TP_SSD_TRAIN.items()]
+    rows += [time_rglru(launches, errs, card, dev, lab, c) for lab, c in TP_RGLRU.items()]
+    rows += [time_rglru_bwd(launches, errs, card, dev, lab, c)
+             for lab, c in TP_RGLRU_TRAIN.items()]
     for r in rows:
         emit("tp_time", r)
         agree = r.get("library_vs_kernel_max_abs", r.get("library_vs_kernel_rel_rms"))
-        if not agree[1]:
+        if agree is not None and not agree[1]:
             fail(f"{r['name']}: the library call disagrees with the kernel")
     emit("tp_times", [{k: r[k] for k in ("name", "shape", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms", "card")}
@@ -3630,6 +3810,7 @@ def rglru_bwd_bits():
     run_train(dev, card, "recurrentgemma-9b")
     digests["rglru_bwd_digest"] = rglru_bwd_digest(dev)
     emit("rglru_bwd_digest", digests["rglru_bwd_digest"])
+    errs.update(run_tp_scan_checks(dev))
     kern = rglru_bwd_train_call(dev)[3]
     emit("rglru_bwd_time", {"ms": time_ms(kern, iters=20),
                             "device_ms": device_ms(kern, RGLRU_BWD_KERNELS, iters=20),
@@ -3672,10 +3853,12 @@ def moe_train_bits():
 
 
 def tp_bits():
-    """The kernels at one rank's heads under tensor parallelism alone, in the
+    """The kernels at one rank's share under tensor parallelism alone, in the
     tree whose repro_torch this process imports: the flash forward, its
-    backward and decode checked at TP_PREFILL, TP_TRAIN and TP_DECODE (f32
-    and bf16), then their time rows (run_tp_times). Run as
+    backward and decode checked at TP_PREFILL, TP_TRAIN and TP_DECODE, the
+    SSD and RG-LRU scans and their backward at TP_SSD, TP_SSD_TRAIN,
+    TP_RGLRU and TP_RGLRU_TRAIN (f32 and bf16), then their time rows
+    (run_tp_times). Run as
 
         python3 -c 'import chip_smoke; chip_smoke.tp_bits()'"""
     import repro_torch
@@ -3688,7 +3871,8 @@ def tp_bits():
     dev = torch.device("cuda", 0)
     card = card_line()
     emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
-    _build.build_all(["flash_attention", "flash_attention_bwd", "decode_attention"])
+    _build.build_all(["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+                      "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd"])
     global FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
     saved = FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
     FLASH_CASES = [*TP_PREFILL.values(), *TP_TRAIN.values()]
@@ -3699,6 +3883,7 @@ def tp_bits():
         errs.update(run_flash_bwd_checks(dev))
     finally:
         FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES = saved
+    errs.update(run_tp_scan_checks(dev))
     run_tp_times(errs, card, dev)
 
 
@@ -3845,7 +4030,10 @@ CALIBRATION = [
 DRYRUN_CELLS = ([(a, s, "both") for a in MESH_SERVE
                  for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
                 + [(a, "train_4k", "single") for a in PROMPT if a not in MESH_SERVE]
-                + [("hubert-xlarge", "train_4k", "single")])
+                + [("hubert-xlarge", "train_4k", "single")]
+                # the recurrent blocks split over model (tp: the batch of 32
+                # does not split over 256 ranks)
+                + [(a, "prefill_32k", "single") for a in RECURRENT_SHARDING])
 DRYRUN_WORKERS = 8  # dry-run processes at once: the host's 8 cores, this process waiting
 
 
@@ -4247,6 +4435,7 @@ def main():
     errs[("rglru_scan_bwd", RG_TRAIN_LABEL)] = run_rglru_bwd_checks(dev)
     digests["rglru_bwd_digest"] = rglru_bwd_digest(dev)
     emit("rglru_bwd_digest", digests["rglru_bwd_digest"])
+    errs.update(run_tp_scan_checks(dev))
     launches.update({arch: run_arch(arch, dev, card) for arch in PROMPT})
     launches[f"{ENCODE['arch']} encode"] = run_encode(dev, card)
     for arch in TRAIN_FEEDS:
@@ -4255,6 +4444,7 @@ def main():
         run_train_vs_plain(dev, arch)
         if arch == SHARDING_ARCH:
             run_sharding(dev, card, train)
+    run_recurrent_sharding(dev, card)
     for arch in TRAIN_VS_PLAIN_ONLY:
         run_train_vs_plain(dev, arch)
     run_restart(dev)

@@ -34,10 +34,15 @@ replicated (``specs.batch_rules``). Under "tp" (``single_pod_rules``,
 heads, ``d_ff / m`` and ``vocab / m`` of the split products (where the
 model axis divides them), the k and v projections at the kv heads its q
 heads read, and the all-reduces and all-gathers over ``model`` that join
-them, with their bytes and groups. The port keeps each rank's decode cache
-rows whole over every slot, of the kv heads that rank reads: the JAX
-package's ``kv_seq`` layout splits the cache's sequence over ``model``,
-which the port's decode does not.
+them, with their bytes and groups; so do the recurrent blocks: mamba2's
+SSD blocks at H/m heads (``in_proj``'s z, x and dt columns over m, its B
+and C columns on every rank) and the RG-LRU blocks at W/m columns (where
+its gate blocks straddle ranks, m > 8, ``w_x`` and the conv over the
+rank's whole block). The port keeps each rank's decode cache rows whole
+over every slot, of the kv heads that rank reads: the JAX package's
+``kv_seq`` layout splits the cache's sequence over ``model``, which the
+port's decode does not. Its recurrent states are the rank's share
+(``cache_layout``).
 
 Importing this module sets no environment variable and starts no process
 group: ``run_cell`` makes the world and destroys it. The autograd engine of a
@@ -82,6 +87,24 @@ CACHE_LAYOUT = ("rows whole: each rank holds its own batch rows' caches over eve
                 "of the kv heads its q heads read under tensor parallelism (each TP rank "
                 "its own kv heads); the JAX package splits the cache's sequence over "
                 "'model', kv_seq; the port's decode does not")
+SSM_STATE_LAYOUT = ("mamba2: ssm (L, B, H/m, P, N), the rank's heads, split over 'model' as "
+                    "the JAX package's ssm_heads; conv (L, B, K-1, d_inner/m + 2N), the "
+                    "rank's heads' x columns and B and C whole, where the JAX package "
+                    "splits conv_dim in contiguous blocks over 'model' (ffn)")
+LRU_STATE_LAYOUT = ("RG-LRU: h (..., B, W/m), the rank's columns, split over 'model' as the "
+                    "JAX package's ffn; conv (..., B, K-1, W/m) the same, but where the gate "
+                    "blocks straddle ranks (m > 8) the rank's whole block of W/8 columns, "
+                    "whose conv it computes")
+
+
+def cache_layout(cfg: ModelConfig) -> str:
+    """A decode record's ``cache_layout``: the port's KV-cache layout and,
+    for the recurrent families, their states'."""
+    if cfg.family == "ssm":
+        return SSM_STATE_LAYOUT
+    if cfg.family == "hybrid":
+        return f"{CACHE_LAYOUT}. {LRU_STATE_LAYOUT}"
+    return CACHE_LAYOUT
 
 
 class CudaOnMeta(TorchDispatchMode):
@@ -251,7 +274,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, layout: Optional[str] = 
         kernel_calls=dict(sorted(cost.kernel_calls.items())),
         batch={"rows_per_rank": got["rows_per_rank"], "replicated": got["replicated"]})
     if kind == "decode":
-        rec["cache_layout"] = CACHE_LAYOUT
+        rec["cache_layout"] = cache_layout(cfg)
     return rec
 
 

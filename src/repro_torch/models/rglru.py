@@ -11,18 +11,36 @@ kinds ``pattern[t % 3]``. The serve state mirrors it: attention layers hold
 ring KV caches of ``min(max_len, window)`` slots, RG-LRU layers their state
 ``h`` (B,W) and conv tail (B,K-1,W), all f32 but the caches; prefill and
 decode write them in place.
+
+Where the active rules split ``ffn`` over ``model`` (``axes.tp_split``, a
+model axis m > 1 that divides W) and m divides the 8 gate blocks or they
+divide m, each RG-LRU block runs tensor-parallel over its width: model rank
+r owns the W/m columns [r·W/m, (r+1)·W/m) of the recurrence. Its input
+enters through ``copy_to_model``; ``w_gate``, ``b_a``, ``b_i``, ``lam``
+and ``w_out`` are read as its columns (``w_out`` by rows, and the output
+is summed over ``model``, ``reduce_from_model``); the scan runs at (B, S,
+W/m). The gates are block-diagonal, a gate column reading every input
+column of its block: where m <= 8 the rank's columns are whole blocks, and
+it takes its blocks of ``w_a`` and ``w_i``; where m > 8 a block straddles
+m / 8 ranks, and each of them computes ``w_x``'s columns of the whole block
+and their conv (that product m / 8 times over, no collective) and its own
+columns of the gates. The serve state holds the rank's share: ``h``
+(…, B, W/m) and ``conv`` the columns whose conv it computes, W/m or its
+whole block. Attention layers and the MLPs split as ``models/layers.py``
+splits them.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.axes import gather_weight, shard
+from repro_torch.parallel.axes import (copy_to_model, gather_partial, gather_weight,
+                                       local_weight, reduce_from_model, shard, tp_split)
 from .config import ModelConfig
 from .layers import (
     Params,
@@ -76,10 +94,11 @@ def init_rglru_block(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 
 def _block_diag_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., W) times the block-diagonal w (nb, kb, kb) → (..., W)."""
+    """x (..., nb·kb) times the block-diagonal w (nb, kb, kj) → (..., nb·kj):
+    kj is kb for whole blocks, or a rank's columns of one block."""
     nb, kb, _ = w.shape
     y = torch.einsum("...nk,nkj->...nj", x.reshape(*x.shape[:-1], nb, kb), w.to(x.dtype))
-    return y.reshape(x.shape)
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -91,27 +110,84 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K)) + b.to(x.dtype)
 
 
-def _rglru_gates(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (a_log (B,S,W) <= 0, gated input (B,S,W)), both f32."""
-    r = torch.sigmoid(_block_diag_matmul(xc, gather_weight(p["w_a"])).float()
-                      + gather_weight(p["b_a"]).float())
-    i = torch.sigmoid(_block_diag_matmul(xc, gather_weight(p["w_i"])).float()
-                      + gather_weight(p["b_i"]).float())
-    a_log = -C_RGLRU * F.softplus(gather_weight(p["lam"])) * r
+class WidthShare(NamedTuple):
+    """A model rank's share of the RG-LRU's width W: the columns of the
+    recurrence it owns, and those whose input projection and conv it
+    computes (the same, or its whole gate block where blocks straddle
+    ranks); [lo, hi) of W each."""
+
+    own: Tuple[int, int]
+    conv: Tuple[int, int]
+
+
+def width_share(cfg: ModelConfig) -> Optional[WidthShare]:
+    """This rank's share of the width where the RG-LRU blocks split over
+    ``model``; None where they run whole."""
+    W = cfg.lru_width
+    m, r = tp_split("ffn", W)
+    if m == 1 or (N_DIAG_BLOCKS % m and m % N_DIAG_BLOCKS):
+        return None
+    w = W // m
+    own = (r * w, (r + 1) * w)
+    if m <= N_DIAG_BLOCKS:
+        return WidthShare(own, own)
+    kb = W // N_DIAG_BLOCKS
+    b = own[0] // kb
+    return WidthShare(own, (b * kb, (b + 1) * kb))
+
+
+def _read(cfg: ModelConfig, p: Params, share: Optional[WidthShare]) -> Params:
+    """The block's params as this rank runs them: whole
+    (``gather_weight``) where ``share`` is None, else its share (see the
+    module's note)."""
+    if share is None:
+        return {k: gather_weight(v) for k, v in p.items()}
+    (o0, o1), (c0, c1) = share
+    kb = cfg.lru_width // N_DIAG_BLOCKS
+    blocks = (slice(c0 // kb, c1 // kb), slice(None), slice(o0 - c0, o1 - c0))
+    return {"w_x": (local_weight(p["w_x"]) if share.own == share.conv
+                    else gather_partial(p["w_x"])[:, c0:c1]),
+            "w_gate": local_weight(p["w_gate"]),
+            "conv_w": gather_partial(p["conv_w"])[:, c0:c1],
+            "conv_b": gather_partial(p["conv_b"])[c0:c1],
+            "w_a": gather_partial(p["w_a"])[blocks],
+            "w_i": gather_partial(p["w_i"])[blocks],
+            **{k: gather_partial(p[k])[o0:o1] for k in ("b_a", "b_i", "lam")},
+            "w_out": local_weight(p["w_out"])}
+
+
+def _rglru_gates(w: Params, xc: torch.Tensor, share: Optional[WidthShare]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (a_log (B,S,W) <= 0, gated input (B,S,W)), both f32; of the
+    rank's own columns where ``share`` is given (``xc`` is then the conv
+    output of its conv columns)."""
+    r = torch.sigmoid(_block_diag_matmul(xc, w["w_a"]).float() + w["b_a"].float())
+    i = torch.sigmoid(_block_diag_matmul(xc, w["w_i"]).float() + w["b_i"].float())
+    a_log = -C_RGLRU * F.softplus(w["lam"]) * r
+    if share is not None and share.own != share.conv:
+        c0 = share.conv[0]
+        xc = xc[..., share.own[0] - c0:share.own[1] - c0]
     return a_log, i * xc.float()
 
 
 def _rglru_mix(cfg: ModelConfig, p: Params, x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence RG-LRU mixing. x (B,S,D) → (out (B,S,D), last state
-    (B,W) in the compute dtype, conv input xb (B,S,W))."""
+    (B,W) in the compute dtype, conv input xb (B,S,W)); of the rank's
+    columns where the width splits over ``model`` (``width_share``)."""
     c = cdt(cfg)
-    gate = _gelu((x @ gather_weight(p["w_gate"]).to(c)).float())
-    xb = shard(x @ gather_weight(p["w_x"]).to(c), "batch", None, "ffn")
-    xc = _causal_conv(xb, gather_weight(p["conv_w"]), gather_weight(p["conv_b"]))
-    a_log, gated = _rglru_gates(p, xc)
+    share = width_share(cfg)
+    w = _read(cfg, p, share)
+    if share is not None:
+        x = copy_to_model(x)
+    gate = _gelu((x @ w["w_gate"].to(c)).float())
+    xb = shard(x @ w["w_x"].to(c), "batch", None, "ffn")
+    xc = _causal_conv(xb, w["conv_w"], w["conv_b"])
+    a_log, gated = _rglru_gates(w, xc, share)
     hs, h_last = ops.rglru_scan(gated.to(c), a_log)
-    out = (hs.float() * gate).to(c) @ gather_weight(p["w_out"]).to(c)
+    out = (hs.float() * gate).to(c) @ w["w_out"].to(c)
+    if share is not None:
+        out = reduce_from_model(out)
     return shard(out, "batch", None, None), h_last, xb
 
 
@@ -124,16 +200,22 @@ def rglru_block_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                        state: Dict[str, torch.Tensor]
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token RG-LRU step. x_t (B,1,D); state {h (B,W) f32, conv (B,K-1,W)
-    f32}. Returns (out (B,1,D), the new state)."""
+    f32}, the rank's share where the width splits. Returns (out (B,1,D),
+    the new state)."""
     c = cdt(cfg)
-    gate = _gelu((x_t @ gather_weight(p["w_gate"]).to(c)).float())
-    xb = x_t @ gather_weight(p["w_x"]).to(c)
-    xc = _causal_conv(xb, gather_weight(p["conv_w"]), gather_weight(p["conv_b"]),
-                      tail=state["conv"])
+    share = width_share(cfg)
+    w = _read(cfg, p, share)
+    if share is not None:
+        x_t = copy_to_model(x_t)
+    gate = _gelu((x_t @ w["w_gate"].to(c)).float())
+    xb = x_t @ w["w_x"].to(c)
+    xc = _causal_conv(xb, w["conv_w"], w["conv_b"], tail=state["conv"])
     new_conv = torch.cat([state["conv"][:, 1:], xb.float()], 1)
-    a_log, gated = _rglru_gates(p, xc)
+    a_log, gated = _rglru_gates(w, xc, share)
     h = ops.rglru_decode_step(gated[:, 0], a_log[:, 0], state["h"])
-    out = (h[:, None].float() * gate).to(c) @ gather_weight(p["w_out"]).to(c)
+    out = (h[:, None].float() * gate).to(c) @ w["w_out"].to(c)
+    if share is not None:
+        out = reduce_from_model(out)
     return out, {"h": h, "conv": new_conv}
 
 
@@ -215,8 +297,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
 # =============================================================================
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+    """The caches and states of this rank's share (``width_share``, and the
+    kv heads its q heads read), or whole where nothing splits."""
     C = min(max_len, cfg.window) if cfg.window else max_len
-    W, K = cfg.lru_width, cfg.conv_width
+    K = cfg.conv_width
+    share = width_share(cfg)
+    W = W_conv = cfg.lru_width
+    if share is not None:
+        W, W_conv = share.own[1] - share.own[0], share.conv[1] - share.conv[0]
 
     def state(lead: Tuple[int, ...], kind: str) -> Dict[str, Any]:
         if kind == "attn":
@@ -226,7 +314,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
                     "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
         f32 = dict(dtype=torch.float32, device=device)
         return {"h": torch.zeros((*lead, batch, W), **f32),
-                "conv": torch.zeros((*lead, batch, K - 1, W), **f32)}
+                "conv": torch.zeros((*lead, batch, K - 1, W_conv), **f32)}
 
     return {"units": [state((_n_units(cfg),), kind) for kind in cfg.block_pattern],
             "tail": [state((), kind) for kind in _tail_kinds(cfg)]}

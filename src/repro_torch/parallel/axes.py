@@ -28,11 +28,16 @@ Where the JAX package hands the whole layout to GSPMD, the port is explicit:
   and leaves a row-parallel one through :func:`reduce_from_model` (*g*). A
   dim the mesh does not divide (phi4-mini's and llama3.2's 24 heads over
   16, llama4's 40) keeps the replicated work, and so does a model axis of
-  size 1, with no collective and today's ops. Mamba2's ``ssm_heads``, the
-  RG-LRU's ``ffn`` and the MoE experts (``models/moe.py``, expert-parallel)
-  read their params whole (:func:`gather_weight`) and repeat the work on
-  every model rank, as does context-sharded decode (``kv_seq``), which the
-  port does not run;
+  size 1, with no collective and today's ops. The recurrent blocks split
+  the same way: mamba2's SSD blocks by ``ssm_heads`` (``models/mamba2.py``:
+  each rank its heads' z, x and dt columns of ``in_proj``, B and C whole,
+  ``out_proj`` row-parallel; the gated RMSNorm's statistic over all of
+  ``d_inner`` is :func:`stat_over_model`), the RG-LRU blocks by ``ffn``
+  (``models/rglru.py``: each rank W/m columns of the recurrence, and where
+  the 8 gate blocks straddle ranks, m > 8, the input and conv of its whole
+  block). The MoE experts (``models/moe.py``) are expert-parallel.
+  Context-sharded decode (``kv_seq``) the port does not run: each rank
+  holds its rows' caches over every slot;
 * :func:`gather_weight` gathers a param where it is read whole, under every
   rule set (the JAX package gathers at use only under
   ``gather_weights_at_use`` and leaves the rest to GSPMD). The gathered
@@ -363,6 +368,17 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """The sum over ``model`` of a row-parallel product's parts (*g*)."""
     return _ReduceFromModel.apply(x, _model_group())
+
+
+def stat_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of a statistic each rank takes over its own
+    slice of a dim and then applies to that slice alone (the gated RMSNorm's
+    sum of squares over ``d_inner``): an all-reduce forward and backward.
+    Megatron's *g* alone passes the gradient as it is, right where every
+    rank uses the sum alike; here each rank's use reaches other columns, so
+    the sum's gradient is the sum of every rank's part, and each rank's own
+    statistic takes all of it."""
+    return copy_to_model(reduce_from_model(x))
 
 
 def gather_from_model(x: torch.Tensor) -> torch.Tensor:

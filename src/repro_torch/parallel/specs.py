@@ -26,6 +26,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import tree
 from repro_torch.convert import experts_blocked
+from repro_torch.models import layers, mamba2, rglru
 from repro_torch.models.config import ModelConfig
 from .axes import AxisRules, NamedSharding, PartitionSpec, is_spec, mesh_sizes
 
@@ -154,6 +155,9 @@ def make_batch_specs(batch_like: Any, rules: AxisRules, mesh: Optional[Any] = No
 
 
 def _cache_axes(path: str, nd: int) -> Tuple[Optional[str], ...]:
+    """The logical axes of the whole cache's leaf at ``path`` (the JAX
+    package's); a rank's state on a tp mesh is the share ``cache_share``
+    gives."""
     if re.search(r"(^|/)(k|v)$", path):
         # (..., B, C, Hkv, Dh): batch at -4, cache seq at -3
         return (None,) * (nd - 4) + ("batch", "kv_seq", None, None)
@@ -177,9 +181,46 @@ def make_cache_specs(cfg: ModelConfig, cache_like: Any, rules: AxisRules,
     * attention k/v caches: sequence dim over `model` (flash-decoding layout)
     * mamba2 ssm state: head dim over `model`
     * rg-lru h/conv states: width dim over `model`
+
+    These are the specs of the whole cache, as the JAX package lays it out,
+    and ``cache_like`` is a whole cache (``lm.init_cache`` without a mesh).
+    On a tp mesh the port's ``init_cache`` makes each rank's own state,
+    which ``cache_share`` places in the whole: the kv heads its q heads read
+    and, for the recurrent states, the split that the specs name (``ssm``
+    by heads, ``h`` by width) but for two leaves: mamba2's ``conv`` holds
+    the rank's heads' x columns and B and C whole (JAX splits conv_dim in
+    contiguous blocks), and the RG-LRU's ``conv`` holds its whole gate
+    block where blocks straddle ranks (m > 8).
     """
     by_path = {k: _cache_axes(k, v.dim()) for k, v in tree.leaf_paths(cache_like).items()}
     return _specs(tree.unflatten_like(cache_like, by_path), cache_like, rules, mesh)
+
+
+def cache_share(cfg: ModelConfig, path: str) -> Optional[Tuple[int, List[Tuple[int, int]]]]:
+    """Where this rank's leaf ``path`` of the serve state lies in the whole
+    cache under the active rules and mesh: (the dim, counted from the end,
+    and the spans [lo, hi) of the whole dim it holds, in order), or None
+    where it holds the whole dim. A KV cache holds the kv heads its q heads
+    read (``layers.kv_heads_local``); mamba2's ``ssm`` its heads and its
+    ``conv`` their x columns and B and C (``mamba2.conv_spans``); the
+    RG-LRU's ``h`` its own columns and its ``conv`` the columns whose conv
+    it computes (``rglru.width_share``)."""
+    name = path.split("/")[-1]
+    if name in ("k", "v"):
+        local = layers.kv_heads_local(cfg)
+        return None if local is None else (-2, [(local[0], local[0] + local[1])])
+    if cfg.family == "ssm" and name in ("ssm", "conv"):
+        m, r = mamba2.heads_split(cfg)
+        if m == 1:
+            return None
+        if name == "conv":
+            return -1, mamba2.conv_spans(cfg, m, r)
+        hl = cfg.n_ssm_heads // m
+        return -3, [(r * hl, (r + 1) * hl)]
+    if name in ("h", "conv"):
+        share = rglru.width_share(cfg)
+        return None if share is None else (-1, [share.own if name == "h" else share.conv])
+    return None
 
 
 # -- trees on a mesh ------------------------------------------------------------

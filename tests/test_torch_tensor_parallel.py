@@ -50,7 +50,7 @@ from repro.models.registry import get_smoke_config as jax_smoke_config
 from repro_torch import tree
 from repro_torch.convert import params_from_jax
 from repro_torch.data.pipeline import DataConfig, synth_tokens
-from repro_torch.models import layers, lm
+from repro_torch.models import layers, lm, mamba2, rglru
 from repro_torch.models.registry import get_config, get_smoke_config
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import multi_pod_rules, single_pod_rules
@@ -328,10 +328,30 @@ class _Mesh:
 
 
 # arch → (q heads a rank, kv heads a rank) at model 16, or None: attention whole
+# (mamba2-1.3b has no attention)
 HEADS_AT_16 = {"qwen3-1.7b": (1, 1), "granite-8b": (2, 1), "mixtral-8x7b": (2, 1),
                "internvl2-26b": (3, 1), "recurrentgemma-9b": (1, 1), "hubert-xlarge": (1, 1),
                "phi4-mini-3.8b": None, "llama3.2-3b": None,
-               "llama4-maverick-400b-a17b": None}
+               "llama4-maverick-400b-a17b": None, "mamba2-1.3b": None}
+
+
+def _recurrent_split_at_16(cfg, r):
+    """The recurrent blocks' split at model 16, rank r: mamba2's 4 of its 64
+    SSD heads, the RG-LRU's 256 of 4096 columns, whose gate blocks of 512
+    straddle two ranks (the rank's whole block is its conv's columns)."""
+    if cfg.family == "ssm":
+        assert cfg.n_ssm_heads == 64
+        assert mamba2.heads_split(cfg) == (16, r)
+        spans = mamba2.in_proj_spans(cfg, 16, r)
+        d_in, N = cfg.d_inner, cfg.ssm_state
+        assert [hi - lo for lo, hi in spans] == [d_in // 16, d_in // 16, 2 * N, 4]
+        assert spans[2] == (2 * d_in, 2 * d_in + 2 * N)  # B and C whole on every rank
+        assert mamba2.conv_spans(cfg, 16, r) == [(r * 256, (r + 1) * 256), (d_in, d_in + 2 * N)]
+    if cfg.family == "hybrid":
+        assert cfg.lru_width == 4096
+        block = (r // 2) * 512
+        assert rglru.width_share(cfg) == rglru.WidthShare((r * 256, (r + 1) * 256),
+                                                          (block, block + 512))
 
 
 @pytest.mark.parametrize("arch", sorted(HEADS_AT_16))
@@ -340,19 +360,23 @@ def test_what_the_single_pod_rules_split_at_16_by_16(arch):
     want = HEADS_AT_16[arch]
     for r in (0, 7, 15):
         with axes.axis_rules(single_pod_rules(), _Mesh(r)):
-            local = layers.kv_heads_local(cfg)
-            if want is None:
-                assert local is None and layers.n_kv_heads_cached(cfg) == cfg.n_kv_heads
-            else:
-                q, n = want
-                assert local == ((r * q) // (cfg.n_heads // cfg.n_kv_heads), n), (r, local)
-                assert layers.n_kv_heads_cached(cfg) == n
+            if cfg.n_heads:
+                local = layers.kv_heads_local(cfg)
+                if want is None:
+                    assert local is None and layers.n_kv_heads_cached(cfg) == cfg.n_kv_heads
+                else:
+                    q, n = want
+                    assert local == ((r * q) // (cfg.n_heads // cfg.n_kv_heads), n), (r, local)
+                    assert layers.n_kv_heads_cached(cfg) == n
             assert axes.tp_split("ffn", cfg.d_ff) == (16, r)
             v_split = cfg.vocab_size % 16 == 0
             assert axes.tp_split("vocab", cfg.vocab_size) == ((16, r) if v_split else (1, 0))
+            _recurrent_split_at_16(cfg, r)
         with axes.axis_rules(axes.pure_fsdp_rules(), _Mesh(r)):
-            assert layers.kv_heads_local(cfg) is None
+            if cfg.n_heads:
+                assert layers.kv_heads_local(cfg) is None
             assert axes.tp_split("ffn", cfg.d_ff) == (1, 0)
+            assert mamba2.heads_split(cfg) == (1, 0) and rglru.width_share(cfg) is None
 
 
 def test_a_model_axis_of_one_splits_nothing():
@@ -363,3 +387,8 @@ def test_a_model_axis_of_one_splits_nothing():
         assert layers.kv_heads_local(cfg) is None
         assert axes.tp_split("ffn", cfg.d_ff) == (1, 0)
         assert axes.tp_split("vocab", cfg.vocab_size) == (1, 0)
+        for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+            rcfg = get_config(arch)
+            assert mamba2.heads_split(rcfg) == (1, 0)
+            assert rglru.width_share(rcfg) is None
+        assert layers.kv_heads_local(get_config("recurrentgemma-9b")) is None

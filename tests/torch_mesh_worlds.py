@@ -346,3 +346,47 @@ def one_rank_job(rank: int, workdir: str) -> None:
                              "steps": ms, "params": whole_tree(params)})
         results[name] = runs
     _save(rank, workdir, results)
+
+
+def rglru_block_job(rank: int, workdir: str) -> None:
+    """Each case: one RG-LRU block placed on a (1, m) mesh under its rules
+    (``{"rglru": params}``, the model's param paths), on the whole batch:
+    the block's output and the gradients of sum(y·dy) (x's and every
+    param's, whole), then one decode step from the states the prefill leaves
+    (``_rglru_mix``'s last state and conv input), its output and the new
+    states, whole (each part from the model rank that holds it), and this
+    rank's width share and state shapes."""
+    from repro_torch.models import rglru
+    from repro_torch.parallel.specs import cache_share
+    from torch_serve_worlds import _whole_of_shares
+    inp = _inputs(workdir)
+    results = {}
+    for name, case in inp["cases"].items():
+        cfg, rules = case["cfg"], case["rules"]
+        mesh = make_auto_mesh(case["mesh"], ("data", "model"), "cpu")
+        K = cfg.conv_width
+        with axes.axis_rules(rules, mesh):
+            p = placed({"rglru": case["params"]}, cfg, rules, mesh)
+            leaves = tree.leaf_paths(p)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            x = case["x"].clone().requires_grad_(True)
+            y, h_last, xb = rglru._rglru_mix(cfg, p["rglru"], x)
+            grads = torch.autograd.grad((y * case["dy"]).sum(), [x] + list(leaves.values()))
+            gp = {k: steps._laid_out_as(g, leaves[k]) for k, g in zip(leaves, grads[1:])}
+            with torch.no_grad():
+                state = {"h": h_last.detach().float(), "conv": xb[:, -(K - 1):].detach().float()}
+                out, new = rglru.rglru_block_decode(cfg, p["rglru"], case["x_t"], state)
+
+            def whole(t, leaf):
+                share = cache_share(cfg, leaf)
+                return t if share is None else _whole_of_shares(t, *share)
+            results[name] = {
+                "y": y.detach(), "dx": grads[0],
+                "grads": whole_tree(tree.unflatten_like(p, gp))["rglru"],
+                "state": {k: whole(v, k) for k, v in state.items()},
+                "decode": {"out": out, "h": whole(new["h"], "h"),
+                           "conv": whole(new["conv"], "conv")},
+                "share": rglru.width_share(cfg),
+                "state_shapes": {k: tuple(v.shape) for k, v in new.items()}}
+    _save(rank, workdir, results)

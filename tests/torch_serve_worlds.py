@@ -15,10 +15,9 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.launch.mesh import make_auto_mesh, make_smoke_mesh
-from repro_torch.models.layers import kv_heads_local
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import single_pod_rules
-from repro_torch.parallel.specs import _cache_axes, batch_rows, batch_rules
+from repro_torch.parallel.specs import _cache_axes, batch_rows, batch_rules, cache_share
 from repro_torch.runtime import steps
 from torch_mesh_worlds import _gather_rows, _inputs, _save, placed, whole_tree
 
@@ -45,31 +44,39 @@ def serve(cfg, params, prompt, max_len: int, tokens=None, gen: int = 4):
 
 def _gather_cache(cfg, cache: Any, mesh) -> Dict[str, torch.Tensor]:
     """Every rank's batch rows of every cache leaf, in block order, and of a
-    KV cache under tensor parallelism every kv head, each from a model rank
-    that holds it (``layers.kv_heads_local``)."""
+    leaf that holds a rank's share under tensor parallelism (a KV cache's kv
+    heads, a recurrent state's heads or width: ``specs.cache_share``) the
+    whole, each part from a model rank that holds it."""
     out = {}
-    local = kv_heads_local(cfg)
     for path, leaf in tree.leaf_paths(cache).items():
         dim = _cache_axes(path, leaf.dim()).index("batch")
-        if local is not None and path.split("/")[-1] in ("k", "v"):
-            leaf = _whole_heads(leaf, local[0], cfg.n_kv_heads)
+        share = cache_share(cfg, path)
+        if share is not None:
+            leaf = _whole_of_shares(leaf, *share)
         out[path] = _gather_rows(leaf.movedim(dim, 0), mesh).movedim(0, dim)
     return out
 
 
-def _whole_heads(leaf: torch.Tensor, lo: int, n_kv: int) -> torch.Tensor:
-    """A KV cache leaf (..., Hkv_loc, Dh) of this rank's kv heads from ``lo``
-    as (..., n_kv, Dh) whole: the heads of the ranks of this rank's model
-    group, gathered."""
+def _whole_of_shares(leaf: torch.Tensor, dim: int, spans) -> torch.Tensor:
+    """A cache leaf of this rank's share, which holds ``spans`` of the whole
+    dim ``dim`` in order, as the whole: the shares of the ranks of this
+    rank's model group, gathered (where two ranks hold a span, as B and C of
+    mamba2's conv state, the later rank's is kept)."""
     group = axes._model_group()
     m = dist.get_world_size(group)
     parts = [torch.empty_like(leaf) for _ in range(m)]
     dist.all_gather(parts, leaf.contiguous(), group=group)
-    firsts = [torch.zeros((), dtype=torch.int64) for _ in range(m)]
-    dist.all_gather(firsts, torch.tensor(lo), group=group)
-    whole = leaf.new_zeros((*leaf.shape[:-2], n_kv, leaf.shape[-1]))
-    for part, first in zip(parts, firsts):
-        whole[..., int(first):int(first) + leaf.shape[-2], :] = part
+    mine = torch.tensor(spans, dtype=torch.int64)
+    all_spans = [torch.empty_like(mine) for _ in range(m)]
+    dist.all_gather(all_spans, mine, group=group)
+    shape = list(leaf.shape)
+    shape[dim] = max(int(s[:, 1].max()) for s in all_spans)
+    whole = leaf.new_zeros(shape)
+    for part, sp in zip(parts, all_spans):
+        at = 0
+        for lo, hi in sp.tolist():
+            whole.narrow(dim, lo, hi - lo).copy_(part.narrow(dim, at, hi - lo))
+            at += hi - lo
     return whole
 
 
@@ -77,8 +84,8 @@ def serve_job(rank: int, workdir: str) -> None:
     """Each case: whole params placed on a (2, 4) mesh under its rules (the
     batch replicated where its rows do not split), prefill and decode on this
     rank's rows, teacher-forced where the case gives tokens, else greedy;
-    every step's logits, the tokens fed and the final cache, gathered, and
-    the kv heads of this rank's cache."""
+    every step's logits, the tokens fed and the final cache, gathered, the
+    kv heads of this rank's cache and the shape of each of its leaves."""
     inp = _inputs(workdir)
     results = {}
     for name, case in inp["cases"].items():
@@ -93,9 +100,12 @@ def serve_job(rank: int, workdir: str) -> None:
                       else batch_rows({"t": case["tokens"]}, n, i)["t"])
             logits, fed, cache = serve(cfg, params, batch_rows(case["prompt"], n, i),
                                        case["max_len"], tokens)
+            leaves = tree.leaf_paths(cache)
+            kv = [t for k, t in leaves.items() if k.split("/")[-1] == "k"]
             results[name] = {"logits": [_gather_rows(x, mesh) for x in logits],
                              "tokens": [_gather_rows(t, mesh) for t in fed],
-                             "local_kv_heads": cache["k"].shape[-2],
+                             "local_kv_heads": kv[0].shape[-2] if kv else None,
+                             "local_shapes": {k: tuple(t.shape) for k, t in leaves.items()},
                              "cache": _gather_cache(cfg, cache, mesh),
                              "replicated": rules is not case["rules"], "shards": n}
     _save(rank, workdir, results)
