@@ -24,7 +24,17 @@ Phases, each printed as one JSON object per line:
    80 bidirectional (hubert-xlarge's encode shape and a ragged one); decode
    at groups 1 to 16, rows of len 0 (exactly 0), 1, a key either side of a
    64-key tile edge and C, C not a multiple of the tile, and head_dim 24
-   (the mma body) and 20 (the FMA body, in bf16 too);
+   (the mma body) and 20 (the FMA body, in bf16 too), and a rank's 2048
+   slots of qwen3-1.7b's decode_32k cache at model 16 (every head); at each
+   case decode's logsumexp too, against the plain float64 one (within 1e-4
+   (1 + |lse|), -inf on rows of len 0), the output bitwise the same whether
+   it is asked for or not;
+   kv_seq_merge: context-sharded decode's arithmetic at qwen3-1.7b's,
+   phi4-mini-3.8b's and recurrentgemma-9b's decode shapes: the cache cut
+   into 2, 4 and 16 slot shares, the kernel on each share with its own
+   valid count, the partials merged by their logsumexps
+   (axes.merge_partials), against the kernel's whole call at decode's
+   bounds, rows of len 0 exactly 0;
    gather: the burst gather exactly equal to its plain version on the
    shapes of tests/test_kernels.py, the edge cases (slots past the arena and
    negative, lengths negative and past the width, a width past the slot
@@ -136,7 +146,11 @@ Phases, each printed as one JSON object per line:
    EXPECTED and the plain-version counter 0; the peak device memory since
    the params were made;
    trace: device busy and idle share of one prefill and of decode steps,
-   and the decode kernels' and the SSD scan's share of them;
+   and the decode kernels' and the SSD scan's share of them; the profiler
+   drops kernel events, so each counted kernel's mean event time is scaled
+   by its launches (the wrapper counters), as trace_train and device_ms
+   scale them, and the busy time and idle share are given corrected for
+   the lost events too;
    serve_vs_plain: prefill and teacher-forced decode logits with the kernels
    against the same model on the plain versions (attention in blocks of
    query rows where its scores would not fit; in MoE layers the plain run
@@ -230,7 +244,9 @@ Phases, each printed as one JSON object per line:
    (fake_calibration, a process of its own), each roofline bound under its
    CUDA-event time, the predicted peak beside the measured one
    (calibration); and the production cells of DRYRUN_CELLS through
-   python -m repro_torch.launch.dryrun (dryrun_cell, dryrun_summary);
+   python -m repro_torch.launch.dryrun (dryrun_cell, dryrun_summary), among
+   them phi4-mini-3.8b's decode_32k at (16, 16), whose 24 heads do not split
+   over 16 while its cache's slots do (kv_seq);
 6. times: each kernel at the shapes of its main path (serve, train, the
    gather's benchmark; the flash backward and the RG-LRU backward also at
    recurrentgemma-9b's train shape, the flash backward's yardstick there
@@ -273,16 +289,18 @@ Phases, each printed as one JSON object per line:
    (after the RG-LRU backward's digest: run_tp_scan_checks for the scans)
    and timed as above (tp_time, tp_times; not in the kernels line): the
    flash forward, backward and decode at one rank's heads (TP_PREFILL,
-   TP_TRAIN, TP_DECODE) and the SSD and RG-LRU scans and their backward at
-   one rank's share at model 16 (TP_SSD, TP_SSD_TRAIN, TP_RGLRU,
-   TP_RGLRU_TRAIN).
+   TP_TRAIN, TP_DECODE), decode at one rank's slots of every head with the
+   logsumexp (KV_SEQ_DECODE: qwen3-1.7b's decode_32k rows, 2048 of 32 768
+   slots) and the SSD and RG-LRU scans and their backward at one rank's
+   share at model 16 (TP_SSD, TP_SSD_TRAIN, TP_RGLRU, TP_RGLRU_TRAIN).
 
 More entry points (see their docstrings): epoch_pass_bits() and
 rglru_bwd_bits(), for the tree whose src is first on PYTHONPATH;
 epoch_tile_sweep(), the epoch pass built at other tile shapes;
 moe_train_bits(), mixtral-8x7b's train cell alone; tp_bits(), the kernels
-at one rank's share alone; and recurrent_sharding_bits(), the
-recurrent_sharding phase alone.
+at one rank's share alone; recurrent_sharding_bits(), the
+recurrent_sharding phase alone; and kv_seq_bits(), decode's logsumexp and
+kv_seq_merge alone.
 
 The last three lines are the card's name and power limit, the kernel table
 and {"ok": true, "device": ...}. Any failed check exits non-zero before them.
@@ -337,6 +355,7 @@ FLASH_FWD_BF16_REL_RMS = 1e-2
 # round P to bf16 as the A operand of P.V, as the flash forward does, and a
 # wrong mask, split or combine moves the output by order 100%.
 DECODE_BF16_REL_RMS = 1e-2
+LSE_TOL = 1e-4  # decode's logsumexp: of 1 + |lse|, against the plain float64 one
 SOURCES = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
            "flash_attention_bwd", "burst_gather", "ssd_scan_bwd", "epoch_pass",
            "rglru_scan_bwd"]
@@ -599,11 +618,16 @@ DECODE_CASES = [
     (4, 544, 2, 1, 128, (1, 200, 544, 377)),  # granite-8b at model 16: 2 q heads on 1 kv head
     (4, 800, 3, 1, 128, (1, 300, 800, 785)),  # internvl2-26b at model 16: 3 on 1
     (4, 544, 4, 2, 128, (1, 200, 544, 377)),  # qwen3-1.7b at model 4: 4 on 2
+    # a rank's slots under context-sharded decode (kv_seq): qwen3-1.7b's
+    # decode_32k rows at model 16, 2048 of 32 768 slots, every head
+    (8, 2048, 16, 8, 128, (2048, 2048, 2048, 2048, 1000, 64, 1, 0)),
 ]
 # one rank's heads under tensor parallelism (model 16, and 4 for qwen3-1.7b)
 TP_PREFILL = {"granite-8b, model 16": FLASH_CASES[23], "internvl2-26b, model 16": FLASH_CASES[24]}
 TP_DECODE = {"granite-8b, model 16": DECODE_CASES[16], "internvl2-26b, model 16": DECODE_CASES[17],
              "qwen3-1.7b, model 4": DECODE_CASES[18]}
+# one rank's share of the slots under context-sharded decode (kv_seq)
+KV_SEQ_DECODE = {"qwen3-1.7b, kv_seq 16 of decode_32k": DECODE_CASES[19]}
 DECODE_SERVE = {"qwen3-1.7b": DECODE_CASES[9], "recurrentgemma-9b": DECODE_CASES[10],
                 "granite-8b": DECODE_CASES[11], "phi4-mini-3.8b": DECODE_CASES[12],
                 "llama3.2-3b": DECODE_CASES[12], "llama4-maverick-400b-a17b": DECODE_CASES[13],
@@ -726,18 +750,24 @@ def run_checks(dev):
         for dtype, tol in zip(dtypes, (F32_TOL, BF16_TOL)):
             q, kc, vc, cl = decode_inputs(case, dtype, dev)
             got = ops.decode_attention(q, kc, vc, cl)
-            want = ref.decode_attention(q, kc, vc, cl)
+            want, want_lse = ref.decode_attention(q, kc, vc, cl, return_lse=True)
+            # the logsumexp beside the output, whose bits must not move
+            got2, lse = ops.decode_attention(q, kc, vc, cl, return_lse=True)
             torch.cuda.synchronize()
             err, ok = max_err(got, want, tol)
             empty = [i for i, n in enumerate(case[5]) if n == 0]
+            lse_err, lse_ok = lse_check(lse, want_lse, empty)
             out = {"max_abs_err": err, "tol": tol,
-                   "empty_rows_zero": int(torch.count_nonzero(got[empty])) == 0}
+                   "empty_rows_zero": int(torch.count_nonzero(got[empty])) == 0,
+                   "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+                   "output_bitwise_with_lse": torch.equal(got, got2)}
             if dtype == torch.bfloat16:
                 out["rel_rms"] = rel_rms(got, want)
                 out["bound_rel_rms"] = DECODE_BF16_REL_RMS
                 ok = ok and out["rel_rms"] <= DECODE_BF16_REL_RMS
-            _check("decode_attention", case, dtype, out, ok and out["empty_rows_zero"], "")
-            for arch, c in {**DECODE_SERVE, **TP_DECODE}.items():
+            ok = ok and out["empty_rows_zero"] and lse_ok and out["output_bitwise_with_lse"]
+            _check("decode_attention", case, dtype, out, ok, "")
+            for arch, c in {**DECODE_SERVE, **TP_DECODE, **KV_SEQ_DECODE}.items():
                 if case == c and dtype == torch.bfloat16:
                     worst[("decode_attention", arch)] = err
     for case in SSD_CASES:
@@ -751,6 +781,65 @@ def run_checks(dev):
             if case == RGLRU_CASES[0] and dtype == torch.bfloat16:
                 worst[("rglru_scan", "recurrentgemma-9b")] = err
     return worst
+
+
+def lse_check(got, want, empty):
+    """The kernel's logsumexp (B, H) against the plain version's (float64,
+    as f32): -inf exactly on the rows of length 0, elsewhere within LSE_TOL
+    (1 + |want|); returns (max abs error off the empty rows, ok)."""
+    full = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    full[empty] = False
+    ok = bool(torch.isneginf(got[~full]).all()) and bool(torch.isfinite(got[full]).all())
+    diff = (got[full] - want[full]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    return err, ok and bool((diff <= LSE_TOL * (1 + want[full].abs())).all())
+
+
+# kv_seq_merge: each arch's decode shape (DECODE_SERVE) cut into m slot
+# shares, the kernel on each share with its own valid count, the partials
+# merged by their logsumexps (axes.merge_partials), held to the whole call
+KV_SEQ_MERGE = ("qwen3-1.7b", "phi4-mini-3.8b", "recurrentgemma-9b")
+KV_SEQ_SHARES = (2, 4, 16)
+
+
+def run_kv_seq_merge(dev):
+    """Context-sharded decode's arithmetic on the card: for each arch of
+    KV_SEQ_MERGE and m of KV_SEQ_SHARES, f32 and bf16, the merge of the m
+    shares' kernel calls against the kernel's whole call (f32 max abs
+    within F32_TOL; bf16 within BF16_TOL and a relative RMS of
+    DECODE_BF16_REL_RMS; rows of length 0 exactly 0) and, for the record,
+    against the plain whole call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.parallel.axes import merge_partials
+    for arch in KV_SEQ_MERGE:
+        case = DECODE_SERVE[arch]
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            q, kc, vc, cl = decode_inputs(case, dtype, dev)
+            whole = ops.decode_attention(q, kc, vc, cl)
+            plain = ref.decode_attention(q, kc, vc, cl)
+            empty = [i for i, n in enumerate(case[5]) if n == 0]
+            for m in KV_SEQ_SHARES:
+                n = kc.shape[1] // m
+                parts = [ops.decode_attention(q, kc[:, r * n:(r + 1) * n].contiguous(),
+                                              vc[:, r * n:(r + 1) * n].contiguous(),
+                                              torch.clamp(cl - r * n, 0, n).to(torch.int32),
+                                              return_lse=True) for r in range(m)]
+                got = merge_partials(torch.stack([o for o, _ in parts]),
+                                     torch.stack([s for _, s in parts])).to(dtype)
+                torch.cuda.synchronize()
+                err, ok = max_err(got, whole, tol)
+                out = {"arch": arch, "shares": m, "dtype": str(dtype), "case": case,
+                       "max_abs_err": err, "tol": tol,
+                       "plain_max_abs_err": max_err(got, plain, tol)[0],
+                       "empty_rows_zero": int(torch.count_nonzero(got[empty])) == 0}
+                if dtype == torch.bfloat16:
+                    out["rel_rms"] = rel_rms(got, whole)
+                    out["bound_rel_rms"] = DECODE_BF16_REL_RMS
+                    ok = ok and out["rel_rms"] <= DECODE_BF16_REL_RMS
+                out["ok"] = ok and out["empty_rows_zero"]
+                emit("kv_seq_merge", out)
+                if not out["ok"]:
+                    fail(f"kv_seq_merge {arch} m {m} {dtype}: {out}")
 
 
 def check_ssd(case, dtype, dev):
@@ -1889,8 +1978,9 @@ class plain_kernels:
             return plain_mha(q, k, v, causal=causal, window=window, q_offset=q_offset,
                              softmax_scale=softmax_scale)
 
-        def decode(q, kc, vc, cl, *, softmax_scale=None):
-            return ref.decode_attention(q, kc, vc, cl, softmax_scale=softmax_scale)
+        def decode(q, kc, vc, cl, *, softmax_scale=None, return_lse=False):
+            return ref.decode_attention(q, kc, vc, cl, softmax_scale=softmax_scale,
+                                        return_lse=return_lse)
 
         def ssd(x, dt, A, Bm, Cm, *, chunk=128, h0=None):
             return ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
@@ -2070,7 +2160,42 @@ def _busy_us(events):
     return busy + ((cur_e - cur_s) if cur_e is not None else 0.0)
 
 
+# the kernels of a serve run: (name part of their kernels, counter of their
+# wrapper); each kernel name launches once a wrapper call
+SERVE_KERNELS = {"flash_attention": ("flash_fwd_", "flash_attention"),
+                 "decode_attention": (DECODE_KERNELS, "decode_attention"),
+                 "ssd_scan": (SSD_KERNELS, "ssd_scan"),
+                 "rglru_scan": (RGLRU_KERNELS, "rglru_scan")}
+
+
+def counted_events(events, launches, families, exclude=None):
+    """The profiler drops kernel events (device_ms), so each family's kernels
+    (``families``: name -> (name part, counter), each kernel name launched
+    once a wrapper call; ``exclude``: family -> a name part its kernels do
+    not have) are counted as device_ms counts them: each name's mean event
+    time times its launches, read from the wrapper counters (``launches``),
+    or its events where more. ``events``: kernel name -> event µs. Returns
+    ({family: ms, ms by kernel, launches, events}, the µs of the events
+    lost)."""
+    exclude = exclude or {}
+    lost_us, counted = 0.0, {}
+    for fam, (part, counter) in families.items():
+        n = launches[counter]
+        names = [k for k in events if part in k and not (fam in exclude and exclude[fam] in k)]
+        mean = {k: sum(events[k]) / len(events[k]) for k in names}
+        by = {k[:60]: mean[k] * max(n, len(events[k])) / 1e3 for k in names}
+        lost_us += sum(max(0, n - len(events[k])) * mean[k] for k in names)
+        counted[fam] = {"ms": sum(by.values()), "ms_by_kernel": by, "launches": n,
+                        "events": {k[:60]: len(events[k]) for k in names}}
+    return counted, lost_us
+
+
 def run_trace(cfg, params, dev, steps=8):
+    """Device busy time and idle share of one prefill and of ``steps``
+    decode steps. The kernels of SERVE_KERNELS are counted by their launches
+    (``counted_events``); the events the profiler lost are added to the
+    busy time, whose idle share is given corrected for them too (a serve
+    step runs on one stream, so they overlap nothing)."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     from repro_torch.models import lm
@@ -2085,6 +2210,7 @@ def run_trace(cfg, params, dev, steps=8):
             logits, cache = lm.prefill(cfg, params, prompt, S + steps)
             tok = logits.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
+        zero_counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if phase == "prefill":
@@ -2092,26 +2218,28 @@ def run_trace(cfg, params, dev, steps=8):
             else:
                 for i in range(steps):
                     pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-                    logits, cache = lm.decode_step(cfg, params, cache, tok, pos)
+                    logits, cache = lm.decode_step(cfg, params, cache, tok, pos, S + steps)
                     tok = logits.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        launches, _ = read_counters()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name = {}
+        by_name, events = {}, {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            events.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        counted, lost_us = counted_events(events, launches, SERVE_KERNELS)
         n = 1 if phase == "prefill" else steps
         busy = _busy_us(kernels) if kernels else None
+        busy_c = None if busy is None else busy + lost_us
         out[phase] = {
             "steps": n, "host_ms_per_step": wall_us / n / 1e3,
             "device_busy_ms_per_step": None if busy is None else busy / n / 1e3,
             "device_idle_share": None if busy is None else 1.0 - busy / wall_us,
-            "decode_attention_ms_per_step": sum(
-                v for k, v in by_name.items() if DECODE_KERNELS in k) / n / 1e3,
-            "ssd_scan_ms_per_step": sum(
-                v for k, v in by_name.items() if SSD_KERNELS in k) / n / 1e3,
-            "rglru_scan_ms_per_step": sum(
-                v for k, v in by_name.items() if RGLRU_KERNELS in k) / n / 1e3,
+            "device_busy_ms_per_step_corrected": None if busy_c is None else busy_c / n / 1e3,
+            "device_idle_share_corrected": None if busy_c is None else 1.0 - busy_c / wall_us,
+            **{f"{fam}_ms_per_step": c["ms"] / n for fam, c in counted.items()},
+            "counted": counted,
             "top_kernels_ms_per_step": sorted(
                 ([k[:90], v / n / 1e3] for k, v in by_name.items()), key=lambda kv: -kv[1])[:8],
         }
@@ -2263,15 +2391,9 @@ def trace_train(cfg, rt, state, dev):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             events.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    lost_us, counted = 0.0, {}
-    for fam, (part, counter, _, _) in TRAIN_KERNELS[cfg.family].items():
-        n = launches[counter]
-        names = [k for k in events if part in k and (fam != "ssd_fwd" or SSD_BWD_KERNELS not in k)]
-        mean = {k: sum(events[k]) / len(events[k]) for k in names}
-        by = {k[:60]: mean[k] * max(n, len(events[k])) / 1e3 for k in names}
-        lost_us += sum(max(0, n - len(events[k])) * mean[k] for k in names)
-        counted[fam] = {"ms": sum(by.values()), "ms_by_kernel": by, "launches": n,
-                        "events": {k[:60]: len(events[k]) for k in names}}
+    counted, lost_us = counted_events(
+        events, launches, {fam: (part, counter) for fam, (part, counter, _, _)
+                           in TRAIN_KERNELS[cfg.family].items()}, {"ssd_fwd": SSD_BWD_KERNELS})
     busy_c = None if busy is None else busy + lost_us
     total = sum(c["ms"] for c in counted.values())
     out.update({"arch": cfg.arch_id, "counted": counted,
@@ -3335,24 +3457,31 @@ def time_decode(arch, launches, errs, card, dev):
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import ref
     from repro_torch.models.registry import get_config
-    B, C, H, Hkv, Dh, _ = {**DECODE_SERVE, **TP_DECODE}[arch]
+    B, C, H, Hkv, Dh, _ = {**DECODE_SERVE, **TP_DECODE, **KV_SEQ_DECODE}[arch]
     # qwen3: the middle decode step over a cache of prompt + gen slots (the
     # vlm's prompt with its patches); recurrentgemma: the ring is full at
-    # every decode step
-    base = arch.split(",")[0]  # a tensor-parallel label's arch
-    prompt = PROMPT[base] + n_patches(get_config(base))
-    n = prompt + SERVE["gen_len"] // 2 + 1 if C > prompt else C
+    # every decode step; a rank's share of a decode_32k cache (kv_seq): every
+    # slot valid, the logsumexp written beside the output as that path asks
+    with_lse = arch in KV_SEQ_DECODE
+    if with_lse:
+        n = C
+    else:
+        base = arch.split(",")[0]  # a tensor-parallel label's arch
+        prompt = PROMPT[base] + n_patches(get_config(base))
+        n = prompt + SERVE["gen_len"] // 2 + 1 if C > prompt else C
     q1, kc, vc, cl = decode_inputs((B, C, H, Hkv, Dh, (n,) * B), torch.bfloat16, dev, seed=4)
     scale = Dh ** -0.5
     valid = n * B
     kv_bytes = 2 * 2 * valid * Hkv * Dh
     # this run's valid slots (the dry run's counter counts every slot)
-    b_ms, b_by = work_bound(costs.decode(q1.shape, kc.shape, 2, valid))
+    b_ms, b_by = work_bound(costs.decode(q1.shape, kc.shape, 2, valid, with_lse=with_lse))
     plan = kdec.plan_splits(B, C, Hkv, H // Hkv, Dh, q1.dtype, kdec._sm_count(dev.index))
     # every row has the same length n, so SDPA on the first n slots, unmasked,
     # computes the same function
     q1t, kct, vct = q1[:, :, None], kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
-    kern = lambda: kdec.decode_attention_cuda(q1, kc, vc, cl, softmax_scale=scale)  # noqa: E731
+    kern = lambda: kdec.decode_attention_cuda(  # noqa: E731
+        q1, kc, vc, cl, softmax_scale=scale, return_lse=with_lse)
+    kern_out = (lambda: kern()[0]) if with_lse else kern  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q1t, kct, vct, scale=scale, enable_gqa=True)[:, :, 0]
     heads_major = [t.contiguous() for t in (q1t, kct, vct)]
@@ -3368,13 +3497,13 @@ def time_decode(arch, launches, errs, card, dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, iters=200),
                 library="scaled_dot_product_attention", library_backend=sdpa_backend(lib),
                 library_device_ms=device_ms(lib, ""),  # every kernel of the call
-                library_vs_kernel_max_abs=max_err(lib(), kern(), BF16_TOL),
+                library_vs_kernel_max_abs=max_err(lib(), kern_out(), BF16_TOL),
                 library_head_major_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     *heads_major, scale=scale, enable_gqa=True), iters=200),
                 kv_bytes=kv_bytes,
                 plan={**plan._asdict(), "blocks": plan.n_splits * Hkv * B},
                 shape={"B": B, "C": C, "H": H, "Hkv": Hkv, "Dh": Dh, "cache_len": [n] * B,
-                       "dtype": "bfloat16"})
+                       "dtype": "bfloat16", "return_lse": with_lse})
 
 
 def time_ssd(launches, errs, card, dev, label="mamba2-1.3b", case=None):
@@ -3627,11 +3756,11 @@ def run_tp_times(errs, card, dev):
     kinds = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
              "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
     launches = {lab: dict.fromkeys(kinds, 0)
-                for lab in (*TP_PREFILL, *TP_TRAIN, *TP_DECODE, *TP_SSD, *TP_SSD_TRAIN,
-                            *TP_RGLRU, *TP_RGLRU_TRAIN)}
+                for lab in (*TP_PREFILL, *TP_TRAIN, *TP_DECODE, *KV_SEQ_DECODE, *TP_SSD,
+                            *TP_SSD_TRAIN, *TP_RGLRU, *TP_RGLRU_TRAIN)}
     rows = [time_flash(lab, launches, errs, card, dev) for lab in (*TP_PREFILL, *TP_TRAIN)]
     rows += [time_flash_bwd(case, lab, launches, errs, card, dev) for lab, case in TP_TRAIN.items()]
-    rows += [time_decode(lab, launches, errs, card, dev) for lab in TP_DECODE]
+    rows += [time_decode(lab, launches, errs, card, dev) for lab in (*TP_DECODE, *KV_SEQ_DECODE)]
     rows += [time_ssd(launches, errs, card, dev, lab, c) for lab, c in TP_SSD.items()]
     rows += [time_ssd_bwd(launches, errs, card, dev, lab, c) for lab, c in TP_SSD_TRAIN.items()]
     rows += [time_rglru(launches, errs, card, dev, lab, c) for lab, c in TP_RGLRU.items()]
@@ -3855,7 +3984,8 @@ def moe_train_bits():
 def tp_bits():
     """The kernels at one rank's share under tensor parallelism alone, in the
     tree whose repro_torch this process imports: the flash forward, its
-    backward and decode checked at TP_PREFILL, TP_TRAIN and TP_DECODE, the
+    backward and decode checked at TP_PREFILL, TP_TRAIN, TP_DECODE and
+    KV_SEQ_DECODE, the
     SSD and RG-LRU scans and their backward at TP_SSD, TP_SSD_TRAIN,
     TP_RGLRU and TP_RGLRU_TRAIN (f32 and bf16), then their time rows
     (run_tp_times). Run as
@@ -3876,7 +4006,8 @@ def tp_bits():
     global FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
     saved = FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES
     FLASH_CASES = [*TP_PREFILL.values(), *TP_TRAIN.values()]
-    DECODE_CASES, SSD_CASES, RGLRU_CASES = list(TP_DECODE.values()), [], []
+    DECODE_CASES = [*TP_DECODE.values(), *KV_SEQ_DECODE.values()]
+    SSD_CASES, RGLRU_CASES = [], []
     FLASH_BWD_CASES = list(TP_TRAIN.values())
     try:
         errs = run_checks(dev)
@@ -3885,6 +4016,33 @@ def tp_bits():
         FLASH_CASES, DECODE_CASES, SSD_CASES, RGLRU_CASES, FLASH_BWD_CASES = saved
     errs.update(run_tp_scan_checks(dev))
     run_tp_times(errs, card, dev)
+
+
+def kv_seq_bits():
+    """Decode's logsumexp and context-sharded decode's merge alone, in the
+    tree whose repro_torch this process imports: the decode checks at every
+    case of DECODE_CASES (output, logsumexp, bits with and without it), then
+    kv_seq_merge. Run as
+
+        python3 -c 'import chip_smoke; chip_smoke.kv_seq_bits()'"""
+    import repro_torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this runs on the card only")
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    emit("tree", str(Path(repro_torch.__file__).resolve().parents[2]))
+    _build.build_all(["decode_attention"])
+    global FLASH_CASES, SSD_CASES, RGLRU_CASES
+    saved = FLASH_CASES, SSD_CASES, RGLRU_CASES
+    FLASH_CASES, SSD_CASES, RGLRU_CASES = [], [], []
+    try:
+        run_checks(dev)
+    finally:
+        FLASH_CASES, SSD_CASES, RGLRU_CASES = saved
+    run_kv_seq_merge(dev)
 
 
 def epoch_pass_bits():
@@ -4033,7 +4191,9 @@ DRYRUN_CELLS = ([(a, s, "both") for a in MESH_SERVE
                 + [("hubert-xlarge", "train_4k", "single")]
                 # the recurrent blocks split over model (tp: the batch of 32
                 # does not split over 256 ranks)
-                + [(a, "prefill_32k", "single") for a in RECURRENT_SHARDING])
+                + [(a, "prefill_32k", "single") for a in RECURRENT_SHARDING]
+                # context-sharded decode where the heads do not split (24 over 16)
+                + [("phi4-mini-3.8b", "decode_32k", "single")])
 DRYRUN_WORKERS = 8  # dry-run processes at once: the host's 8 cores, this process waiting
 
 
@@ -4081,7 +4241,7 @@ def greedy(cfg, params, prompt, gen):
     step's ms)."""
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     B, S = prompt.shape
-    prefill, decode = make_prefill_step(cfg, S + gen), make_decode_step(cfg)
+    prefill, decode = make_prefill_step(cfg, S + gen), make_decode_step(cfg, S + gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": prompt})
@@ -4422,6 +4582,7 @@ def main():
     emit("build", {"seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
     errs = run_checks(dev)
+    run_kv_seq_merge(dev)
     digests = {"flash_forward_digest": forward_digest(dev)}
     emit("flash_forward_digest", digests["flash_forward_digest"])
     launches = {}

@@ -62,14 +62,16 @@ def flash_backward(q_shape, k_shape, itemsize: int, *, causal: bool, window: int
     return Work(10 * Dh * pairs * B * H, itemsize * (4 * q + 4 * kv) + 4 * B * H * Sq)
 
 
-def decode(q_shape, k_shape, itemsize: int, valid_slots: int) -> Work:
+def decode(q_shape, k_shape, itemsize: int, valid_slots: int, with_lse: bool = False) -> Work:
     """q (B,H,Dh) over caches (B,C,Hkv,Dh) with ``valid_slots`` slots valid
     over all rows: 4·Dh FLOP per valid slot and query head; q read, the
-    output written, the valid K and V read, and the int32 lengths."""
+    output written, the valid K and V read, the int32 lengths, and the f32
+    logsumexp (B,H) written where context-sharded decode asks for it."""
     B, H, Dh = q_shape
     Hkv = k_shape[2]
     return Work(4 * Dh * H * valid_slots,
-                itemsize * 2 * B * H * Dh + itemsize * 2 * valid_slots * Hkv * Dh + 4 * B)
+                itemsize * 2 * B * H * Dh + itemsize * 2 * valid_slots * Hkv * Dh + 4 * B
+                + (4 * B * H if with_lse else 0))
 
 
 def ssd_forward(B: int, S: int, H: int, P: int, N: int, chunk: int, itemsize: int,

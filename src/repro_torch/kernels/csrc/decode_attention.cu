@@ -60,7 +60,11 @@
 //    max of the splits' m, then exp2(m_i - m) weights (in shared memory, once
 //    a block), the column summed over the splits in split order, and acc / l
 //    (0 when every split is empty). No atomics and a fixed order of sums for
-//    a given shape and plan: calls are bitwise repeatable.
+//    a given shape and plan: calls are bitwise repeatable. Where the caller
+//    asks for it, the first block of each (b, h) also writes the logsumexp of
+//    the scaled scores, (m + log2 l) ln 2 in f32 (-inf when every split is
+//    empty), which context-sharded decode needs to merge the slot shares of
+//    several ranks; the output's bits do not depend on it.
 //
 // What bounds the design: each split moves one tile, so a block's time is
 // mostly the latency of its first loads, its merge and its writes, and the
@@ -78,6 +82,7 @@ namespace {
 constexpr int kTile = 64;       // keys per tile of both bodies; splits are multiples of it
 constexpr int kMaxGroup = 16;   // the wrapper's bound: one m16n8k16 tile of query heads
 constexpr int kMaxDh = 256;
+constexpr float kLn2 = 0.693147180559945309f;
 
 // The workspace: acc [B][H][n_splits][Dh], then m and l [B][H][n_splits].
 // The state of (b, h, split) is row ((b H + h) n_splits + split).
@@ -616,11 +621,12 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 // One block per (64 columns, head, batch row). The splits' weights
 // exp2(m_i - m), 0 for an empty split, go to shared memory once; each thread
 // then sums its column over the splits in split order, its loads independent
-// of each other so that many are in flight.
+// of each other so that many are in flight. lse (B, H) f32, or null: the
+// logsumexp of the row's scaled scores, from the block of the first columns.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads) decode_attn_combine(
     const float* __restrict__ acc, const float* __restrict__ ms, const float* __restrict__ ls,
-    T* __restrict__ o, int H, int Dh, int n_splits) {
+    T* __restrict__ o, float* __restrict__ lse, int H, int Dh, int n_splits) {
   extern __shared__ float wts[];  // n_splits
   __shared__ float red[kCombineThreads / 32];
   const int tid = threadIdx.x;
@@ -637,6 +643,8 @@ __global__ void __launch_bounds__(kCombineThreads) decode_attn_combine(
     den = fmaf(f, ls[row0 + i], den);
   }
   den = block_sum(den, red);  // its barriers also publish wts
+  if (lse != nullptr && blockIdx.x == 0 && tid == 0)  // m in log2 units; len 0 → -inf
+    lse[(long)b * H + h] = den > 0.f ? (m + log2f(den)) * kLn2 : -INFINITY;
   if (d >= Dh) return;
   const float* a = acc + row0 * Dh + d;
   float num = 0.f;
@@ -649,10 +657,11 @@ __global__ void __launch_bounds__(kCombineThreads) decode_attn_combine(
 }
 
 template <typename T>
-cudaError_t combine(Ws ws, void* o, int B, int H, int Dh, int n_splits, cudaStream_t st) {
+cudaError_t combine(Ws ws, void* o, float* lse, int B, int H, int Dh, int n_splits,
+                    cudaStream_t st) {
   const dim3 grid((Dh + kCombineThreads - 1) / kCombineThreads, H, B);
   decode_attn_combine<T><<<grid, kCombineThreads, n_splits * sizeof(float), st>>>(
-      ws.acc, ws.m, ws.l, static_cast<T*>(o), H, Dh, n_splits);
+      ws.acc, ws.m, ws.l, static_cast<T*>(o), lse, H, Dh, n_splits);
   return cudaGetLastError();
 }
 
@@ -662,6 +671,7 @@ REPRO_ERROR_STRING_FN(decode_attention)
 
 // q (B,H,Dh), k_cache and v_cache (B,C,Hkv,Dh), o (B,H,Dh), all contiguous and
 // of one dtype (repro::kF32 or repro::kBF16); cache_len (B,) int32 on the card;
+// lse (B,H) f32 for the rows' logsumexp, or null for none;
 // ws f32, B H n_splits (Dh + 2) elements. The plan: splits of split_keys
 // slots (a multiple of 64), n_splits = ceil(C / split_keys) (1 when C is 0,
 // at most 12288). bf16 with Dh a multiple of 8 runs the mma.sync body and
@@ -671,7 +681,7 @@ REPRO_ERROR_STRING_FN(decode_attention)
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* cache_len, void* o, void* ws, int B, int C,
                                     int H, int Hkv, int Dh, int split_keys, int n_splits,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, int dtype, void* stream, void* lse) {
   if (Dh <= 0 || Dh > kMaxDh || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup || B <= 0 ||
       C < 0 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
@@ -685,6 +695,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(cache_len);
   float* w = static_cast<float*>(ws);
+  float* lse_out = static_cast<float*>(lse);
   const long rows = (long)B * H * n_splits;
   const Ws s{w, w + rows * Dh, w + rows * Dh + rows};
   const float scale_log2 = scale * repro::mma::kLog2e;
@@ -692,14 +703,14 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
   if (dtype == repro::kF32) {
     e = fmab::dispatch<float, 4>(q, kc, vc, len, s, B, C, H, Hkv, Dh, split_keys, n_splits,
                                  scale_log2, st);
-    return e != cudaSuccess ? e : combine<float>(s, o, B, H, Dh, n_splits, st);
+    return e != cudaSuccess ? e : combine<float>(s, o, lse_out, B, H, Dh, n_splits, st);
   }
   if (dtype == repro::kBF16) {
     e = mma ? mmab::dispatch(q, kc, vc, len, s, B, C, H, Hkv, Dh, split_keys, n_splits,
                              scale_log2, st)
             : fmab::dispatch<__nv_bfloat16, 2>(q, kc, vc, len, s, B, C, H, Hkv, Dh, split_keys,
                                                n_splits, scale_log2, st);
-    return e != cudaSuccess ? e : combine<__nv_bfloat16>(s, o, B, H, Dh, n_splits, st);
+    return e != cudaSuccess ? e : combine<__nv_bfloat16>(s, o, lse_out, B, H, Dh, n_splits, st);
   }
   return cudaErrorInvalidValue;
 }

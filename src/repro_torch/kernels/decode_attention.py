@@ -9,12 +9,19 @@ plans here on the host, and the combine of the splits in a fixed order.
 each). The plan and the launch run inside a ``torch.library`` op,
 ``repro_torch::decode_attention`` (``decode_op``), whose CUDA implementation
 reads the card's SM count and whose fake implementation gives the output's
-shape and dtype, so that a decode step traces on fake tensors.
+shape and dtype, so that a decode step traces on fake tensors. Its twin
+``repro_torch::decode_attention_lse`` (``decode_lse_op``) also returns each
+(row, head)'s logsumexp of the scaled scores, (B, H) f32 (-inf on a row
+with no valid slot), which the combine writes beside the output: the merge
+of context-sharded decode's slot shares (``parallel.axes.merge_over_model``)
+weighs each rank's partial output by it. The output's bits are the same
+either way.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -69,14 +76,15 @@ def _fn():
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            cache_len: torch.Tensor, scale: float, plan: Plan) -> torch.Tensor:
-    """Both kernels under ``plan``, on inputs ``decode_attention_cuda`` checked.
+            cache_len: torch.Tensor, scale: float, plan: Plan, with_lse: bool = False):
+    """Both kernels under ``plan``, on inputs ``decode_attention_cuda`` checked:
+    the output, or with ``with_lse`` (output, logsumexp (B, H) f32).
 
     Decode is host-bound, so this path keeps to the cheap calls: the raw
     current stream (``torch.cuda.current_stream()`` builds a Stream object),
@@ -85,7 +93,7 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     global launches
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
-            return _launch(q, k_cache, v_cache, cache_len, scale, plan)
+            return _launch(q, k_cache, v_cache, cache_len, scale, plan, with_lse)
     B, H, Dh = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
@@ -95,21 +103,25 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         ws = _workspaces[(q.device.index, stream)] = torch.empty(
             numel, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if with_lse else None
     lib, fn = _fn()
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
              out.data_ptr(), ws.data_ptr(), B, C, H, Hkv, Dh, plan.split_keys,
-             plan.n_splits, float(scale), _build.DTYPE_CODES[q.dtype], stream)
+             plan.n_splits, float(scale), _build.DTYPE_CODES[q.dtype], stream,
+             None if lse is None else lse.data_ptr())
     launches += 1
     _build.check(lib, "decode_attention", err)
-    return out
+    return (out, lse) if with_lse else out
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                          softmax_scale: float) -> torch.Tensor:
+                          softmax_scale: float, return_lse: bool = False):
     """q (B,H,Dh), caches (B,C,Hkv,Dh), cache_len (B,) int32, one CUDA device
-    → (B,H,Dh). bf16 inputs with Dh a multiple of 8 must start on 16-byte
-    boundaries (the mma body moves 16-byte rows)."""
+    → (B,H,Dh), or with ``return_lse`` (out, the logsumexp (B,H) f32 of the
+    scaled scores over the valid slots, -inf where there is none). bf16
+    inputs with Dh a multiple of 8 must start on 16-byte boundaries (the mma
+    body moves 16-byte rows)."""
     dev = q.device
     if (dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev
             or cache_len.device != dev):
@@ -137,21 +149,24 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention_cuda needs contiguous inputs")
     _build.refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     if q.numel() == 0:
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, torch.full((B, H), -math.inf, device=dev)) if return_lse else out
+    if return_lse:
+        return decode_lse_op(q, k_cache, v_cache, cache_len, softmax_scale)
     return decode_op(q, k_cache, v_cache, cache_len, softmax_scale)
 
 
 def planned_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   cache_len: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+                   cache_len: torch.Tensor, softmax_scale: float, with_lse: bool = False):
     """The split plan from the card's SM count, then both kernels: the
-    launcher that ``decode_op`` wraps, on inputs ``decode_attention_cuda``
-    checked."""
+    launcher that ``decode_op`` and ``decode_lse_op`` wrap, on inputs
+    ``decode_attention_cuda`` checked."""
     B, H, Dh = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     plan = plan_splits(B, C, Hkv, H // Hkv, Dh, q.dtype, _sm_count(q.device.index))
     if plan.body == "mma":
         check_aligned("decode_attention_cuda", q=q, k_cache=k_cache, v_cache=v_cache)
-    return _launch(q, k_cache, v_cache, cache_len, softmax_scale, plan)
+    return _launch(q, k_cache, v_cache, cache_len, softmax_scale, plan, with_lse)
 
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
@@ -164,3 +179,16 @@ def decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 @decode_op.register_fake
 def _decode_fake(q, k_cache, v_cache, cache_len, softmax_scale):
     return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=())
+def decode_lse_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  cache_len: torch.Tensor, softmax_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``planned_launch`` with the logsumexp, as an op."""
+    return planned_launch(q, k_cache, v_cache, cache_len, softmax_scale, with_lse=True)
+
+
+@decode_lse_op.register_fake
+def _decode_lse_fake(q, k_cache, v_cache, cache_len, softmax_scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)

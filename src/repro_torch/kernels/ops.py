@@ -48,15 +48,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None, return_lse: bool = False):
     """Single-token attention. q (B,H,Dh), caches (B,C,Hkv,Dh), cache_len (B,)
-    → (B,H,Dh)."""
+    → (B,H,Dh); with ``return_lse`` (out, logsumexp (B,H) f32 of the scaled
+    scores over the valid slots, -inf on a row with none)."""
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
     if _device_type(q, k_cache, v_cache, cache_len) == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, cache_len,
-                                    softmax_scale=scale)
+                                    softmax_scale=scale, return_lse=return_lse)
     return decode_attention_cuda(q, k_cache, v_cache, cache_len,
-                                 softmax_scale=scale)
+                                 softmax_scale=scale, return_lse=return_lse)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,

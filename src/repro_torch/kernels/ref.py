@@ -98,9 +98,11 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None, return_lse: bool = False):
     """One query token per row. q (B,H,Dh), caches (B,C,Hkv,Dh), cache_len (B,)
-    valid prefix length → (B,H,Dh)."""
+    valid prefix length → (B,H,Dh); with ``return_lse`` also the logsumexp
+    (B,H) f32 of the scaled scores over the valid slots, taken in float64
+    (-inf on a row with no valid slot)."""
     global calls
     calls += 1
     B, H, Dh = q.shape
@@ -112,8 +114,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (torch.arange(C, device=q.device)[None]
              < cache_len.to(q.device)[:, None])  # (B, C)
     p = _masked_softmax(scores, valid[:, None, None])
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.reshape(B, H, Dh).to(q.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()).reshape(B, H, Dh).to(q.dtype)
+    if not return_lse:
+        return out
+    s64 = torch.einsum("bhgd,bshd->bhgs", qg.double(), k_cache.double()) * scale
+    lse = torch.logsumexp(s64.masked_fill(~valid[:, None, None], float("-inf")), dim=-1)
+    return out, lse.reshape(B, H).float()
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,

@@ -38,11 +38,14 @@ them, with their bytes and groups; so do the recurrent blocks: mamba2's
 SSD blocks at H/m heads (``in_proj``'s z, x and dt columns over m, its B
 and C columns on every rank) and the RG-LRU blocks at W/m columns (where
 its gate blocks straddle ranks, m > 8, ``w_x`` and the conv over the
-rank's whole block). The port keeps each rank's decode cache rows whole
-over every slot, of the kv heads that rank reads: the JAX package's
-``kv_seq`` layout splits the cache's sequence over ``model``, which the
-port's decode does not. Its recurrent states are the rank's share
-(``cache_layout``).
+rank's whole block). A decode cell's KV caches take the JAX package's
+``kv_seq`` layout where the model axis divides their slots: each rank holds
+its rows' C/m slots of every kv head, attends all q heads over them and
+merges the ranks' partials over ``model`` (one all-gather of q and one
+all-to-all of the partials a layer where the heads split, one all-gather of
+the partials where they do not); a prefill hands each rank its slots (one
+all-to-all a layer where the kv heads split). Its recurrent states are the
+rank's share (``cache_layout``).
 
 Importing this module sets no environment variable and starts no process
 group: ``run_cell`` makes the world and destroys it. The autograd engine of a
@@ -74,6 +77,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import (ARCHS, SHAPES, STEP_KIND, all_cells, cell_status,
                                          get_config, get_smoke_config)
+from repro_torch.models.transformer import cache_size_for
 from repro_torch.optim import adamw
 from repro_torch.parallel import analysis, axes
 from repro_torch.parallel.op_counter import OpCounter, fresh_storages
@@ -83,10 +87,14 @@ from repro_torch.runtime.steps import make_decode_step, make_prefill_step, make_
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
-CACHE_LAYOUT = ("rows whole: each rank holds its own batch rows' caches over every slot, "
-                "of the kv heads its q heads read under tensor parallelism (each TP rank "
-                "its own kv heads); the JAX package splits the cache's sequence over "
-                "'model', kv_seq; the port's decode does not")
+CACHE_LAYOUT = ("kv_seq: each rank holds its own batch rows' k and v caches at C/m of "
+                "the slots, [r C/m, (r+1) C/m) of model rank r, of every kv head, as the "
+                "JAX package splits the cache's sequence over 'model'; decode attends "
+                "every q head over the rank's slots and merges the ranks' partial outputs "
+                "by their logsumexps over 'model', in rank order")
+CACHE_WHOLE = ("rows whole: each rank holds its own batch rows' caches over every slot "
+               "(the model axis does not divide the cache's slots), of the kv heads its "
+               "q heads read under tensor parallelism")
 SSM_STATE_LAYOUT = ("mamba2: ssm (L, B, H/m, P, N), the rank's heads, split over 'model' as "
                     "the JAX package's ssm_heads; conv (L, B, K-1, d_inner/m + 2N), the "
                     "rank's heads' x columns and B and C whole, where the JAX package "
@@ -97,14 +105,16 @@ LRU_STATE_LAYOUT = ("RG-LRU: h (..., B, W/m), the rank's columns, split over 'mo
                     "whose conv it computes")
 
 
-def cache_layout(cfg: ModelConfig) -> str:
-    """A decode record's ``cache_layout``: the port's KV-cache layout and,
+def cache_layout(cfg: ModelConfig, split_slots: bool = True) -> str:
+    """A decode record's ``cache_layout``: the port's KV-cache layout
+    (``split_slots``: whether the model axis divides the cache's slots) and,
     for the recurrent families, their states'."""
+    kv = CACHE_LAYOUT if split_slots else CACHE_WHOLE
     if cfg.family == "ssm":
         return SSM_STATE_LAYOUT
     if cfg.family == "hybrid":
-        return f"{CACHE_LAYOUT}. {LRU_STATE_LAYOUT}"
-    return CACHE_LAYOUT
+        return f"{kv}. {LRU_STATE_LAYOUT}"
+    return kv
 
 
 class CudaOnMeta(TorchDispatchMode):
@@ -208,7 +218,7 @@ def count_step(cfg: ModelConfig, kind: str, seq_len: int, global_batch: int, *, 
         else:
             args = (params, *inputs)
             step = (make_prefill_step(cfg, seq_len) if kind == "prefill"
-                    else make_decode_step(cfg))
+                    else make_decode_step(cfg, seq_len))
         arg_bytes = fresh_storages(args)
         with FlopCounterMode(display=False) as flops, OpCounter() as counter:
             t0 = time.perf_counter()
@@ -254,6 +264,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, layout: Optional[str] = 
             return rec
         got = count_step(cfg, kind, dims["seq_len"], dims["global_batch"], mesh=mesh,
                          rules=rules)
+        with axes.axis_rules(rules, mesh):
+            split_slots = axes.kv_seq_span(cache_size_for(cfg, dims["seq_len"])) is not None
     cost = got["cost"]
     roof = analysis.Roofline(
         flops_per_device=cost.dot_flops, hbm_bytes_per_device=cost.hbm_bytes,
@@ -274,7 +286,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *, layout: Optional[str] = 
         kernel_calls=dict(sorted(cost.kernel_calls.items())),
         batch={"rows_per_rank": got["rows_per_rank"], "replicated": got["replicated"]})
     if kind == "decode":
-        rec["cache_layout"] = cache_layout(cfg)
+        rec["cache_layout"] = cache_layout(cfg, split_slots)
     return rec
 
 

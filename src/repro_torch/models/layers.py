@@ -24,20 +24,30 @@ and the embedding, the logits and the cross-entropy over ``vocab``.
 Activations are whole on every model rank between the layers; each
 row-parallel product is summed over ``model``
 (``axes.reduce_from_model``). Elsewhere a layer runs as without a mesh.
+
+Decode is context-sharded where the rules put ``kv_seq`` on ``model`` and
+the model size m divides the cache's C slots (``axes.kv_seq_span``, the
+JAX package's cache layout): each rank's KV cache holds its slots
+[r·C/m, (r+1)·C/m) of every kv head (``kv_cache_shape``), the prefill
+hands each rank its slots, and a decode step attends all q heads over the
+rank's slots and merges the ranks' partials by their logsumexps
+(``axes.merge_over_model``) before the output projection.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.axes import (copy_to_model, gather_from_model, gather_partial,
-                                       gather_weight, local_weight, max_over_model,
-                                       reduce_from_model, shard, tp_split)
+from repro_torch.parallel.axes import (copy_to_model, first_holders, gather_from_model,
+                                       gather_heads, gather_partial, gather_weight, kv_seq_span,
+                                       local_weight, max_over_model, merge_over_model,
+                                       reduce_from_model, shard, slots_from_heads,
+                                       splits_kv_seq, tp_split)
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -170,6 +180,15 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.T
     return (x @ w.to(dtype).reshape(D, h * Dh)).view(*x.shape[:-1], h, Dh)
 
 
+def _kv_heads_of(cfg: ModelConfig, m: int, r: int) -> Optional[Tuple[int, int]]:
+    """(first kv head, count) that model rank r's q heads read where H
+    splits over m ranks; None where a kv head's group would split unevenly."""
+    n, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if n % g and g % n:
+        return None
+    return r * n // g, max(1, n // g)
+
+
 def kv_heads_local(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
     """(first kv head, count) that this rank's q heads read where attention
     runs tensor-parallel over ``model``; None where it runs whole. The q
@@ -179,16 +198,25 @@ def kv_heads_local(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
     m, r = tp_split("heads", cfg.n_heads)
     if m == 1:
         return None
-    n, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-    if n % g and g % n:
-        return None
-    return r * n // g, max(1, n // g)
+    return _kv_heads_of(cfg, m, r)
 
 
 def n_kv_heads_cached(cfg: ModelConfig) -> int:
-    """The kv heads of this rank's KV cache: those its q heads read."""
+    """The kv heads of this rank's KV cache where it holds every slot: those
+    its q heads read."""
     local = kv_heads_local(cfg)
     return cfg.n_kv_heads if local is None else local[1]
+
+
+def kv_cache_shape(cfg: ModelConfig, n_slots: int) -> Tuple[int, int]:
+    """(slots, kv heads) of this rank's KV cache of a whole cache of
+    ``n_slots`` slots: C/m slots of every kv head where the slots split over
+    ``model`` (``axes.kv_seq_span``), else every slot of the kv heads its q
+    heads read."""
+    span = kv_seq_span(n_slots)
+    if span is not None:
+        return span[1] - span[0], cfg.n_kv_heads
+    return n_slots, n_kv_heads_cached(cfg)
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -269,29 +297,74 @@ def attention_prefill_kv(k: torch.Tensor, v: torch.Tensor, positions: torch.Tens
     return k, v
 
 
+def _kv_firsts(cfg: ModelConfig) -> List[int]:
+    """The first kv head of each model rank's q heads, in rank order."""
+    m, _ = tp_split("heads", cfg.n_heads)
+    return [_kv_heads_of(cfg, m, r)[0] for r in range(m)]
+
+
+def _rank_slots(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, span: Tuple[int, int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slots ``span`` of every kv head, from this rank's k and v (B, C,
+    h, Dh) of every slot: a slice where it holds every kv head, else one
+    all-to-all over ``model`` from the ranks that hold each head."""
+    if kv_heads_local(cfg) is None:
+        return k[:, span[0]:span[1]], v[:, span[0]:span[1]]
+    kv = slots_from_heads(torch.stack([k, v]), _kv_firsts(cfg), cfg.n_kv_heads)
+    return kv[0], kv[1]
+
+
+def _all_heads(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every q head and every kv head of the new token (B, 1, ·, Dh), from
+    each model rank's q heads and the kv heads they read: one all-gather
+    over ``model`` of B (H/m + 2n) Dh values, no projection recomputed."""
+    hq, n = q.shape[-2], k.shape[-2]
+    firsts = _kv_firsts(cfg)
+    got = gather_heads(torch.cat([q, k, v], dim=-2)).unflatten(-2, (len(firsts), hq + 2 * n))
+    ranks, at = first_holders(firsts, n, cfg.n_kv_heads, q.device)
+    return (got[..., :hq, :].flatten(-3, -2), got[..., hq:hq + n, :][..., ranks, at, :],
+            got[..., hq + n:, :][..., ranks, at, :])
+
+
 def apply_attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
                             positions: torch.Tensor, cache_size: int, *,
                             window_override: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """JAX's ``apply_attention`` plus ``attention_prefill_kv`` from one
-    projection: returns (y (B,S,D), k, v (B,cache_size,Hkv,Dh))."""
+    projection: returns (y (B,S,D), k, v (B,cache_size,Hkv,Dh)), or, where
+    the cache's slots split over ``model``, this rank's share of k and v
+    (``kv_cache_shape``)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     y = _attend(cfg, p, q, k, v, window_override)
     k, v = attention_prefill_kv(k, v, positions, cache_size)
+    span = kv_seq_span(cache_size)
+    if span is not None:
+        k, v = _rank_slots(cfg, k, v, span)
     return y, k, v
 
 
 def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                            pos: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor
+                           v_cache: torch.Tensor, n_slots: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step. x_t (B,1,D), pos (B,) absolute positions, caches
-    (B,C,Hkv,Dh) of this rank's kv heads (``n_kv_heads_cached``). Returns
-    (y (B,1,D), k_cache, v_cache).
+    (B,C,Hkv,Dh) of this rank's kv heads (``n_kv_heads_cached``), or its
+    share of the slots of a whole cache of ``n_slots`` slots
+    (``kv_cache_shape``; ``n_slots`` None: the caches are whole, which rules
+    that split ``kv_seq`` refuse). Returns (y (B,1,D), k_cache, v_cache).
 
     Unlike the JAX version, which returns new caches, the new token's K/V is
     written into the given caches in place (they are views into the stacked
     cache), and the same tensors are returned."""
+    if n_slots is None:
+        if splits_kv_seq():
+            raise ValueError("a decode step under rules that split kv_seq over 'model' "
+                             "needs the whole cache's slots (lm.decode_step's max_len)")
+        n_slots = k_cache.shape[1]
+    span = kv_seq_span(n_slots)
+    if span is not None:
+        return _decode_kv_seq(cfg, p, x_t, pos, k_cache, v_cache, n_slots, span)
     B = x_t.shape[0]
     C = k_cache.shape[1]
     q, k, v = _project_qkv(cfg, p, x_t, pos[:, None])
@@ -305,6 +378,37 @@ def apply_attention_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, cache_len)
     out = shard(out, "batch", "heads", None)
     return shard(_out_proj(cfg, p, out)[:, None], "batch", None, None), k_cache, v_cache
+
+
+def _decode_kv_seq(cfg: ModelConfig, p: Params, x_t: torch.Tensor, pos: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, C: int,
+                   span: Tuple[int, int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``apply_attention_decode`` on this rank's slots ``span`` of a C-slot
+    cache: the new token's k and v of every kv head (gathered from the
+    ranks that project them where the heads split) written where this rank
+    owns slot pos % C (per row, on the device), every q head attended over
+    the rank's valid slots, clamp(cache_len - lo, 0, C/m) of them (validity
+    is a prefix of the slots in full and ring caches alike), and the
+    partials merged over ``model`` into this rank's heads (all of them where
+    the heads do not split)."""
+    lo, hi = span
+    B = x_t.shape[0]
+    q, k, v = _project_qkv(cfg, p, x_t, pos[:, None])
+    split = kv_heads_local(cfg) is not None
+    if split:
+        q, k, v = _all_heads(cfg, q, k, v)
+    slot = torch.remainder(pos, C).long()
+    owned = ((slot >= lo) & (slot < hi))[:, None, None]
+    at = torch.clamp(slot - lo, 0, hi - lo - 1)
+    bidx = torch.arange(B, device=x_t.device)
+    k_cache[bidx, at] = torch.where(owned, k[:, 0], k_cache[bidx, at])
+    v_cache[bidx, at] = torch.where(owned, v[:, 0], v_cache[bidx, at])
+    cache_len = torch.clamp(torch.clamp(pos + 1, max=C) - lo, 0, hi - lo).to(torch.int32)
+    out, lse = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, cache_len,
+                                    return_lse=True)
+    out = merge_over_model(out, lse, split)
+    return _out_proj(cfg, p, out)[:, None], k_cache, v_cache
 
 
 # =============================================================================

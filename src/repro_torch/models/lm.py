@@ -130,17 +130,24 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     x, positions, _ = _embed_inputs(cfg, params, batch)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
     hidden, cache = backbone(cfg).prefill_hidden(cfg, params["backbone"], x,
-                                                 positions, cache)
+                                                 positions, cache, max_len)
     last = apply_norm(cfg, params["final_norm"], hidden[:, -1])
     return logits_for(cfg, params["embed"], last), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
-                token: torch.Tensor, pos: torch.Tensor
+                token: torch.Tensor, pos: torch.Tensor, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
-    """One decode step. token (B,) int, pos (B,) absolute position. Returns
-    (logits (B,V), cache); the cache is updated in place."""
+    """One decode step. token (B,) int, pos (B,) absolute position, ``max_len``
+    the cache's as ``init_cache`` / ``prefill`` took it. Returns (logits
+    (B,V), cache); the cache is updated in place.
+
+    Where the rules split the KV caches' slots over ``model`` (``kv_seq``) a
+    rank's cache is its share, whose whole length ``max_len`` gives, and the
+    step refuses to run without it; elsewhere the caches are whole and
+    ``max_len`` may be None."""
     x_t = embed_tokens(cfg, params["embed"], token[:, None])
-    x_t, cache = backbone(cfg).decode_hidden(cfg, params["backbone"], cache, x_t, pos)
+    x_t, cache = backbone(cfg).decode_hidden(cfg, params["backbone"], cache, x_t, pos,
+                                             max_len)
     h = apply_norm(cfg, params["final_norm"], x_t[:, 0])
     return logits_for(cfg, params["embed"], h), cache

@@ -28,7 +28,7 @@ heads, run the whole block as without a mesh.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -217,8 +217,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 
 def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                   positions: torch.Tensor, cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Forward + fill the states (written in place). Returns (hidden, cache)."""
+                   positions: torch.Tensor, cache: Params, max_len: int
+                   ) -> Tuple[torch.Tensor, Params]:
+    """Forward + fill the states (written in place; ``max_len`` does not size
+    them). Returns (hidden, cache)."""
     for i in range(cfg.n_layers):
         out, h_final, conv_tail = _block_prefill(
             cfg, layer_of(params["blocks"], i),
@@ -230,9 +232,11 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 def decode_hidden(cfg: ModelConfig, params: Params, cache: Params, x_t: torch.Tensor,
-                  pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
-    """One token through all blocks. x_t (B,1,D). The states are updated in
-    place and returned."""
+                  pos: torch.Tensor, max_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Params]:
+    """One token through all blocks. x_t (B,1,D); neither ``pos`` nor
+    ``max_len`` is read (no KV cache). The states are updated in place and
+    returned."""
     B = x_t.shape[0]
     P = cfg.ssm_head_dim
     x = x_t

@@ -10,7 +10,9 @@ layers that do not fill a whole pattern (38 = 12 × 3 + 2) are the tail, of
 kinds ``pattern[t % 3]``. The serve state mirrors it: attention layers hold
 ring KV caches of ``min(max_len, window)`` slots, RG-LRU layers their state
 ``h`` (B,W) and conv tail (B,K-1,W), all f32 but the caches; prefill and
-decode write them in place.
+decode write them in place. Where the rules split a cache's slots over
+``model`` (``kv_seq``), a rank's ring holds its C/m slots of every kv head
+(``layers.kv_cache_shape``).
 
 Where the active rules split ``ffn`` over ``model`` (``axes.tp_split``, a
 model axis m > 1 that divides W) and m divides the 8 gate blocks or they
@@ -56,8 +58,8 @@ from .layers import (
     init_mlp,
     init_norm,
     init_stacked,
+    kv_cache_shape,
     layer_of,
-    n_kv_heads_cached,
 )
 
 N_DIAG_BLOCKS = 8  # RG-LRU gate matrices are block-diagonal (Griffin §2.4)
@@ -296,10 +298,16 @@ def forward_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
 # Inference state: attention ring caches + recurrent states
 # =============================================================================
 
+def cache_slots(cfg: ModelConfig, max_len: int) -> int:
+    """The slots of an attention layer's ring cache for ``max_len`` tokens."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
     """The caches and states of this rank's share (``width_share``, and the
-    kv heads its q heads read), or whole where nothing splits."""
-    C = min(max_len, cfg.window) if cfg.window else max_len
+    kv heads its q heads read or its slots of every kv head,
+    ``layers.kv_cache_shape``), or whole where nothing splits."""
+    slots, heads = kv_cache_shape(cfg, cache_slots(cfg, max_len))
     K = cfg.conv_width
     share = width_share(cfg)
     W = W_conv = cfg.lru_width
@@ -308,8 +316,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
     def state(lead: Tuple[int, ...], kind: str) -> Dict[str, Any]:
         if kind == "attn":
-            # this rank's kv heads under tensor parallelism
-            shape = (*lead, batch, C, n_kv_heads_cached(cfg), cfg.head_dim)
+            shape = (*lead, batch, slots, heads, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dt(cfg), device=device),
                     "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
         f32 = dict(dtype=torch.float32, device=device)
@@ -321,14 +328,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 
 def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                   positions: torch.Tensor, cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Forward + fill the caches and states (written in place)."""
-    K = cfg.conv_width
+                   positions: torch.Tensor, cache: Params, max_len: int
+                   ) -> Tuple[torch.Tensor, Params]:
+    """Forward + fill the caches and states of ``max_len`` tokens (written
+    in place)."""
+    K, C = cfg.conv_width, cache_slots(cfg, max_len)
     for kind, p, c in _layers(cfg, params, cache):
         h_in = apply_norm(cfg, p["mix_norm"], x)
         if kind == "attn":
-            h, k, v = apply_attention_prefill(cfg, p["attn"], h_in, positions,
-                                              c["k"].shape[1], window_override=cfg.window)
+            h, k, v = apply_attention_prefill(cfg, p["attn"], h_in, positions, C,
+                                              window_override=cfg.window)
             c["k"].copy_(k)
             c["v"].copy_(v)
         else:
@@ -340,14 +349,17 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 def decode_hidden(cfg: ModelConfig, params: Params, cache: Params, x_t: torch.Tensor,
-                  pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
-    """One token through all layers. x_t (B,1,D), pos (B,). The caches and
-    states are updated in place and returned."""
+                  pos: torch.Tensor, max_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Params]:
+    """One token through all layers. x_t (B,1,D), pos (B,), ``max_len`` the
+    caches' as ``init_cache`` took it (None: the caches are whole). The
+    caches and states are updated in place and returned."""
+    C = None if max_len is None else cache_slots(cfg, max_len)
     x = x_t
     for kind, p, c in _layers(cfg, params, cache):
         h_in = apply_norm(cfg, p["mix_norm"], x)
         if kind == "attn":
-            h, _, _ = apply_attention_decode(cfg, p["attn"], h_in, pos, c["k"], c["v"])
+            h, _, _ = apply_attention_decode(cfg, p["attn"], h_in, pos, c["k"], c["v"], C)
         else:
             h, new = rglru_block_decode(cfg, p["rglru"], h_in, c)
             c["h"].copy_(new["h"])

@@ -10,7 +10,9 @@ consecutive layers (one layer without experts), ``{"units": [params of
 position 0, ..., position unit-1]}`` where every leaf has a leading
 ``(n_units,)`` axis, and the MoE layer is the last of each unit. The KV cache
 is ``{"k", "v"}`` of shape ``(n_units, unit, B, C, Hkv, Dh)``, Hkv the kv
-heads of this rank's q heads under tensor parallelism.
+heads of this rank's q heads under tensor parallelism, or, where the rules
+split the cache's slots over ``model`` (``kv_seq``), this rank's C/m slots
+of every kv head (``layers.kv_cache_shape``).
 ``jax.lax.scan`` over units becomes a Python loop over layers, and the
 reference's per-unit ``jax.checkpoint`` becomes ``torch.utils.checkpoint``
 per layer.
@@ -36,8 +38,8 @@ from .layers import (
     init_mlp,
     init_norm,
     init_stacked,
+    kv_cache_shape,
     layer_of,
-    n_kv_heads_cached,
 )
 from .moe import apply_moe, init_moe_layer
 
@@ -137,18 +139,20 @@ def cache_size_for(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
     """KV caches stacked (n_units, unit, B, C, Hkv, Dh), zero-filled. Where
     attention runs tensor-parallel over ``model`` each rank's cache holds
-    only the kv heads its q heads read (``layers.n_kv_heads_cached``)."""
-    C = cache_size_for(cfg, max_len)
-    shape = (_n_units(cfg), _unit_size(cfg), batch, C, n_kv_heads_cached(cfg), cfg.head_dim)
+    only the kv heads its q heads read, and where the slots split over
+    ``model`` its C/m slots of every kv head (``layers.kv_cache_shape``)."""
+    slots, heads = kv_cache_shape(cfg, cache_size_for(cfg, max_len))
+    shape = (_n_units(cfg), _unit_size(cfg), batch, slots, heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt(cfg), device=device),
             "v": torch.zeros(shape, dtype=dt(cfg), device=device)}
 
 
 def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                   positions: torch.Tensor, cache: Params
+                   positions: torch.Tensor, cache: Params, max_len: int
                    ) -> Tuple[torch.Tensor, Params]:
-    """Forward + populate the caches (written in place). Returns (hidden, cache)."""
-    C = cache["k"].shape[3]
+    """Forward + populate the caches of ``max_len`` tokens (written in
+    place). Returns (hidden, cache)."""
+    C = cache_size_for(cfg, max_len)
     for i, pos, p in _layers(cfg, params):
         h, k, v = apply_attention_prefill(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), positions, C)
@@ -160,14 +164,16 @@ def prefill_hidden(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 def decode_hidden(cfg: ModelConfig, params: Params, cache: Params,
-                  x_t: torch.Tensor, pos: torch.Tensor
+                  x_t: torch.Tensor, pos: torch.Tensor, max_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Params]:
-    """One token through all layers. x_t (B,1,D), pos (B,). The caches are
-    updated in place and returned."""
+    """One token through all layers. x_t (B,1,D), pos (B,), ``max_len`` the
+    caches' as ``init_cache`` took it (None: the caches are whole). The
+    caches are updated in place and returned."""
+    C = None if max_len is None else cache_size_for(cfg, max_len)
     x = x_t
     for i, j, p in _layers(cfg, params):
         h, _, _ = apply_attention_decode(
             cfg, p["attn"], apply_norm(cfg, p["attn_norm"], x), pos,
-            cache["k"][i, j], cache["v"][i, j])
+            cache["k"][i, j], cache["v"][i, j], C)
         x, _ = _ffn(cfg, p, x + h)
     return x, cache

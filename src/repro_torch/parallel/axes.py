@@ -36,8 +36,15 @@ Where the JAX package hands the whole layout to GSPMD, the port is explicit:
   (``models/rglru.py``: each rank W/m columns of the recurrence, and where
   the 8 gate blocks straddle ranks, m > 8, the input and conv of its whole
   block). The MoE experts (``models/moe.py``) are expert-parallel.
-  Context-sharded decode (``kv_seq``) the port does not run: each rank
-  holds its rows' caches over every slot;
+  Decode is context-sharded where the rules put ``kv_seq`` on ``model`` and
+  the model size m divides the cache's C slots (:func:`kv_seq_span`): each
+  rank holds slots [r·C/m, (r+1)·C/m) of every kv head for its batch rows,
+  attends all q heads over them (the new token's q, k and v heads from
+  every rank, :func:`gather_heads`), and the ranks' partial outputs merge
+  by their logsumexps (:func:`merge_over_model`);
+  the prefill hands each rank its slots (:func:`slots_from_heads` where the
+  kv heads split). Elsewhere each rank holds its rows' caches over every
+  slot, of the kv heads its q heads read;
 * :func:`gather_weight` gathers a param where it is read whole, under every
   rule set (the JAX package gathers at use only under
   ``gather_weights_at_use`` and leaves the rest to GSPMD). The gathered
@@ -270,19 +277,25 @@ def gather_partial(w: Any) -> Any:
 
 # -- tensor parallelism over "model" ------------------------------------------------
 
+def _on_model(logical: str) -> int:
+    """The ``model`` axis size where the rules put ``logical`` on ``model``
+    alone; 1 elsewhere (no rules or mesh, other axes)."""
+    rules, mesh = _STATE.rules, _STATE.mesh
+    if rules is None or mesh is None or _axes_tuple(rules.resolve(logical)) != ("model",):
+        return 1
+    return mesh_sizes(mesh).get("model", 1)
+
+
 def tp_split(logical: str, n: int) -> Tuple[int, int]:
     """(m, r): the ``model`` axis size that splits a dim of size ``n`` named
     ``logical``, and this rank's block of it; (1, 0) where the dim is not
     split: no rules or mesh, rules that do not put ``logical`` on ``model``
     alone, a model axis of size 1, or ``n`` not a multiple of its size (the
     dim is stored whole, ``specs.sanitize_spec``)."""
-    rules, mesh = _STATE.rules, _STATE.mesh
-    if rules is None or mesh is None or _axes_tuple(rules.resolve(logical)) != ("model",):
-        return 1, 0
-    m = mesh_sizes(mesh).get("model", 1)
+    m = _on_model(logical)
     if m == 1 or n % m:
         return 1, 0
-    return m, mesh.get_local_rank("model")
+    return m, _STATE.mesh.get_local_rank("model")
 
 
 def local_weight(w: Any) -> torch.Tensor:
@@ -391,6 +404,116 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_model_group())
     return out
+
+
+# -- context-sharded decode over "model" (kv_seq) ------------------------------------
+
+def splits_kv_seq() -> bool:
+    """Whether the active rules and mesh split a decode cache's slots over
+    ``model`` where its size divides them: a cache's whole length must then
+    be known to tell a rank's share from a whole cache."""
+    return _on_model("kv_seq") > 1
+
+
+def kv_seq_span(n_slots: int) -> Optional[Tuple[int, int]]:
+    """[lo, hi): the slots this rank holds of a decode cache of ``n_slots``
+    slots, [r·C/m, (r+1)·C/m) of model rank r, where the rules put
+    ``kv_seq`` on ``model`` and its size m > 1 divides C; None where the rank
+    holds all of them (``tp_split``)."""
+    m, r = tp_split("kv_seq", n_slots)
+    if m == 1:
+        return None
+    n = n_slots // m
+    return r * n, (r + 1) * n
+
+
+def gather_heads(x: torch.Tensor) -> torch.Tensor:
+    """Every model rank's heads of ``x`` (..., h, Dh): (..., m·h, Dh) in rank
+    order (one all-gather over ``model``; no gradient through it)."""
+    group = _model_group()
+    m = dist.get_world_size(group)
+    x0 = x.movedim(-2, 0).contiguous()
+    out = x0.new_empty((m * x0.shape[0], *x0.shape[1:]))
+    dist.all_gather_into_tensor(out, x0, group=group)
+    return out.movedim(0, -2).contiguous()
+
+
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention over the union of m disjoint slot shares, from each share's
+    output ``outs`` (m, ..., Dh) and logsumexp ``lses`` (m, ...): share s
+    weighs exp(lse_s - max lse), and the weighted sum and the weights' sum
+    are taken in f32, in share order (the same sums on every call), their
+    quotient the result, f32. A share with no valid slot (lse -inf, output
+    0) adds nothing, and a row that has none in any share gives 0, as the
+    decode kernel gives it."""
+    outs, lses = outs.float(), lses.float()
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    num = torch.zeros_like(outs[0])
+    den = torch.zeros_like(top)
+    for s in range(outs.shape[0]):
+        w = torch.exp(lses[s] - top)
+        num = num + w[..., None] * outs[s]
+        den = den + w
+    # den >= 1 where a share has a valid slot (the largest weighs exp(0) = 1)
+    return num / den.clamp_min(1.0)[..., None]
+
+
+def merge_over_model(out: torch.Tensor, lse: torch.Tensor, split_heads: bool) -> torch.Tensor:
+    """The decode attention of a cache whose slots are split over ``model``,
+    from each rank's attention over its own slots: ``out`` (B, H, Dh) and
+    its logsumexp ``lse`` (B, H) f32 over all H q heads, merged in rank
+    order by :func:`merge_partials`, in ``out``'s dtype. Where the heads
+    split (``split_heads``, H/m a rank), one all-to-all hands each rank
+    every rank's partials of its own heads and the result is (B, H/m, Dh);
+    else one all-gather hands every rank all of them, (B, H, Dh). Each
+    partial travels in ``out``'s dtype with its f32 logsumexp's bits beside
+    it (4 bytes as ``out``'s dtype), so a bf16 merge moves half the bytes of
+    an f32 one and the logsumexp arrives exact."""
+    group = _model_group()
+    m = dist.get_world_size(group)
+    B, H, Dh = out.shape
+    packed = torch.cat([out, lse[..., None].view(out.dtype)], dim=-1)  # (B, H, Dh + w)
+    w = packed.shape[-1] - Dh
+    if split_heads:
+        send = packed.view(B, m, H // m, Dh + w).movedim(1, 0).contiguous()
+        parts = torch.empty_like(send)
+        dist.all_to_all_single(parts, send, group=group)
+    else:
+        parts = packed.new_empty((m * B, H, Dh + w))
+        dist.all_gather_into_tensor(parts, packed, group=group)
+        parts = parts.view(m, B, H, Dh + w)
+    lses = parts[..., Dh:].contiguous().view(torch.float32)[..., 0]
+    return merge_partials(parts[..., :Dh], lses).to(out.dtype)
+
+
+def slots_from_heads(kv: torch.Tensor, first_heads: List[int], n_heads: int) -> torch.Tensor:
+    """This rank's slots of every kv head, from each model rank's kv heads
+    over every slot: ``kv`` (..., C, n, Dh) holds the heads [first_heads[r],
+    first_heads[r] + n) of this rank r, and the result (..., C/m, n_heads, Dh)
+    this rank's slots [r·C/m, (r+1)·C/m) of heads 0 .. n_heads - 1 (one
+    all-to-all over ``model``). Where several ranks hold a head they hold the
+    same values, and the first of them is read."""
+    group = _model_group()
+    m = dist.get_world_size(group)
+    C, n = kv.shape[-3], kv.shape[-2]
+    send = kv.unflatten(-3, (m, C // m)).movedim(-4, 0).contiguous()  # (m, ..., C/m, n, Dh)
+    parts = torch.empty_like(send)
+    dist.all_to_all_single(parts, send, group=group)
+    ranks, local = first_holders(first_heads, n, n_heads, kv.device)
+    # parts[ranks[j], ..., local[j], :]: the advanced index puts the heads first
+    picked = parts.movedim(-2, 1)[ranks, local]  # (n_heads, ..., C/m, Dh)
+    return picked.movedim(0, -2)
+
+
+def first_holders(first_heads: List[int], n: int, n_heads: int, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each of ``n_heads`` heads, the first model rank whose ``n`` heads
+    from ``first_heads[rank]`` hold it, and its place among them."""
+    src = [next(s for s in range(len(first_heads)) if first_heads[s] <= j < first_heads[s] + n)
+           for j in range(n_heads)]
+    return (torch.tensor(src, device=device),
+            torch.tensor([j - first_heads[s] for j, s in enumerate(src)], device=device))
 
 
 def named_sharding(*logical_axes: Optional[str]) -> Optional[NamedSharding]:

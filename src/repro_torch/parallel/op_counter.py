@@ -88,6 +88,11 @@ def _decode(q, k_cache, v_cache, cache_len, scale):
                         k_cache.shape[0] * k_cache.shape[1])
 
 
+def _decode_lse(q, k_cache, v_cache, cache_len, scale):
+    return costs.decode(q.shape, k_cache.shape, q.element_size(),
+                        k_cache.shape[0] * k_cache.shape[1], with_lse=True)
+
+
 def _ssd_fwd(x, dt, A, Bmat, Cmat, h0, chunk):
     B, S, H, P = x.shape
     return costs.ssd_forward(B, S, H, P, Bmat.shape[-1], chunk, x.element_size(),
@@ -113,6 +118,7 @@ KERNEL_OPS: Dict[str, Tuple[str, Callable[..., costs.Work]]] = {
     "flash_attention_fwd": ("flash_attention", _flash_fwd),
     "flash_attention_bwd": ("flash_attention_bwd", _flash_bwd),
     "decode_attention": ("decode_attention", _decode),
+    "decode_attention_lse": ("decode_attention", _decode_lse),
     "ssd_scan_fwd": ("ssd_scan", _ssd_fwd),
     "ssd_scan_bwd": ("ssd_scan_bwd", _ssd_bwd),
     "rglru_scan_fwd": ("rglru_scan", _rglru_fwd),

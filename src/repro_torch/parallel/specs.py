@@ -28,7 +28,8 @@ from repro_torch import tree
 from repro_torch.convert import experts_blocked
 from repro_torch.models import layers, mamba2, rglru
 from repro_torch.models.config import ModelConfig
-from .axes import AxisRules, NamedSharding, PartitionSpec, is_spec, mesh_sizes
+from .axes import (AxisRules, NamedSharding, PartitionSpec, is_spec, kv_seq_span, mesh_sizes,
+                   splits_kv_seq)
 
 P = PartitionSpec
 
@@ -185,9 +186,10 @@ def make_cache_specs(cfg: ModelConfig, cache_like: Any, rules: AxisRules,
     These are the specs of the whole cache, as the JAX package lays it out,
     and ``cache_like`` is a whole cache (``lm.init_cache`` without a mesh).
     On a tp mesh the port's ``init_cache`` makes each rank's own state,
-    which ``cache_share`` places in the whole: the kv heads its q heads read
-    and, for the recurrent states, the split that the specs name (``ssm``
-    by heads, ``h`` by width) but for two leaves: mamba2's ``conv`` holds
+    which ``cache_share`` places in the whole: the split that the specs
+    name (k and v by slots, ``kv_seq``, where the model size divides them;
+    else the kv heads its q heads read; ``ssm`` by heads, ``h`` by width)
+    but for two leaves: mamba2's ``conv`` holds
     the rank's heads' x columns and B and C whole (JAX splits conv_dim in
     contiguous blocks), and the RG-LRU's ``conv`` holds its whole gate
     block where blocks straddle ranks (m > 8).
@@ -196,17 +198,26 @@ def make_cache_specs(cfg: ModelConfig, cache_like: Any, rules: AxisRules,
     return _specs(tree.unflatten_like(cache_like, by_path), cache_like, rules, mesh)
 
 
-def cache_share(cfg: ModelConfig, path: str) -> Optional[Tuple[int, List[Tuple[int, int]]]]:
+def cache_share(cfg: ModelConfig, path: str, n_slots: Optional[int] = None
+                ) -> Optional[Tuple[int, List[Tuple[int, int]]]]:
     """Where this rank's leaf ``path`` of the serve state lies in the whole
     cache under the active rules and mesh: (the dim, counted from the end,
     and the spans [lo, hi) of the whole dim it holds, in order), or None
-    where it holds the whole dim. A KV cache holds the kv heads its q heads
-    read (``layers.kv_heads_local``); mamba2's ``ssm`` its heads and its
+    where it holds the whole dim. A KV cache of ``n_slots`` whole slots
+    holds its slots of every kv head where they split over ``model``
+    (``axes.kv_seq_span``), else the kv heads its q heads read
+    (``layers.kv_heads_local``); mamba2's ``ssm`` its heads and its
     ``conv`` their x columns and B and C (``mamba2.conv_spans``); the
     RG-LRU's ``h`` its own columns and its ``conv`` the columns whose conv
     it computes (``rglru.width_share``)."""
     name = path.split("/")[-1]
     if name in ("k", "v"):
+        if n_slots is None and splits_kv_seq():
+            raise ValueError(f"cache_share({path!r}): the rules split kv_seq over 'model'; "
+                             "the whole cache's n_slots tells a share from a whole cache")
+        span = None if n_slots is None else kv_seq_span(n_slots)
+        if span is not None:
+            return -3, [span]
         local = layers.kv_heads_local(cfg)
         return None if local is None else (-2, [(local[0], local[0] + local[1])])
     if cfg.family == "ssm" and name in ("ssm", "conv"):

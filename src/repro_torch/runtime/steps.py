@@ -6,7 +6,7 @@ builds functions for ``jax.jit``; ``jax.value_and_grad`` becomes
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -72,9 +72,14 @@ def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, max_len: Optional[int] = None) -> Callable:
+    """One decode step of caches of ``max_len`` tokens (``lm.decode_step``:
+    needed where the rules split the caches' slots over ``model``; whole
+    caches need none, and then none is passed)."""
+    extra = {} if max_len is None else {"max_len": max_len}
+
     def decode_step(params, cache, token, pos):
-        logits, cache = lm.decode_step(cfg, params, cache, token, pos)
+        logits, cache = lm.decode_step(cfg, params, cache, token, pos, **extra)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, cache
     return decode_step

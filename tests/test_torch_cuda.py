@@ -152,6 +152,62 @@ def test_decode_calls_are_bitwise_repeatable(dev, B, C, H, Hkv, Dh, lens, dtype)
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("group", [1, 3, 4, 16])
+@pytest.mark.parametrize("Dh", [20, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_logsumexp_vs_plain(dev, group, Dh, dtype):
+    """The combine's logsumexp (return_lse) against the plain float64 one:
+    within 1e-4 (1 + |lse|), -inf on a row of length 0; one launch a call,
+    and the output bitwise the call's without it, on both bodies."""
+    from repro_torch.kernels import decode_attention, ops, ref
+    B, C, Hkv = 4, 300, 2
+    gen = torch.Generator().manual_seed(7)
+    q = _randn(gen, (B, group * Hkv, Dh), dtype, dev)
+    kc, vc = (_randn(gen, (B, C, Hkv, Dh), dtype, dev) for _ in range(2))
+    cl = torch.tensor([0, 1, 300, 157], dtype=torch.int32, device=dev)
+    plain = ops.decode_attention(q, kc, vc, cl)
+    before = decode_attention.launches
+    got, lse = ops.decode_attention(q, kc, vc, cl, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert torch.equal(got, plain)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, group * Hkv)
+    _, want = ref.decode_attention(q, kc, vc, cl, return_lse=True)
+    assert bool(torch.isneginf(lse[0]).all())
+    torch.testing.assert_close(lse[1:], want[1:], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,C,H,Hkv,Dh,lens", [(4, 2048, 16, 1, 256, (2048, 2048, 1000, 0)),
+                                                 (4, 544, 16, 8, 128, (1, 200, 544, 377)),
+                                                 (4, 544, 24, 8, 128, (1, 200, 544, 377))])
+@pytest.mark.parametrize("m", [2, 4, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_decode_slot_shares_merge_to_the_whole_call(dev, B, C, H, Hkv, Dh, lens, m, dtype,
+                                                    tol):
+    """Context-sharded decode's arithmetic: the cache cut into m slot shares
+    (recurrentgemma-9b's, qwen3-1.7b's and phi4-mini-3.8b's decode shapes),
+    the kernel on each share with its own valid count and the logsumexp,
+    the partials merged in order (``axes.merge_partials``), against the
+    kernel's whole call at decode's bounds; rows of length 0 exactly 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.axes import merge_partials
+    gen = torch.Generator().manual_seed(8)
+    q = _randn(gen, (B, H, Dh), dtype, dev)
+    kc, vc = (_randn(gen, (B, C, Hkv, Dh), dtype, dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n = C // m
+    parts = [ops.decode_attention(q, kc[:, r * n:(r + 1) * n].contiguous(),
+                                  vc[:, r * n:(r + 1) * n].contiguous(),
+                                  torch.clamp(cl - r * n, 0, n).to(torch.int32),
+                                  return_lse=True) for r in range(m)]
+    got = merge_partials(torch.stack([o for o, _ in parts]),
+                         torch.stack([s for _, s in parts])).to(dtype)
+    torch.cuda.synchronize()
+    empty = [i for i, k in enumerate(lens) if k == 0]
+    assert torch.count_nonzero(got[empty]) == 0
+    _decode_close(got, ops.decode_attention(q, kc, vc, cl), dtype, tol)
+
+
 def test_decode_refuses_bf16_off_a_16_byte_boundary(dev):
     """The mma body moves 16-byte rows with cp.async: a bf16 cache view 2
     bytes past a boundary raises, and is not copied behind the caller's

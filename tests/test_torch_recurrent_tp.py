@@ -220,7 +220,8 @@ def test_recurrent_tensor_parallel_greedy_serving_matches_the_unsharded_run(worl
     for path, shape in _local_states(arch).items():
         assert got["local_shapes"][path] == shape, path
     if arch == "recurrentgemma-9b":
-        assert got["local_kv_heads"] == 1  # 4 smoke heads over 4 ranks on 1 kv head
+        # its one kv head at C/4 of the 16 ring slots a rank (kv_seq)
+        assert got["local_kv_heads"] == 1 and got["local_shapes"]["units/2/k"][-3] == 4
     assert len(got["logits"]) == len(want["logits"]) == GEN + 1
     for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
         assert g.shape == w.shape

@@ -25,7 +25,8 @@ Three worlds of 8 ranks run while the references are computed here:
   ``single_pod_rules``, against the port's unsharded run (which the other
   test_torch_* files hold to JAX): logits and caches within 1e-4 of each
   tensor's largest magnitude (tests/test_torch_sharded_serve.py's bound),
-  the tokens equal, each rank's cache holding its one kv head.
+  the tokens equal, each rank's cache holding its C/4 slots of both kv
+  heads (the context-sharded layout, tests/test_torch_kv_seq.py).
 
 And in a fake world of 8 ranks (``launch/dryrun``), the per-rank dot FLOP
 of a qwen3-1.7b smoke prefill under the ``tp`` layout equals, exactly, the
@@ -50,7 +51,7 @@ from repro.models.registry import get_smoke_config as jax_smoke_config
 from repro_torch import tree
 from repro_torch.convert import params_from_jax
 from repro_torch.data.pipeline import DataConfig, synth_tokens
-from repro_torch.models import layers, lm, mamba2, rglru
+from repro_torch.models import layers, lm, mamba2, rglru, transformer
 from repro_torch.models.registry import get_config, get_smoke_config
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import multi_pod_rules, single_pod_rules
@@ -248,7 +249,10 @@ def test_tensor_parallel_greedy_serving_matches_the_unsharded_run(worlds, arch):
     _, _, (results, refs) = worlds
     got, want = results[arch], refs[arch]
     assert got["shards"] == 2 and not got["replicated"]
-    assert got["local_kv_heads"] == 1  # 4 smoke heads over 4 ranks on 2 kv heads
+    # the caches' slots split over model (kv_seq; 4 divides qwen3's 16 and
+    # mixtral's 32-slot ring): C/4 slots of both smoke kv heads a rank
+    C = transformer.cache_size_for(_f32(arch), PROMPT[arch] + GEN)
+    assert got["local_kv_heads"] == 2 and got["local_shapes"]["k"][-3] == C // 4
     assert len(got["logits"]) == len(want["logits"]) == GEN + 1
     for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
         assert g.shape == w.shape

@@ -15,6 +15,7 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.launch.mesh import make_auto_mesh, make_smoke_mesh
+from repro_torch.models.transformer import cache_size_for
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import single_pod_rules
 from repro_torch.parallel.specs import _cache_axes, batch_rows, batch_rules, cache_share
@@ -27,7 +28,7 @@ def serve(cfg, params, prompt, max_len: int, tokens=None, gen: int = 4):
     where given (teacher forcing), else greedy. Returns (the logits of
     prefill and of each decode step, the tokens fed, the cache)."""
     logits, cache = steps.make_prefill_step(cfg, max_len)(params, prompt)
-    decode = steps.make_decode_step(cfg)
+    decode = steps.make_decode_step(cfg, max_len)
     B, S = prompt["tokens"].shape
     pos = torch.full((B,), S, dtype=torch.int32)
     out, fed = [logits], []
@@ -42,15 +43,17 @@ def serve(cfg, params, prompt, max_len: int, tokens=None, gen: int = 4):
     return out, fed, cache
 
 
-def _gather_cache(cfg, cache: Any, mesh) -> Dict[str, torch.Tensor]:
+def _gather_cache(cfg, cache: Any, mesh, max_len: int) -> Dict[str, torch.Tensor]:
     """Every rank's batch rows of every cache leaf, in block order, and of a
-    leaf that holds a rank's share under tensor parallelism (a KV cache's kv
-    heads, a recurrent state's heads or width: ``specs.cache_share``) the
-    whole, each part from a model rank that holds it."""
+    leaf that holds a rank's share under tensor parallelism (a KV cache's
+    slots or kv heads, a recurrent state's heads or width:
+    ``specs.cache_share``) the whole, each part from a model rank that holds
+    it."""
     out = {}
+    n_slots = cache_size_for(cfg, max_len)
     for path, leaf in tree.leaf_paths(cache).items():
         dim = _cache_axes(path, leaf.dim()).index("batch")
-        share = cache_share(cfg, path)
+        share = cache_share(cfg, path, n_slots)
         if share is not None:
             leaf = _whole_of_shares(leaf, *share)
         out[path] = _gather_rows(leaf.movedim(dim, 0), mesh).movedim(0, dim)
@@ -106,7 +109,7 @@ def serve_job(rank: int, workdir: str) -> None:
                              "tokens": [_gather_rows(t, mesh) for t in fed],
                              "local_kv_heads": kv[0].shape[-2] if kv else None,
                              "local_shapes": {k: tuple(t.shape) for k, t in leaves.items()},
-                             "cache": _gather_cache(cfg, cache, mesh),
+                             "cache": _gather_cache(cfg, cache, mesh, case["max_len"]),
                              "replicated": rules is not case["rules"], "shards": n}
     _save(rank, workdir, results)
 
