@@ -1,0 +1,9 @@
+"""Device: the share of the traced batches' host seconds in which no
+operation ran on the device, in percent."""
+from portbench.harness import stats
+
+
+def read(run):
+    if not run.requests or run.trace is None or not run.trace.window_s:
+        return None
+    return 100.0 * stats.idle_share(run.trace.busy_s, run.trace.window_s)

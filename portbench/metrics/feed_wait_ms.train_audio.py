@@ -1,0 +1,8 @@
+"""Dataplane: the mean, over the window's steps, of the time a step waits
+for its batch from the feed (the trainer's ``feed_times_s`` counter).
+In the audio encoder's training cells, which report ``train_frames_per_s``."""
+import statistics
+
+
+def read(run):
+    return statistics.fmean(run.feed_s) * 1e3 if run.feed_s else None

@@ -1,0 +1,7 @@
+"""Token positions of all the window's training steps over the window's
+seconds."""
+from portbench.harness import stats
+
+
+def read(run):
+    return stats.rate(run.tokens, run.window_s) if run.tokens else None
